@@ -1,0 +1,135 @@
+"""Vector math on [..., 3] tensors, plus the numpy helpers the scene
+loader uses.
+
+Counterpart of gradientdomain_mitsuba_tpu/core/math.py (Mitsuba's
+Point/Vector/Normal/Frame/Transform headers).  A "vector" is any tensor
+whose last axis is 3; every function broadcasts over leading axes.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def dot(a, b, keepdims: bool = False):
+    return torch.sum(a * b, dim=-1, keepdim=keepdims)
+
+
+def cross(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def length(v, keepdims: bool = False):
+    return torch.sqrt(torch.clamp_min(dot(v, v, keepdims=keepdims), 0.0))
+
+
+def squared_length(v, keepdims: bool = False):
+    return dot(v, v, keepdims=keepdims)
+
+
+def normalize(v):
+    return v / torch.clamp_min(length(v, keepdims=True), 1e-20)
+
+
+def build_frame(n):
+    """Branchless orthonormal basis from unit normal n (Duff et al. 2017).
+    Returns (s, t) so that (s, t, n) is right-handed orthonormal
+    (mitsuba Frame(n), include/mitsuba/core/frame.h)."""
+    z = n[..., 2]
+    sign = torch.where(z >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + z)
+    b = n[..., 0] * n[..., 1] * a
+    s = torch.stack(
+        [1.0 + sign * n[..., 0] * n[..., 0] * a, sign * b, -sign * n[..., 0]],
+        dim=-1)
+    t = torch.stack([b, sign + n[..., 1] * n[..., 1] * a, -n[..., 1]],
+                    dim=-1)
+    return s, t
+
+
+def to_local(v, s, t, n):
+    """World direction -> local shading frame coordinates."""
+    return torch.stack([dot(v, s), dot(v, t), dot(v, n)], dim=-1)
+
+
+def to_world(v, s, t, n):
+    """Local shading frame coordinates -> world direction."""
+    return v[..., 0:1] * s + v[..., 1:2] * t + v[..., 2:3] * n
+
+
+def transform_point(m, p):
+    """Apply 4x4 matrix m to points p [..., 3]."""
+    r = p @ m[:3, :3].T + m[:3, 3]
+    w = p @ m[3, :3] + m[3, 3]
+    return r / w[..., None]
+
+
+def transform_vector(m, v):
+    return v @ m[:3, :3].T
+
+
+# ---------------------------------------------------------------------------
+# host-side (numpy, float64) transforms for the scene loader
+# ---------------------------------------------------------------------------
+
+def np_look_at(origin, target, up):
+    """Mitsuba <lookat> semantics: camera-to-world with +z toward target,
+    +x right, +y up (reference: Transform::lookAt, src/libcore/transform.cpp)."""
+    origin = np.asarray(origin, np.float64)
+    target = np.asarray(target, np.float64)
+    up = np.asarray(up, np.float64)
+    d = target - origin
+    d = d / np.linalg.norm(d)
+    left = np.cross(up / np.linalg.norm(up), d)
+    left = left / np.linalg.norm(left)
+    new_up = np.cross(d, left)
+    m = np.eye(4)
+    # Mitsuba: x axis = "left" column so that the frame is right-handed with
+    # +z forward; matches Transform::lookAt which uses (left, up, dir).
+    m[:3, 0] = left
+    m[:3, 1] = new_up
+    m[:3, 2] = d
+    m[:3, 3] = origin
+    return m
+
+
+def np_translate(v):
+    m = np.eye(4)
+    m[:3, 3] = v
+    return m
+
+
+def np_scale(v):
+    m = np.eye(4)
+    m[0, 0], m[1, 1], m[2, 2] = v[0], v[1], v[2]
+    return m
+
+
+def np_rotate(axis, angle_deg):
+    axis = np.asarray(axis, np.float64)
+    axis = axis / np.linalg.norm(axis)
+    a = np.deg2rad(angle_deg)
+    c, s = np.cos(a), np.sin(a)
+    x, y, z = axis
+    r = np.array([
+        [c + x * x * (1 - c), x * y * (1 - c) - z * s, x * z * (1 - c) + y * s],
+        [y * x * (1 - c) + z * s, c + y * y * (1 - c), y * z * (1 - c) - x * s],
+        [z * x * (1 - c) - y * s, z * y * (1 - c) + x * s, c + z * z * (1 - c)],
+    ])
+    m = np.eye(4)
+    m[:3, :3] = r
+    return m
+
+
+def np_perspective(fov_deg, near, far):
+    """Mitsuba perspective projection (x fov by default)."""
+    recip = 1.0 / (far - near)
+    cot = 1.0 / np.tan(np.deg2rad(fov_deg) / 2.0)
+    m = np.array([
+        [cot, 0, 0, 0],
+        [0, cot, 0, 0],
+        [0, 0, far * recip, -near * far * recip],
+        [0, 0, 1, 0],
+    ])
+    return m

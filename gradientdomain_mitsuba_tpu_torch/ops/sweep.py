@@ -1,0 +1,150 @@
+"""Closest-hit / any-hit sweeps over the whole triangle soup.
+
+Counterpart of gradientdomain_mitsuba_tpu/ops/pallas_sweep.py: the two
+Pallas kernels _sweep_kernel and _occl_kernel become the hand-written
+CUDA kernels of csrc/sweep.cu (see the note there for the design).
+
+A CPU tensor goes to the plain PyTorch version (ops/intersect.py
+intersect_matmul / occluded_matmul).  A CUDA tensor launches the kernel or
+raises: there is no fallback.  The kernels are compiled with nvcc at
+first use (sm_90a, plain C interface, bound with ctypes) into the
+package's git-ignored _build/ directory.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import threading
+
+import torch
+
+from .. import native
+from . import intersect as isec
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "sweep.cu")
+_LOCK = threading.Lock()
+_LIB = None
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME or PATH)")
+    return found
+
+
+def _nvcc_cmd(sources, out):
+    # no --use_fast_math: the kernels' reciprocal must be IEEE
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            *sources, "-o", out]
+
+
+def load_library():
+    """Build (first call only) and load the sweep kernels' library."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(native.build_library("sweep", [_SRC],
+                                                   _nvcc_cmd))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.sweep_closest.argtypes = [p, p, p, p, p, i, i, p, p, p, p, p]
+            lib.sweep_closest.restype = ctypes.c_int
+            lib.sweep_occluded.argtypes = [p, p, p, p, p, i, i, p, p]
+            lib.sweep_occluded.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
+
+
+def _check(o, d, mint, maxt, linC):
+    """Validate what the kernel takes: CUDA f32 contiguous tensors of
+    matching shapes on one device."""
+    N = o.shape[0]
+    shapes = {"o": (o, (N, 3)), "d": (d, (N, 3)), "mint": (mint, (N,)),
+              "maxt": (maxt, (N,)), "linC": (linC, (10, linC.shape[-1]))}
+    for name, (x, shape) in shapes.items():
+        if x.device != o.device:
+            raise ValueError(f"{name} is on {x.device}, o on {o.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                             f"expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if linC.shape[1] % 4:
+        raise ValueError(f"linC width {linC.shape[1]} is not 4*T")
+    if N >= 2 ** 31:
+        raise ValueError(f"{N} rays exceed the kernel's int32 index")
+
+
+class SweepKernel:
+    """One sweep (closest hit or any hit) with its launch count.
+
+    Call signature (o, d, mint, maxt, linC), as intersect_matmul /
+    occluded_matmul.  `launches` counts kernel launches only: a CPU call
+    runs the plain version and does not count."""
+
+    def __init__(self, any_hit: bool, n_tris: int):
+        self.any_hit = any_hit
+        self.n_tris = int(n_tris)
+        self.launches = 0
+
+    @property
+    def name(self):
+        return "sweep_occluded" if self.any_hit else "sweep_closest"
+
+    def plain(self, o, d, mint, maxt, linC):
+        fn = isec.occluded_matmul if self.any_hit else isec.intersect_matmul
+        return fn(o, d, mint, maxt, linC)
+
+    def __call__(self, o, d, mint, maxt, linC):
+        if o.device.type == "cpu":
+            return self.plain(o, d, mint, maxt, linC)
+        if o.device.type != "cuda":
+            raise ValueError(f"no sweep kernel for device {o.device}")
+        _check(o, d, mint, maxt, linC)
+        T = linC.shape[1] // 4
+        if T < self.n_tris:
+            raise ValueError(f"linC holds {T} triangles, scene has "
+                             f"{self.n_tris}")
+        lib = load_library()
+        N = o.shape[0]
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        ptrs = [x.data_ptr() for x in (o, d, mint, maxt, linC)]
+        with torch.cuda.device(o.device):
+            if self.any_hit:
+                occ = torch.empty(N, dtype=torch.bool, device=o.device)
+                err = lib.sweep_occluded(*ptrs, N, T, occ.data_ptr(), stream)
+                out = occ
+            else:
+                t = torch.empty(N, dtype=torch.float32, device=o.device)
+                u = torch.empty_like(t)
+                v = torch.empty_like(t)
+                prim = torch.empty(N, dtype=torch.int32, device=o.device)
+                err = lib.sweep_closest(*ptrs, N, T, t.data_ptr(),
+                                        u.data_ptr(), v.data_ptr(),
+                                        prim.data_ptr(), stream)
+                valid = prim >= 0
+                out = isec.Hit(t=t, u=u, v=v, prim=prim, valid=valid)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1
+        return out
+
+
+def make_sweep_intersector(n_tris: int) -> SweepKernel:
+    """Closest hit over the whole soup: (o, d, mint, maxt, linC) -> Hit."""
+    return SweepKernel(any_hit=False, n_tris=n_tris)
+
+
+def make_sweep_occluder(n_tris: int) -> SweepKernel:
+    """Any hit over the whole soup: (o, d, mint, maxt, linC) -> bool [N]."""
+    return SweepKernel(any_hit=True, n_tris=n_tris)

@@ -1,0 +1,224 @@
+"""Texture tables (host side).
+
+Counterpart of the numpy part of gradientdomain_mitsuba_tpu/ops/texture.py:
+the TextureTable the scene loader builds (bitmap mip atlases,
+checkerboard/grid/vertexcolor/wireframe rows).  Texture EVALUATION is not
+ported yet (ROADMAP Queue 1 item 13): GPTracer raises on textured scenes.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+TEX_BITMAP = 0
+TEX_CHECKERBOARD = 1
+TEX_GRID = 2
+TEX_VERTEXCOLOR = 3   # src/textures/vertexcolors.cpp: barycentric blend
+TEX_WIREFRAME = 4     # src/textures/wireframe.cpp: world edge distance
+
+
+class TextureTable(NamedTuple):
+    kind: np.ndarray       # [T] i32
+    color0: np.ndarray     # [T, 3] checkerboard color0 / bitmap scale
+    color1: np.ndarray     # [T, 3]
+    uv_scale: np.ndarray   # [T, 2]
+    uv_offset: np.ndarray  # [T, 2]
+    image: np.ndarray      # [T, Hmax, Wmax, 3] atlas incl. mip levels
+    img_size: np.ndarray   # [T, 2] (h, w) of level 0
+    lvl_off: np.ndarray    # [T, L, 2] (y, x) atlas offset per level
+    lvl_size: np.ndarray   # [T, L, 2] (h, w) per level
+    n_levels: np.ndarray   # [T] i32
+    grid_width: np.ndarray  # [T] gridtexture line width
+    filter_ewa: np.ndarray  # [T] i32: anisotropic (EWA-class) filtering
+    #                         (bitmap filterType, Mitsuba default "ewa")
+
+
+def _lvl_dummy(t=1):
+    return (np.zeros((t, 1, 2), np.int32), np.ones((t, 1, 2), np.int32),
+            np.ones(t, np.int32))
+
+
+def empty_table() -> TextureTable:
+    lo, ls, nl = _lvl_dummy()
+    return TextureTable(
+        kind=np.zeros(1, np.int32),
+        color0=np.ones((1, 3), np.float32),
+        color1=np.ones((1, 3), np.float32),
+        uv_scale=np.ones((1, 2), np.float32),
+        uv_offset=np.zeros((1, 2), np.float32),
+        image=np.ones((1, 1, 1, 3), np.float32),
+        img_size=np.ones((1, 2), np.int32),
+        lvl_off=lo, lvl_size=ls, n_levels=nl,
+        grid_width=np.full(1, 0.01, np.float32),
+        filter_ewa=np.zeros(1, np.int32))
+
+
+def _downsample2(img):
+    """2x box downsample with replicate padding for odd sizes."""
+    h, w = img.shape[:2]
+    if h > 1 and h % 2:
+        img = np.concatenate([img, img[-1:]], axis=0)
+    if w > 1 and w % 2:
+        img = np.concatenate([img, img[:, -1:]], axis=1)
+    h, w = img.shape[:2]
+    if h > 1:
+        img = 0.5 * (img[0::2] + img[1::2])
+    if w > 1:
+        img = 0.5 * (img[:, 0::2] + img[:, 1::2])
+    return img
+
+
+def _build_pyramid(img):
+    """[level 0 image, ...] down to 1x1 (box-filtered, mipmap.h E*Box)."""
+    levels = [img]
+    while levels[-1].shape[0] > 1 or levels[-1].shape[1] > 1:
+        levels.append(_downsample2(levels[-1]))
+    return levels
+
+
+def _pack_pyramid(levels):
+    """Pack a mip chain into one 2D slab: level 0 at (0, 0), levels >= 1
+    stacked vertically at x = w0.  Returns (slab, offsets, sizes)."""
+    h0, w0 = levels[0].shape[:2]
+    side_h = sum(l.shape[0] for l in levels[1:])
+    H = max(h0, side_h)
+    W = w0 + (levels[1].shape[1] if len(levels) > 1 else 0)
+    slab = np.zeros((H, W, 3), np.float32)
+    slab[:h0, :w0] = levels[0]
+    offs, sizes = [(0, 0)], [(h0, w0)]
+    y = 0
+    for l in levels[1:]:
+        lh, lw = l.shape[:2]
+        slab[y:y + lh, w0:w0 + lw] = l
+        offs.append((y, w0))
+        sizes.append((lh, lw))
+        y += lh
+    return slab, offs, sizes
+
+
+def build_table(nodes, base_dir) -> TextureTable:
+    """Texture plugin nodes -> stacked table (host side)."""
+    import os
+    from ..scene.ir import spectrum_value
+    if not nodes:
+        return empty_table()
+    kinds, c0s, c1s, scales, offsets = [], [], [], [], []
+    slabs, lvl_offs, lvl_sizes, sizes0 = [], [], [], []
+    grid_widths = {}
+    ewas = []
+    for node in nodes:
+        us = float(node.get("uscale", 1.0))
+        vs = float(node.get("vscale", 1.0))
+        uo = float(node.get("uoffset", 0.0))
+        vo = float(node.get("voffset", 0.0))
+        scales.append((us, vs))
+        offsets.append((uo, vo))
+        mul = np.ones(3, np.float32)
+        if node.type == "scale":
+            # scale wrapper (src/textures/scale.cpp): multiply the
+            # nested texture; fold the factor into the color/scale
+            # columns at build time
+            mul = spectrum_value(node.get("value"), (1.0,) * 3)
+            nested = [ch for ch in node.children if ch.kind == "texture"]
+            if nested:
+                node = nested[0]
+        ewas.append(1 if (node.type == "bitmap" and str(
+            node.get("filterType", "ewa")).lower() == "ewa") else 0)
+        if node.type == "bitmap":
+            kinds.append(TEX_BITMAP)
+            c0s.append(mul)  # bitmap scale
+            c1s.append(np.zeros(3, np.float32))
+            path = os.path.join(base_dir, node.get("filename"))
+            if path.lower().endswith(".exr"):
+                from ..utils import exr
+                img = exr.read_rgb(path)
+            else:
+                from PIL import Image
+                raw = np.asarray(Image.open(path).convert("RGB"),
+                                 np.float32) / 255.0
+                gamma = float(node.get("gamma", -1.0))
+                if gamma == -1.0:
+                    img = np.where(raw <= 0.04045, raw / 12.92,
+                                   ((raw + 0.055) / 1.055) ** 2.4)
+                else:
+                    img = raw ** gamma
+            img = img.astype(np.float32)
+        else:
+            if node.type == "checkerboard":
+                kinds.append(TEX_CHECKERBOARD)
+                c0s.append(mul * spectrum_value(node.get("color0"),
+                                                (0.4,) * 3))
+                c1s.append(mul * spectrum_value(node.get("color1"),
+                                                (0.2,) * 3))
+            elif node.type == "gridtexture":
+                kinds.append(TEX_GRID)
+                # color0 = background, color1 = grid lines; lineWidth
+                # rides the unused color1 alpha... stored in offsets? no:
+                # keep it in color0's companion scalar table via c1 w
+                c0s.append(mul * spectrum_value(node.get("color0"),
+                                                (0.4,) * 3))
+                c1s.append(mul * spectrum_value(node.get("color1"),
+                                                (0.2,) * 3))
+                grid_widths[len(kinds) - 1] = float(
+                    node.get("lineWidth", 0.01))
+            elif node.type in ("vertexcolors", "curvature"):
+                # per-hit barycentric color arrives via the Intersection
+                # bary payload; color0 folds in a scale-wrapper factor.
+                # curvature (curvature.cpp) bakes its per-vertex estimate
+                # into the same channel at mesh load (scene.compile_scene)
+                # and folds its own `scale` knob here.
+                kinds.append(TEX_VERTEXCOLOR)
+                c0s.append(mul * (float(node.get("scale", 1.0))
+                                  if node.type == "curvature" else 1.0))
+                c1s.append(np.zeros(3, np.float32))
+            elif node.type == "wireframe":
+                kinds.append(TEX_WIREFRAME)
+                c0s.append(mul * spectrum_value(node.get("interiorColor"),
+                                                (0.5,) * 3))
+                c1s.append(mul * spectrum_value(node.get("edgeColor"),
+                                                (0.1,) * 3))
+                # 0.0 = "auto": compile_scene patches in 0.1x the scene
+                # mean edge length (wireframe.cpp default)
+                grid_widths[len(kinds) - 1] = float(
+                    node.get("lineWidth", 0.0))
+            else:
+                # unsupported texture type: constant grey stand-in
+                kinds.append(TEX_CHECKERBOARD)
+                c0s.append(np.full(3, 0.5, np.float32))
+                c1s.append(np.full(3, 0.5, np.float32))
+            img = np.ones((1, 1, 3), np.float32)
+        slab, offs, szs = _pack_pyramid(_build_pyramid(img))
+        slabs.append(slab)
+        lvl_offs.append(offs)
+        lvl_sizes.append(szs)
+        sizes0.append((img.shape[0], img.shape[1]))
+
+    hmax = max(s.shape[0] for s in slabs)
+    wmax = max(s.shape[1] for s in slabs)
+    L = max(len(o) for o in lvl_offs)
+    T = len(slabs)
+    stack = np.zeros((T, hmax, wmax, 3), np.float32)
+    lo = np.zeros((T, L, 2), np.int32)
+    ls = np.ones((T, L, 2), np.int32)
+    nl = np.zeros(T, np.int32)
+    for i, slab in enumerate(slabs):
+        stack[i, :slab.shape[0], :slab.shape[1]] = slab
+        n = len(lvl_offs[i])
+        lo[i, :n] = lvl_offs[i]
+        ls[i, :n] = lvl_sizes[i]
+        # out-of-range rows repeat the coarsest level (clamped gathers)
+        lo[i, n:] = lvl_offs[i][-1]
+        ls[i, n:] = lvl_sizes[i][-1]
+        nl[i] = n
+    return TextureTable(
+        kind=np.asarray(kinds, np.int32),
+        color0=np.stack(c0s).astype(np.float32),
+        color1=np.stack(c1s).astype(np.float32),
+        uv_scale=np.asarray(scales, np.float32),
+        uv_offset=np.asarray(offsets, np.float32),
+        image=stack, img_size=np.asarray(sizes0, np.int32),
+        lvl_off=lo, lvl_size=ls, n_levels=nl,
+        grid_width=np.asarray(
+            [grid_widths.get(i, 0.01) for i in range(T)], np.float32),
+        filter_ewa=np.asarray(ewas, np.int32))

@@ -1,0 +1,169 @@
+"""The port's slice as a whole on the CPU: G-PT render + screened-Poisson
+reconstruction of cbox (16^2, 2 spp, maxDepth 6, seed 3) in both packages.
+
+On the CPU the reference intersects small scenes with intersect_brute;
+here its intersectors are pinned to the linear-MT matmul sweeps
+(intersect_matmul / occluded_matmul) — the math its Pallas sweep kernels
+compute and the port's plain versions implement — so both sides trace
+the same hits.  The buffers then agree tightly (rtol 1e-3 / atol 1e-4 on
+>= 99% of pixels; the allowance covers an ulp-level t difference flipping
+a Russian-roulette or shift decision) and the measured ray counts are
+equal.  The L2 reconstruction is compared the same way; the L1 one by its
+objective and mean, because the reference's own L1 IRLS moves by more
+than that tolerance under one-ulp input changes (test_torch_poisson.py).
+One reference render is compiled per configuration; the L2 final reuses
+the reference's buffers through the reference's solve_l2, which is what
+its render_final does after render_chunk."""
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from gradientdomain_mitsuba_tpu.models import gpt as ref_gpt
+from gradientdomain_mitsuba_tpu.models import poisson as ref_poisson
+from gradientdomain_mitsuba_tpu.ops import common as ref_common
+from gradientdomain_mitsuba_tpu.ops import intersect as ref_isec
+from gradientdomain_mitsuba_tpu.scene import scene as ref_scene
+from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+from gradientdomain_mitsuba_tpu_torch.scene import bridge
+from gradientdomain_mitsuba_tpu_torch.scene import scene as port_scene
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CBOX = os.path.join(ROOT, "data/scenes/cbox/cbox.xml")
+VARS = {"width": "16", "height": "16", "spp": "2", "maxDepth": "6",
+        "integrator": "gpt"}
+SEED, SPP = 3, 2
+BUFS = ("primal", "very_direct", "dx", "dy")
+
+
+def _pinned_matmul(settings, n_tris, n_clusters=0):
+    def closest(o, d, mint, maxt, geom):
+        return ref_isec.intersect_matmul(o, d, mint, maxt, geom.linC)
+
+    def occl(o, d, mint, maxt, geom):
+        return ref_isec.occluded_matmul(o, d, mint, maxt, geom.linC)
+    return ref_common.add_sphere_intersections(closest, occl)
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """Reference render_final (L1) with the matmul sweeps pinned, plus
+    its L2 final from the same buffers."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ref_common, "choose_intersector", _pinned_matmul)
+    try:
+        scene, st = ref_scene.load_scene(CBOX, VARS)
+        tracer = ref_gpt.GPTracer(scene, st)
+        tracer.count_rays = True
+        final, bufs = tracer.render_final(jax.device_put(scene), SEED, SPP,
+                                          alpha=0.2, mode="L1")
+    finally:
+        mp.undo()
+    out = {k: np.asarray(bufs[k]) for k in BUFS}
+    out["rays"] = float(bufs["rays"])
+    out["L1"] = np.asarray(final)
+    out["L2"] = np.asarray(ref_poisson.solve_l2(
+        bufs["primal"], bufs["dx"], bufs["dy"], alpha=0.2, iters=100) +
+        bufs["very_direct"])
+    return out
+
+
+@pytest.fixture(scope="module")
+def port():
+    scene, st = port_scene.load_scene(CBOX, VARS)
+    ts = bridge.to_torch(scene, "cpu")
+    out = {}
+    for mode in ("L1", "L2"):
+        tracer = GPTracer(ts, st)
+        tracer.count_rays = True
+        final, bufs = tracer.render_final(ts, SEED, SPP, alpha=0.2,
+                                          mode=mode)
+        out[mode] = final.numpy()
+        out["rays"] = int(bufs["rays"])
+        out.update({k: bufs[k].numpy() for k in BUFS})
+        assert tracer.kernels[0].launches == 0   # CPU: plain versions
+    return out
+
+
+def _frac_close(got, ref):
+    return np.isclose(got, ref, rtol=1e-3, atol=1e-4).all(-1).mean()
+
+
+def _rel_mean_diff(got, ref):
+    return abs(got.mean() - ref.mean()) / max(abs(ref.mean()), 1e-12)
+
+
+@pytest.mark.parametrize("name", BUFS)
+def test_buffers_match_reference(reference, port, name):
+    got, ref = port[name], reference[name]
+    assert got.shape == ref.shape == (16, 16, 3)
+    assert np.isfinite(got).all()
+    assert _frac_close(got, ref) >= 0.99
+    assert _rel_mean_diff(got, ref) < 1e-4 or \
+        abs(got.mean() - ref.mean()) < 1e-6
+
+
+def test_ray_counts_equal(reference, port):
+    assert port["rays"] == reference["rays"] > 0
+
+
+def test_l2_final_matches_reference(reference, port):
+    assert _frac_close(port["L2"], reference["L2"]) >= 0.99
+    assert _rel_mean_diff(port["L2"], reference["L2"]) < 1e-4
+
+
+def test_l1_final_matches_reference(reference, port):
+    got, ref = port["L1"], reference["L1"]
+    assert np.isfinite(got).all()
+    assert _rel_mean_diff(got, ref) < 5e-3
+    # the same L1 objective over the reconstruction (final - very_direct)
+    p, gx, gy = (reference[k] for k in ("primal", "dx", "dy"))
+    vd = reference["very_direct"]
+
+    def energy(x):
+        gxm, gym = gx.copy(), gy.copy()
+        gxm[:, -1] = 0.0
+        gym[-1] = 0.0
+        dx = np.pad(x[:, 1:] - x[:, :-1], ((0, 0), (0, 1), (0, 0)))
+        dy = np.pad(x[1:] - x[:-1], ((0, 1), (0, 0), (0, 0)))
+        return (np.abs(dx - gxm).sum() + np.abs(dy - gym).sum() +
+                0.2 * np.abs(x - p).sum())
+
+    e_ref, e_got = energy(ref - vd), energy(got - vd)
+    assert abs(e_got - e_ref) <= 0.01 * e_ref, (e_got, e_ref)
+
+
+def test_brute_force_reference_agrees_in_mean(port):
+    """The reference as it runs on the CPU (unpinned: brute-force
+    Moeller-Trumbore) agrees with the port in image means within 1%."""
+    scene, st = ref_scene.load_scene(CBOX, VARS)
+    tracer = ref_gpt.GPTracer(scene, st)
+    final, bufs = tracer.render_final(jax.device_put(scene), SEED, SPP,
+                                      alpha=0.2, mode="L1")
+    assert _rel_mean_diff(port["L1"], np.asarray(final)) < 0.01
+    assert _rel_mean_diff(port["primal"], np.asarray(bufs["primal"])) < 0.01
+
+
+def test_walls_are_colored(port):
+    """Red wall on the left, green on the right (cbox.xml)."""
+    img = port["L2"]
+    left, right = img[4:12, 0:2].mean((0, 1)), img[4:12, -2:].mean((0, 1))
+    assert left[0] > left[1] and right[1] > right[0]
+
+
+def test_render_is_deterministic():
+    scene, st = port_scene.load_scene(CBOX, VARS)
+    ts = bridge.to_torch(scene, "cpu")
+    a = GPTracer(ts, st).render_chunk(ts, SEED, 0, SPP)
+    b = GPTracer(ts, st).render_chunk(ts, SEED, 0, SPP)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_unported_scenes_raise():
+    scene, st = port_scene.load_scene(
+        os.path.join(ROOT, "data/scenes/cbox-mats/cbox-mats.xml"), VARS)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GPTracer(bridge.to_torch(scene, "cpu"), st)
