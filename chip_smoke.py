@@ -2,42 +2,84 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the result line):
+Phases (any failure exits non-zero before the result line; each prints
+its time):
   1. device and build: requires CUDA, prints the card's name and power
-     limit (nvidia-smi) and builds the sweep kernels from csrc/sweep.cu;
-  2. kernel vs plain: both sweep kernels against their plain PyTorch
-     versions on random soups (T = 3, 36, 130, 2048) and on the cbox soup
-     with its own camera and shadow rays (dead lanes, N not a multiple of
-     the block size), then both timed at 1,048,576 cbox rays (CUDA events);
-  3. the slice: cbox 256x256, 64 spp, maxDepth 6, G-PT render + L1
+     limit (nvidia-smi) and builds the sweep kernels (csrc/sweep.cu) and
+     the pair kernels (csrc/trace.cu), one nvcc each, in parallel;
+  2. sweep kernels vs plain: both sweep kernels against their plain
+     PyTorch versions on random soups (T = 3, 36, 130, 2048) and on the
+     cbox soup with its own camera and shadow rays (dead lanes, N not a
+     multiple of the block size), then both timed at 1,048,576 cbox rays
+     (CUDA events);
+  3. slice 1: cbox 256x256, 64 spp, maxDepth 6, G-PT render + L1
      reconstruction through the package's entry points, timed after a
-     warm-up, with the kernels' launch counters reset just before it;
-  4. kernel render vs plain render at 64x64, 4 spp, same seed.
+     warm-up, with the sweep kernels' launch counters reset just before
+     it;
+  4. cbox kernel render vs plain render at 64x64, 4 spp, same seed;
+  5. pair kernels vs plain: both pair kernels against their plain version
+     on random multi-cluster soups (W = 128, 256) and on the full forest
+     (3.08M triangles) with camera, shadow and cosine-sampled bounce rays,
+     each batch both cut to 65,537 rays (more dead lanes, N not a
+     multiple of the block) and whole at 1,048,576 rays, the size of the
+     main path's calls; then the kernels timed at 1,048,576 forest camera
+     and bounce rays (CUDA events), the plain version at its 1,048,576
+     camera rays;
+  6. slice 2: forest 256x256, 16 spp, maxDepth 5, PathTracer.render,
+     timed after a warm-up, with the pair kernels' launch counters reset
+     just before it;
+  7. forest kernel render vs plain render at 64x64, 2 spp, same seed, and
+     a G-PT render_final (L2) of the forest at 64x64, 4 spp.
 Prints one JSON line describing the kernels, then as the last line
 {"ok": true, "device": {...}}.  Imports no jax.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CBOX = os.path.join(ROOT, "data", "scenes", "cbox", "cbox.xml")
+FOREST = os.path.join(ROOT, "data", "scenes", "forest", "forest.xml")
 N_TIMED = 1 << 20
-# agreement required of kernel vs plain (ISSUE: sweep tolerances)
+# agreement required of kernel vs plain (sweep tolerances)
 PRIM_FRAC, T_RTOL, OCC_FRAC = 0.998, 1e-5, 0.999
+# pair kernels vs plain (tests/test_pallas.py's v7 thresholds): valid
+# equal on >= 0.998 of lanes, prim equal on >= 0.995 of lanes both hit,
+# t rtol 1e-5 where the prims agree, occluded equal on >= 0.998
+PAIR_VALID, PAIR_PRIM, PAIR_OCC = 0.998, 0.995, 0.998
+# rays of the cut forest comparisons (odd: not a multiple of the 8-ray
+# block)
+N_PAIR_CMP = 65_537
 # render agreement (tests/test_torch_gpt.py): rtol/atol on >= 99% of pixels
 IMG_RTOL, IMG_ATOL, IMG_FRAC = 1e-3, 1e-4, 0.99
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+class Phase:
+    """Prints a phase's wall time when it ends."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        log(f"--- phase: {self.name}")
+        self.t0 = time.time()
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            log(f"--- phase {self.name}: {time.time() - self.t0:.3f} s")
 
 
 def fail(msg):
@@ -72,6 +114,18 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_call(fn):
+    """fn()'s result and its device time in ms (CUDA events, one call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def compare(kernels, args):
@@ -315,35 +369,330 @@ def phase_render_vs_plain(dev):
     check(abs(ek - ep) <= 0.01 * ep and rel < 5e-3, "L1 final differs")
     check(bool(torch.isfinite(fk).all()), "L1 final not finite")
 
+# ---------------------------------------------------------------------------
+# slice 2: the forest through the pair kernels
+
+def load_forest(dev):
+    """forest.xml at 256x256, 16 spp, maxDepth 5, uploaded to the card."""
+    from gradientdomain_mitsuba_tpu_torch.scene import bridge
+    from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.time()
+    scene_np, st = sc.load_scene(FOREST, {
+        "width": "256", "height": "256", "spp": "16", "maxDepth": "5"})
+    t_load = time.time() - t0
+    scene = bridge.to_torch(scene_np, dev)
+    torch.cuda.synchronize()
+    t_all = time.time() - t0
+    nbytes = torch.cuda.memory_allocated(dev) - base
+    g = scene.geom
+    log(f"forest: {g.indices.shape[0]} triangles, K = "
+        f"{g.cbounds.shape[0]} clusters of W = {st.cluster_window}, "
+        f"mt_slabs {tuple(g.mt_slabs.shape)}, tri_shade "
+        f"{tuple(g.tri_shade.shape)}; load {t_load:.3f} s, load + upload "
+        f"{t_all:.3f} s, scene tables on the card {nbytes} bytes")
+    return scene, st, dict(load_s=t_load, load_upload_s=t_all,
+                           scene_bytes=nbytes)
+
+
+def forest_rays(scene, st, n, dev, seed=0):
+    """n forest camera rays (jittered over the film), shadow rays from
+    their hits toward the light, and cosine-sampled bounce rays from the
+    hits (incoherent).  Lanes whose camera ray missed are dead (maxt = -1)
+    in the shadow and bounce batches.  Hits come from the pair kernel."""
+    from gradientdomain_mitsuba_tpu_torch.core import math as m
+    from gradientdomain_mitsuba_tpu_torch.core import warp
+    from gradientdomain_mitsuba_tpu_torch.ops import common
+    from gradientdomain_mitsuba_tpu_torch.ops import emitter as em
+    from gradientdomain_mitsuba_tpu_torch.ops import sensor
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    g = torch.Generator(device=dev).manual_seed(seed)
+    geom = scene.geom
+    W, H = st.width, st.height
+    pos = torch.rand((n, 2), generator=g, device=dev) * torch.tensor(
+        [W, H], dtype=torch.float32, device=dev)
+    o, d = sensor.sample_ray(scene.camera, W, H, pos,
+                             torch.zeros((n, 2), device=dev))
+    o, d = o.contiguous(), d.contiguous()
+    mint = torch.zeros(n, device=dev)
+    maxt = torch.full((n,), 3e38, device=dev)
+    ck = trace.make_pair_intersector(st.cluster_window,
+                                     geom.cbounds.shape[0])
+    hit = ck(o, d, mint, maxt, geom.mt_slabs, geom.cbounds)
+    its = common.fill_intersection(scene, o, d, hit)
+    n_area = int((scene.emitters.tri_count > 0).sum())
+    ds = em.sample_direct(scene, n_area, 0, its.p,
+                          torch.rand(n, generator=g, device=dev),
+                          torch.rand((n, 2), generator=g, device=dev))
+    eps = scene.ray_eps
+    so = common.offset_ray_origin(its.p, its.ng, ds.d, eps).contiguous()
+    smaxt = torch.where(
+        its.valid & ds.valid,
+        ds.dist - 2.0 * eps / torch.clamp_min(torch.abs(m.dot(ds.d, ds.n)),
+                                              1e-3), -1.0)
+    s_, t_ = m.build_frame(its.ns)
+    local = warp.square_to_cosine_hemisphere(
+        torch.rand((n, 2), generator=g, device=dev))
+    # bounce toward the side the camera ray came from
+    side = torch.sign(m.dot(its.ns, -d))[..., None]
+    bd = m.to_world(local, s_, t_, its.ns * side).contiguous()
+    bd = bd / torch.linalg.norm(bd, dim=-1, keepdim=True)
+    bo = common.offset_ray_origin(its.p, its.ng, bd, eps).contiguous()
+    bmaxt = torch.where(its.valid, 3e38, -1.0)
+    return ((o, d, mint, maxt), (so, ds.d.contiguous(), mint, smaxt),
+            (bo, bd, mint, bmaxt))
+
+
+def compare_pairs(ks, rays, slabs, cb):
+    """Pair kernels vs their plain version on one ray batch.  Returns
+    (valid agreement, prim agreement over lanes both hit, max |dt| and
+    max relative dt where prims agree, occluded agreement, max |occluded
+    diff|, fraction of lanes hit, device ms of the plain closest and any
+    hit calls (CUDA events, one call each))."""
+    closest_k, occl_k = ks
+    got = closest_k(*rays, slabs, cb)
+    occ = occl_k(*rays, slabs, cb)
+    ref, ms_c = timed_call(lambda: closest_k.plain(*rays, slabs, cb))
+    ref_occ, ms_o = timed_call(lambda: occl_k.plain(*rays, slabs, cb))
+    valid_frac = float((got.valid == ref.valid).float().mean())
+    both = got.valid & ref.valid
+    same = both & (got.prim == ref.prim)
+    prim_frac = int(same.sum()) / max(int(both.sum()), 1)
+    terr = (got.t[same] - ref.t[same]).abs()
+    max_abs = float(terr.max()) if bool(same.any()) else 0.0
+    max_rel = (float((terr / ref.t[same].abs()).max())
+               if bool(same.any()) else 0.0)
+    miss = ~got.valid
+    check(bool((got.t[miss] == np.float32(3.0e38)).all()) and
+          bool((got.prim[miss] == -1).all()), "pair closest: miss encoding")
+    dead = rays[3] <= rays[2]
+    check(not bool(got.valid[dead].any()) and not bool(occ[dead].any()),
+          "pair kernels: a dead lane came back hit")
+    occ_frac = float((occ == ref_occ).float().mean())
+    occ_err = float((occ.float() - ref_occ.float()).abs().max())
+    return (valid_frac, prim_frac, max_abs, max_rel, occ_frac, occ_err,
+            float(ref.valid.float().mean()), (ms_c, ms_o))
+
+
+def check_pairs(label, res):
+    vf, pf, ma, mr, of, _, hf, (pc, po) = res
+    log(f"{label}: valid agree {vf:.6f}, prim agree {pf:.6f}, max |dt| "
+        f"{ma:.3e} (rel {mr:.3e}), occluded agree {of:.6f}, hit {hf:.4f}; "
+        f"plain closest {pc:.1f} ms, any hit {po:.1f} ms")
+    check(vf >= PAIR_VALID and pf >= PAIR_PRIM and mr <= T_RTOL and
+          of >= PAIR_OCC, f"pair kernels vs plain disagree on {label}")
+
+
+def phase_pair_kernels(dev, kernels_rec, forest):
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    scene, st, _ = forest
+    log(f"tolerances: valid equal on >= {PAIR_VALID} of lanes; prim equal "
+        f"on >= {PAIR_PRIM} of lanes both hit; t rtol {T_RTOL} where prim "
+        f"agrees; occluded equal on >= {PAIR_OCC} of lanes")
+    for W in (128, 256):
+        o, d, mint, maxt, slabs, cb, _ = (
+            torch.from_numpy(a).to(dev)
+            for a in trace.random_cluster_soup(300, W, W, 100_003))
+        ks = (trace.make_pair_intersector(W, 300),
+              trace.make_pair_occluder(W, 300))
+        check_pairs(f"random soup K=300 W={W} N={o.shape[0]}",
+                    compare_pairs(ks, (o, d, mint, maxt), slabs, cb))
+
+    # the forest: each batch cut to N_PAIR_CMP rays with more dead lanes,
+    # then whole, at the 1,048,576 rays of the main path's calls
+    g = scene.geom
+    K, W = g.cbounds.shape[0], st.cluster_window
+    ks = (trace.make_pair_intersector(W, K), trace.make_pair_occluder(W, K))
+    cam, shadow, bounce = forest_rays(scene, st, N_TIMED, dev)
+    results = []
+    for name, rays in (("camera", cam), ("shadow", shadow),
+                       ("bounce", bounce)):
+        sub = [x[:N_PAIR_CMP] for x in rays]
+        sub[3] = sub[3].clone()
+        sub[3][::13] = -1.0                  # more dead lanes
+        for n, batch in ((N_PAIR_CMP, sub), (N_TIMED, rays)):
+            res = compare_pairs(ks, batch, g.mt_slabs, g.cbounds)
+            check_pairs(f"forest {name} rays N={n}", res)
+            results.append(res)
+            if name == "camera" and n == N_TIMED:
+                cam_plain_ms = res[7]
+    kernels_rec[2]["max_abs_err"] = max(r[2] for r in results)
+    kernels_rec[3]["max_abs_err"] = max(r[5] for r in results)
+
+    # timing at the main path's size: kernels at 1,048,576 forest camera
+    # and bounce rays; the plain version's time is its 1,048,576-ray
+    # camera comparison call above
+    for i, k in ((2, ks[0]), (3, ks[1])):
+        rec = kernels_rec[i]
+        for name, rays in (("camera", cam), ("bounce", bounce)):
+            ms = cuda_ms(lambda: k(*rays, g.mt_slabs, g.cbounds), iters=5,
+                         warmup=1)
+            rec[f"ms_{name}"] = ms
+            log(f"{k.name} at {N_TIMED} forest {name} rays: kernel "
+                f"{ms:.4f} ms")
+        rec.update(ms=rec["ms_camera"], n=N_TIMED,
+                   plain_ms=cam_plain_ms[i - 2], plain_n=N_TIMED)
+        log(f"{k.name} plain version at {N_TIMED} forest camera rays: "
+            f"{rec['plain_ms']:.4f} ms")
+    k_launches = [k.launches for k in ks]
+    log(f"(comparison launches, not counted as the main path's: "
+        f"{k_launches})")
+
+
+def phase_forest_slice(dev, kernels_rec, forest):
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    scene, st, info = forest
+    tracer = PathTracer(scene, st)
+    tracer.count_rays = True
+    t0 = time.time()
+    tracer.render(scene, seed=0, spp=16, chunk=16)
+    torch.cuda.synchronize()
+    log(f"forest warm-up render {time.time() - t0:.3f} s")
+
+    for k in tracer.kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    img = tracer.render(scene, seed=1, spp=16, chunk=16)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = [k.launches for k in tracer.kernels]
+    peak = torch.cuda.max_memory_allocated(dev)
+    rays = tracer.last_ray_count
+    for rec, n in zip(kernels_rec[2:], launches):
+        rec["launches"] = n
+    log(f"forest PathTracer.render 256x256 16spp maxDepth 5: wall "
+        f"{wall:.4f} s, measured rays {rays}, {rays / wall / 1e6:.3f} "
+        f"Mrays/s, kernel launches pair_closest {launches[0]} "
+        f"pair_occluded {launches[1]}, peak device memory {peak} bytes")
+    check(all(n > 0 for n in launches),
+          f"a pair kernel was not launched by the forest path: {launches}")
+    check(tuple(img.shape) == (256, 256, 3), f"image shape "
+          f"{tuple(img.shape)}")
+    check(bool(torch.isfinite(img).all()), "forest image not finite")
+    lit = float((img > 0).any(-1).float().mean())
+    mean = float(img.mean())
+    log(f"forest image mean {mean:.5f}, lit pixels {lit:.4f}")
+    check(mean > 0 and lit > 0.1, "forest image is black")
+    return dict(wall_s=wall, rays=rays, mrays_per_s=rays / wall / 1e6,
+                peak_bytes=peak, image_mean=mean, lit_frac=lit, **info)
+
+
+def phase_forest_vs_plain(dev, forest):
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    from gradientdomain_mitsuba_tpu_torch.ops import common
+    scene, st, _ = forest
+    small = dataclasses.replace(st, width=64, height=64, spp=2)
+    out = {}
+    for plain in (False, True):
+        tracer = PathTracer(scene, small)
+        tracer.count_rays = True
+        if plain:
+            ck, ok = tracer.kernels
+            tracer.closest, tracer.occluded = common.instrument_intersectors(
+                tracer,
+                lambda o, d, mn, mx, g: ck.plain(o, d, mn, mx, g.mt_slabs,
+                                                 g.cbounds),
+                lambda o, d, mn, mx, g: ok.plain(o, d, mn, mx, g.mt_slabs,
+                                                 g.cbounds))
+        t0 = time.time()
+        img = tracer.render(scene, seed=5, spp=2, chunk=2)
+        torch.cuda.synchronize()
+        out[plain] = (img, tracer.last_ray_count, time.time() - t0,
+                      [k.launches for k in tracer.kernels])
+    (ik, rk, tk, lk), (ip, rp, tp, lp) = out[False], out[True]
+    log(f"forest 64x64 2spp kernel vs plain: rays {rk} vs {rp}, wall "
+        f"{tk:.3f} s vs {tp:.3f} s, launches {lk} vs {lp}")
+    check(all(n > 0 for n in lk) and lp == [0, 0],
+          "kernel render did not launch, or plain render launched")
+    check(abs(rk - rp) <= 1e-3 * rp, "forest ray counts differ")
+    frac = float(torch.isclose(ik, ip, rtol=IMG_RTOL, atol=IMG_ATOL)
+                 .all(-1).float().mean())
+    log(f"  image: {frac:.5f} of pixels within rtol {IMG_RTOL} atol "
+        f"{IMG_ATOL}; means {float(ik.mean()):.6f} vs {float(ip.mean()):.6f}")
+    check(frac >= IMG_FRAC, "forest kernel and plain images differ")
+
+    # G-PT on the forest: the shift paths' shadow queries on the pair
+    # kernels
+    gst = dataclasses.replace(st, width=64, height=64, spp=4,
+                              integrator="gpt")
+    tracer = GPTracer(scene, gst)
+    tracer.count_rays = True
+    t0 = time.time()
+    final, bufs = tracer.render_final(scene, 2, 4, alpha=0.2, mode="L2")
+    torch.cuda.synchronize()
+    launches = [k.launches for k in tracer.kernels]
+    log(f"forest G-PT 64x64 4spp L2: {time.time() - t0:.3f} s, rays "
+        f"{int(bufs['rays'])}, launches {launches}, final mean "
+        f"{float(final.mean()):.5f}")
+    check(all(n > 0 for n in launches), "G-PT did not launch both pair "
+          "kernels")
+    check(bool(torch.isfinite(final).all()), "forest G-PT final not finite")
+    check(all(bool(torch.isfinite(bufs[k]).all())
+              for k in ("primal", "dx", "dy", "very_direct")),
+          "forest G-PT buffers not finite")
+
+
+def build_kernels():
+    """Build both kernel libraries, one nvcc each, started together."""
+    from gradientdomain_mitsuba_tpu_torch.ops import sweep, trace
+
+    def timed(load):
+        t0 = time.time()
+        load()
+        return time.time() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        futs = {name: pool.submit(timed, lib.load_library)
+                for name, lib in (("sweep.cu", sweep), ("trace.cu", trace))}
+        for name, fut in futs.items():
+            log(f"kernel build+load {name}: {fut.result():.3f} s")
+
 
 def main():
+    t_start = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an "
              "NVIDIA card")
     from gradientdomain_mitsuba_tpu_torch import config
-    from gradientdomain_mitsuba_tpu_torch.ops import sweep
     dev = config.get_device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     log(card_line())
-    t0 = time.time()
-    sweep.load_library()
-    log(f"kernel build+load {time.time() - t0:.3f} s")
+    with Phase("build"):
+        build_kernels()
 
-    src = "gradientdomain_mitsuba_tpu_torch/csrc/sweep.cu"
+    csrc = "gradientdomain_mitsuba_tpu_torch/csrc/"
+    ref_sweep = "gradientdomain_mitsuba_tpu/ops/pallas_sweep.py:"
+    ref_trace = "gradientdomain_mitsuba_tpu/ops/pallas_trace.py:919"
     kernels_rec = [
-        dict(name="sweep_closest", route="cuda", source=src,
-             replaces="gradientdomain_mitsuba_tpu/ops/pallas_sweep.py:91",
-             launches=0, max_abs_err=None, ms=None, plain_ms=None),
-        dict(name="sweep_occluded", route="cuda", source=src,
-             replaces="gradientdomain_mitsuba_tpu/ops/pallas_sweep.py:131",
-             launches=0, max_abs_err=None, ms=None, plain_ms=None),
-    ]
-    phase_kernels(dev, kernels_rec)
-    summary = phase_slice(dev, kernels_rec)
-    phase_render_vs_plain(dev)
-    log(json.dumps({"slice": summary}))
+        dict(name=name, route="cuda", source=csrc + src, replaces=replaces,
+             launches=0, max_abs_err=None, ms=None, plain_ms=None)
+        for name, src, replaces in (
+            ("sweep_closest", "sweep.cu", ref_sweep + "91"),
+            ("sweep_occluded", "sweep.cu", ref_sweep + "131"),
+            ("pair_closest", "trace.cu", ref_trace),
+            ("pair_occluded", "trace.cu", ref_trace))]
+    with Phase("sweep kernels vs plain"):
+        phase_kernels(dev, kernels_rec)
+    with Phase("slice 1: cbox G-PT + L1"):
+        summary = phase_slice(dev, kernels_rec)
+    with Phase("cbox kernel render vs plain render"):
+        phase_render_vs_plain(dev)
+    with Phase("forest load"):
+        forest = load_forest(dev)
+    with Phase("pair kernels vs plain"):
+        phase_pair_kernels(dev, kernels_rec, forest)
+    with Phase("slice 2: forest PathTracer"):
+        forest_summary = phase_forest_slice(dev, kernels_rec, forest)
+    with Phase("forest kernel render vs plain render, forest G-PT"):
+        phase_forest_vs_plain(dev, forest)
+    log(json.dumps({"slice": summary, "forest": forest_summary}))
+    log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))
     print(json.dumps({"ok": True, "device": {

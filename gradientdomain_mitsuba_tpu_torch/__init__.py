@@ -6,9 +6,10 @@ its counterpart one to one:
 
   core/      math, counter RNG, sampling warps, records
   scene/     numpy-only scene front end + bridge.to_torch
-  ops/       intersection (plain torch + hand-written CUDA sweep kernels),
-             BSDF, emitters, sensor, film
-  models/    integrators (G-PT) and the screened-Poisson solver
+  ops/       intersection (plain torch + hand-written CUDA sweep and
+             pair-traversal kernels), BSDF, emitters, sensor, film
+  models/    integrators (G-PT, path) and the screened-Poisson solver
+  parallel/  checkpointed accumulation (render_accumulate)
   csrc/      CUDA C++ sources, built with nvcc at first use
 
 The package imports torch and numpy, never jax.  Every entry point takes

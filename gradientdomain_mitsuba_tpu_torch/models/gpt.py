@@ -13,8 +13,7 @@ loops, and the scene's device is the tensors' device.
 Ported: scenes whose materials all classify as diffuse for shifting
 (any_specular False), area lights only, no textures, pinhole perspective
 camera.  Other scenes raise NotImplementedError at construction, naming
-the ROADMAP item.  The half-vector shift and render()/checkpointing are
-not ported yet.
+the ROADMAP item.  The half-vector shift is not ported yet.
 """
 from __future__ import annotations
 
@@ -709,6 +708,19 @@ class GPTracer:
             "dx": state["dx"] / spp,
             "dy": state["dy"] / spp,
         }
+
+    def render(self, scene, seed=0, spp=None, chunk=64,
+               checkpoint_path=None, resume=False, progress=None):
+        """Render through render_accumulate (checkpointable).  Returns the
+        sample-normalized buffers primal, dx, dy, very_direct as device
+        tensors; with count_rays, last_ray_count holds the measured rays."""
+        from ..parallel.checkpoint import render_accumulate
+        spp = spp or self.settings.spp
+        state, spp = render_accumulate(
+            self, scene, seed, spp, chunk,
+            checkpoint_path=checkpoint_path, resume=resume,
+            progress=progress)
+        return self.finalize(state, spp)
 
     def render_final(self, scene, seed, spp, alpha=0.2, mode="L1",
                      l2_iters=100, l1_outer=8, l1_inner=40):

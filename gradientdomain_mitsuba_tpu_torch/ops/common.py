@@ -7,8 +7,9 @@ gathers vertex attributes and material/emitter ids into the flat
 Intersection record every integrator uses.
 
 Ported: the small-scene (<= 2048 triangles) traversal through the sweep
-kernels, the untextured material gather, and the hit fill without the
-barycentric payload or normal perturbation.  The reference's one-hot
+kernels, the large-scene traversal through the pair kernels, the
+untextured material gather, and the hit fill without the barycentric
+payload or normal perturbation.  The reference's one-hot
 matmul gather (fast_row_gather) is a TPU workaround; here it is plain
 indexing.
 """
@@ -18,7 +19,7 @@ import torch
 
 from ..core import math as m
 from ..core.records import Intersection
-from . import sweep
+from . import sweep, trace
 
 BRUTE_FORCE_MAX_TRIS = 2048
 
@@ -50,21 +51,42 @@ def choose_intersector(settings, n_tris: int, n_clusters: int = 0):
 
     Scenes of at most BRUTE_FORCE_MAX_TRIS triangles sweep the whole soup
     (ops/sweep.py: the CUDA kernels on a CUDA tensor, the plain linear-MT
-    version on a CPU tensor).  Each returned function carries the
-    SweepKernel it launches as `.kernel` (its `.launches` counts
-    launches).  Larger scenes need the clustered traversal kernels, which
-    are not ported yet."""
-    if n_tris > BRUTE_FORCE_MAX_TRIS:
-        raise NotImplementedError("large scenes: ROADMAP slice 2")
-    closest_k = sweep.make_sweep_intersector(n_tris)
-    occl_k = sweep.make_sweep_occluder(n_tris)
+    version on a CPU tensor).  Larger scenes walk the clustered soup with
+    the pair kernels (ops/trace.py, the reference's default v7 kernel):
+    the CUDA kernels on a CUDA tensor, their plain version on a CPU
+    tensor.  Each returned function carries the kernel wrapper it calls
+    as `.kernel` (its `.launches` counts launches).
 
-    def closest(o, d, mint, maxt, geom):
-        return closest_k(o, d, mint, maxt, geom.linC)
+    Deviation: on the CPU the reference walks large scenes with its jnp
+    two-level traversal (make_cluster_intersector); the port runs the
+    pair kernels' plain version there, as it runs the sweep kernels'
+    plain version for small scenes, so the CPU path checks the arithmetic
+    the card runs.  The jnp traversals are not ported (ROADMAP Queue 1
+    item 11), so a large scene without clusters raises."""
+    if n_tris <= BRUTE_FORCE_MAX_TRIS:
+        closest_k = sweep.make_sweep_intersector(n_tris)
+        occl_k = sweep.make_sweep_occluder(n_tris)
 
-    def occl(o, d, mint, maxt, geom):
-        return occl_k(o, d, mint, maxt, geom.linC)
+        def closest(o, d, mint, maxt, geom):
+            return closest_k(o, d, mint, maxt, geom.linC)
 
+        def occl(o, d, mint, maxt, geom):
+            return occl_k(o, d, mint, maxt, geom.linC)
+    elif n_clusters > 0:
+        closest_k = trace.make_pair_intersector(settings.cluster_window,
+                                                n_clusters)
+        occl_k = trace.make_pair_occluder(settings.cluster_window,
+                                          n_clusters)
+
+        def closest(o, d, mint, maxt, geom):
+            return closest_k(o, d, mint, maxt, geom.mt_slabs, geom.cbounds)
+
+        def occl(o, d, mint, maxt, geom):
+            return occl_k(o, d, mint, maxt, geom.mt_slabs, geom.cbounds)
+    else:
+        raise NotImplementedError(
+            "large scene without clusters (jnp cluster traversal): "
+            "ROADMAP Queue 1 item 11")
     closest.kernel = closest_k
     occl.kernel = occl_k
     return add_sphere_intersections(closest, occl)

@@ -14,8 +14,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import threading
 
 import torch
 
@@ -24,60 +22,23 @@ from . import intersect as isec
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "sweep.cu")
-_LOCK = threading.Lock()
-_LIB = None
-
-
-def _nvcc():
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (CUDA_HOME or PATH)")
-    return found
-
-
-def _nvcc_cmd(sources, out):
-    # no --use_fast_math: the kernels' reciprocal must be IEEE
-    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            *sources, "-o", out]
 
 
 def load_library():
     """Build (first call only) and load the sweep kernels' library."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(native.build_library("sweep", [_SRC],
-                                                   _nvcc_cmd))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.sweep_closest.argtypes = [p, p, p, p, p, i, i, p, p, p, p, p]
-            lib.sweep_closest.restype = ctypes.c_int
-            lib.sweep_occluded.argtypes = [p, p, p, p, p, i, i, p, p]
-            lib.sweep_occluded.restype = ctypes.c_int
-            _LIB = lib
-        return _LIB
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return native.load_cuda("sweep", _SRC, {
+        "sweep_closest": [p, p, p, p, p, i, i, p, p, p, p, p],
+        "sweep_occluded": [p, p, p, p, p, i, i, p, p]})
 
 
 def _check(o, d, mint, maxt, linC):
     """Validate what the kernel takes: CUDA f32 contiguous tensors of
     matching shapes on one device."""
     N = o.shape[0]
-    shapes = {"o": (o, (N, 3)), "d": (d, (N, 3)), "mint": (mint, (N,)),
-              "maxt": (maxt, (N,)), "linC": (linC, (10, linC.shape[-1]))}
-    for name, (x, shape) in shapes.items():
-        if x.device != o.device:
-            raise ValueError(f"{name} is on {x.device}, o on {o.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                             f"expected {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    native.check_tensors(o, {
+        "o": (o, (N, 3)), "d": (d, (N, 3)), "mint": (mint, (N,)),
+        "maxt": (maxt, (N,)), "linC": (linC, (10, linC.shape[-1]))})
     if linC.shape[1] % 4:
         raise ValueError(f"linC width {linC.shape[1]} is not 4*T")
     if N >= 2 ** 31:

@@ -1,0 +1,383 @@
+"""Closest-hit / any-hit traversal of the clustered triangle soup.
+
+Counterpart of gradientdomain_mitsuba_tpu/ops/pallas_trace.py for its
+default large-scene kernel, v7 (`_v7_kernel` with the XLA-side
+`_v7_phase1` / `_v7_expand` culling rounds): the hand-written CUDA
+kernels of csrc/trace.cu (see the note there for the design) and their
+plain PyTorch version.
+
+The scene loader lays triangles out cluster-major: cluster k owns prim
+slots [k*W, (k+1)*W) of the window-padded soup, its linear-MT
+coefficients sit in the 8-row slab mt_slabs[k] (ops/intersect.
+build_mt_slabs) and its bounds in cbounds[k] = (min xyz, max xyz).
+SUPER_FACTOR consecutive clusters form a supercluster.  A ray tests the
+supercluster boxes, then the member boxes of each pending supercluster,
+then every triangle of each pending member; a hit's prim is k*W + lane,
+the row of tri_shade.  The box tests are the reference's expressions:
+
+  inv = where(|d| > 1e-12, 1/d, 1e30)
+  tn = max_axes min((lo - o)*inv, (hi - o)*inv), tf = max..min likewise
+  pending = tn <= tf & tf >= mint & tn <= t & t >= mint   (member id >= 0)
+
+with t the ray's bound.  The triangle test is divide-first linear MT for
+both queries, as v7 runs it: inv = 1/det, u = u_num*inv, v = v_num*inv,
+t = t_num*inv, ok = u >= 0 & v >= 0 & u + v <= 1 & t > mint & t < bound.
+A miss is t = 3e38 (F32_MAX), u = v = 0, prim = -1.  Among equal minimal
+t the lowest prim wins.
+
+The GDMT_* environment switches of the reference are not ported: the
+port has no traversal knobs.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+import torch
+
+from .. import native
+from . import intersect as isec
+
+SUPER_FACTOR = 128        # clusters per supercluster
+# widest cluster window taken (a warp lane then sweeps 128 triangles of
+# each pending cluster).  The loader's window is 128 for every repo scene
+# and grows in steps of 128 only under a larger GDMT_CLUSTER_TARGET.
+MAX_WINDOW = 4096
+F32_MAX = isec.F32_MAX
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "trace.cu")
+
+# plain version: rays per chunk of the supercluster test, (ray, super)
+# pairs per chunk of the member test, (ray, cluster) pairs per chunk of
+# the triangle sweep.  At W = 128 a sweep chunk gathers 8192 x 11 KB of
+# slab rows (90 MB); the forest's tables take 1.45 GB of the card beside
+# it.
+RAY_CHUNK = 8192
+SUPER_PAIR_CHUNK = 16384
+PAIR_CHUNK = 8192
+
+
+def _check_pair_super_factor():
+    """The pair kernels walk SUPER_FACTOR == 128 members per
+    supercluster (four 32-lane ballots in csrc/trace.cu, as the
+    reference's v7 records pack four 32-bit member masks)."""
+    if SUPER_FACTOR != 128:
+        raise ValueError(f"SUPER_FACTOR={SUPER_FACTOR}: the pair kernels "
+                         "require 128 members per supercluster")
+
+
+def _check_window(window: int):
+    if window <= 0 or window % 128 or window > MAX_WINDOW:
+        raise ValueError(f"cluster window {window} is not a multiple of "
+                         f"128 in [128, {MAX_WINDOW}]")
+
+
+def _super_bounds(cbounds):
+    """[S, 6] supercluster bounds: union of SUPER_FACTOR consecutive
+    clusters (padding clusters get inverted boxes that never extend the
+    union)."""
+    K = cbounds.shape[0]
+    SC = SUPER_FACTOR
+    Kp = -(-K // SC) * SC
+    cb = cbounds
+    if Kp != K:
+        pad = cbounds.new_full((Kp - K, 6), F32_MAX)
+        pad[:, 3:6] = -F32_MAX
+        cb = torch.cat([cbounds, pad], dim=0)
+    return torch.cat([cb[:, 0:3].reshape(-1, SC, 3).amin(1),
+                      cb[:, 3:6].reshape(-1, SC, 3).amax(1)], dim=1)
+
+
+def _member_slabs(cbounds):
+    """[S, 8, SC] member bounds per supercluster: row 0 = member cluster
+    id (f32; -1 marks padding past K), rows 1-3 = bbox min, rows 4-6 =
+    bbox max, row 7 = zeros."""
+    K = cbounds.shape[0]
+    SC = SUPER_FACTOR
+    Kp = -(-K // SC) * SC
+    ids = torch.arange(Kp, device=cbounds.device)
+    cb = torch.cat([cbounds, cbounds.new_zeros((Kp - K, 6))], dim=0)
+    rows = torch.cat([torch.where(ids < K, ids, -1).to(cbounds.dtype)[:, None],
+                      cb, cbounds.new_zeros((Kp, 1))], dim=1)     # [Kp, 8]
+    return rows.reshape(-1, SC, 8).transpose(1, 2).contiguous()
+
+
+def _inv_dir(d):
+    return torch.where(d.abs() > 1e-12, 1.0 / d, 1e30)
+
+
+def _box_pending(o, inv, lo, hi, mint, bound):
+    """The reference's ray/box test.  o, inv [..., 3] and lo, hi [..., 3]
+    broadcast against each other; mint, bound broadcast against the
+    result."""
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    tn = torch.minimum(t0, t1).amax(-1)
+    tf = torch.maximum(t0, t1).amin(-1)
+    return (tn <= tf) & (tf >= mint) & (tn <= bound) & (bound >= mint)
+
+
+def _features(o, d):
+    """Ray features of the slab split, each product rounded once:
+    fa = (o x d, d) for det|u|v, fb = o for t (its constant feature is 1).
+    The kernels form the same values with _rn intrinsics."""
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    fa = torch.stack([oy * dz - oz * dy, oz * dx - ox * dz,
+                      ox * dy - oy * dx, dx, dy, dz], dim=-1)
+    return fa, o
+
+
+def _dot(f, c):
+    """sum_k f[:, k] * c[:, k, :] as the kernels' fmaf chain in feature
+    order: s = f0*c0, then s = fma(f_k, c_k, s).  Each fused step is
+    emulated in float64 (a product of two floats is exact there) and
+    rounded once to float32; it differs from a true fma only when the
+    float64 sum rounds onto a float32 tie (about one step in 2^29)."""
+    s = f[:, 0:1] * c[:, 0]
+    for k in range(1, f.shape[1]):
+        s = (f[:, k:k + 1].double() * c[:, k].double() + s.double()).float()
+    return s
+
+
+def _candidates(o, d, mint, maxt, scb, mb):
+    """(ray, cluster) pairs whose member box passes against maxt, for
+    one chunk of rays, from the supercluster bounds scb [S, 6] and the
+    member slabs mb [S, 8, SC]: returns (ray index [P] i64, cluster id
+    [P] i64)."""
+    inv = _inv_dir(d)
+    sup = _box_pending(o[:, None], inv[:, None], scb[None, :, 0:3],
+                       scb[None, :, 3:6], mint[:, None], maxt[:, None])
+    r1, s1 = sup.nonzero(as_tuple=True)
+    rays, ks = [], []
+    for a in range(0, r1.shape[0], SUPER_PAIR_CHUNK):
+        r = r1[a:a + SUPER_PAIR_CHUNK]
+        m = mb[s1[a:a + SUPER_PAIR_CHUNK]]                   # [P, 8, SC]
+        pend = (m[:, 0] >= 0) & _box_pending(
+            o[r, None], inv[r, None], m[:, 1:4].transpose(1, 2),
+            m[:, 4:7].transpose(1, 2), mint[r, None], maxt[r, None])
+        p, j = pend.nonzero(as_tuple=True)
+        rays.append(r[p])
+        ks.append(m[p, 0, j].long())
+    if not rays:
+        empty = torch.zeros(0, dtype=torch.int64, device=o.device)
+        return empty, empty
+    return torch.cat(rays), torch.cat(ks)
+
+
+def _sweep_pairs(fa, fb, mint, maxt, slabs, window, ray, k):
+    """Divide-first linear-MT test of every triangle of cluster k[p]
+    against ray[p], bounded by (mint, maxt).  Returns the per-pair best
+    (t [P] with F32_MAX for none, lane [P], u [P], v [P])."""
+    W = window
+    sa = slabs[:, 0:6, 0:3 * W][k]                  # [P, 6, 3W]
+    sb = slabs[:, 0:4, 3 * W:][k]                   # [P, 4, W]
+    f = fa[ray]
+    det = _dot(f, sa[:, :, 0:W])
+    un = _dot(f, sa[:, :, W:2 * W])
+    vn = _dot(f, sa[:, :, 2 * W:3 * W])
+    tn = _dot(fb[ray], sb[:, 0:3]) + sb[:, 3]
+    inv = 1.0 / det
+    u = un * inv
+    v = vn * inv
+    t = tn * inv
+    ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) &
+          (t > mint[ray, None]) & (t < maxt[ray, None]))
+    tt = torch.where(ok, t, F32_MAX)
+    tbest = tt.amin(1)
+    lanes = torch.arange(W, device=tt.device)
+    lane = torch.where(tt == tbest[:, None], lanes, W).amin(1)
+    pick = torch.clamp_max(lane, W - 1)[:, None]
+    return (tbest, lane, u.gather(1, pick)[:, 0], v.gather(1, pick)[:, 0])
+
+
+def pair_plain(o, d, mint, maxt, slabs, cbounds, window, any_hit=False):
+    """Plain PyTorch version of the pair kernels (the CPU path and the
+    kernels' oracle on the card).
+
+    It keeps no running t: every cluster whose box passes against maxt
+    is swept, a superset of what the kernels sweep, so it shares no
+    traversal order with them.  Work is chunked over rays and over
+    (ray, cluster) pairs.  Returns a Hit (closest) or occluded [N] bool
+    (any hit)."""
+    _check_pair_super_factor()
+    _check_window(window)
+    N = o.shape[0]
+    W = window
+    dev = o.device
+    scb = _super_bounds(cbounds)
+    mb = _member_slabs(cbounds)
+    fa, fb = _features(o, d)
+    t_out = torch.full((N,), F32_MAX, device=dev)
+    u_out = torch.zeros(N, device=dev)
+    v_out = torch.zeros(N, device=dev)
+    p_out = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    occ = torch.zeros(N, dtype=torch.bool, device=dev)
+    for a in range(0, N, RAY_CHUNK):
+        sl = slice(a, min(a + RAY_CHUNK, N))
+        ray, k = _candidates(o[sl], d[sl], mint[sl], maxt[sl], scb, mb)
+        ray = ray + a
+        parts = [_sweep_pairs(fa, fb, mint, maxt, slabs, W,
+                              ray[b:b + PAIR_CHUNK], k[b:b + PAIR_CHUNK])
+                 for b in range(0, ray.shape[0], PAIR_CHUNK)]
+        if not parts:
+            continue
+        tp, lane, up, vp = (torch.cat(x) for x in zip(*parts))
+        hit = tp < F32_MAX
+        if any_hit:
+            occ[ray[hit]] = True
+            continue
+        # per ray: minimal t, then the lowest prim among equal minimal t
+        prim = k * W + lane
+        t_out.scatter_reduce_(0, ray, tp, "amin")
+        best = hit & (tp == t_out[ray])
+        big = torch.iinfo(torch.int64).max
+        pmin = torch.full((N,), big, dtype=torch.int64, device=dev)
+        pmin.scatter_reduce_(0, ray[best], prim[best], "amin")
+        win = best & (prim == pmin[ray])
+        u_out[ray[win]] = up[win]
+        v_out[ray[win]] = vp[win]
+        p_out[ray[win]] = prim[win].to(torch.int32)
+    if any_hit:
+        return occ
+    return isec.Hit(t=t_out, u=u_out, v=v_out, prim=p_out, valid=p_out >= 0)
+
+
+def load_library():
+    """Build (first call only) and load the pair kernels' library."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return native.load_cuda("trace", _SRC, {
+        "pair_closest": [p] * 7 + [i] * 4 + [p] * 5,
+        "pair_occluded": [p] * 7 + [i] * 4 + [p] * 2})
+
+
+def _check(o, d, mint, maxt, slabs, cbounds, window, n_clusters):
+    """Validate what the kernels take: f32 contiguous tensors of matching
+    shapes on one device, and int32 prims and rays."""
+    N = o.shape[0]
+    K = n_clusters
+    native.check_tensors(o, {
+        "o": (o, (N, 3)), "d": (d, (N, 3)), "mint": (mint, (N,)),
+        "maxt": (maxt, (N,)), "cbounds": (cbounds, (K, 6)),
+        "slabs": (slabs, (slabs.shape[0], 8, 4 * window))})
+    if slabs.shape[0] < K:
+        raise ValueError(f"{slabs.shape[0]} slabs for {K} clusters")
+    if K * window >= 2 ** 31 or N >= 2 ** 31:
+        raise ValueError("prims or rays exceed the kernels' int32 range")
+
+
+class PairKernel:
+    """One pair traversal (closest hit or any hit) with its launch count.
+
+    Call signature (o, d, mint, maxt, mt_slabs, cbounds), as the
+    reference's make_pair_intersector / make_pair_occluder.  A CPU tensor
+    runs the plain version (pair_plain) and does not count; a CUDA tensor
+    launches the kernel or raises."""
+
+    def __init__(self, any_hit: bool, window: int, n_clusters: int):
+        _check_pair_super_factor()
+        _check_window(window)
+        self.any_hit = any_hit
+        self.window = int(window)
+        self.n_clusters = int(n_clusters)
+        self.launches = 0
+        self._sbounds = (None, None)   # (cbounds, its supercluster bounds)
+
+    @property
+    def name(self):
+        return "pair_occluded" if self.any_hit else "pair_closest"
+
+    def super_bounds(self, cbounds):
+        """_super_bounds(cbounds), built once per cluster-bounds table (a
+        scene's cbounds is never changed in place)."""
+        if self._sbounds[0] is not cbounds:
+            self._sbounds = (cbounds, _super_bounds(cbounds).contiguous())
+        return self._sbounds[1]
+
+    def plain(self, o, d, mint, maxt, slabs, cbounds):
+        return pair_plain(o, d, mint, maxt, slabs, cbounds, self.window,
+                          self.any_hit)
+
+    def __call__(self, o, d, mint, maxt, slabs, cbounds):
+        if o.device.type == "cpu":
+            return self.plain(o, d, mint, maxt, slabs, cbounds)
+        if o.device.type != "cuda":
+            raise ValueError(f"no pair kernel for device {o.device}")
+        _check(o, d, mint, maxt, slabs, cbounds, self.window,
+               self.n_clusters)
+        lib = load_library()
+        N = o.shape[0]
+        K = self.n_clusters
+        with torch.cuda.device(o.device):
+            scb = self.super_bounds(cbounds)
+            S = scb.shape[0]
+            stream = torch.cuda.current_stream(o.device).cuda_stream
+            ptrs = [x.data_ptr() for x in (o, d, mint, maxt, slabs, cbounds,
+                                           scb)]
+            if self.any_hit:
+                occ = torch.empty(N, dtype=torch.bool, device=o.device)
+                err = lib.pair_occluded(*ptrs, N, K, S, self.window,
+                                        occ.data_ptr(), stream)
+                out = occ
+            else:
+                t = torch.empty(N, dtype=torch.float32, device=o.device)
+                u = torch.empty_like(t)
+                v = torch.empty_like(t)
+                prim = torch.empty(N, dtype=torch.int32, device=o.device)
+                err = lib.pair_closest(*ptrs, N, K, S, self.window,
+                                       t.data_ptr(), u.data_ptr(),
+                                       v.data_ptr(), prim.data_ptr(), stream)
+                out = isec.Hit(t=t, u=u, v=v, prim=prim, valid=prim >= 0)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1
+        return out
+
+
+def make_pair_intersector(window: int, n_clusters: int) -> PairKernel:
+    """Closest hit: (o, d, mint, maxt, mt_slabs, cbounds) -> Hit."""
+    return PairKernel(any_hit=False, window=window, n_clusters=n_clusters)
+
+
+def make_pair_occluder(window: int, n_clusters: int) -> PairKernel:
+    """Any hit: (o, d, mint, maxt, mt_slabs, cbounds) -> bool [N]."""
+    return PairKernel(any_hit=True, window=window, n_clusters=n_clusters)
+
+
+def random_cluster_soup(K, window, seed, n_rays):
+    """A synthetic input of the pair traversal, for its tests and the
+    smoke run: K clusters of up to `window` small random triangles around
+    random centres, laid out cluster-major with zero padding columns as
+    the scene loader does.  Returns numpy (o, d, mint, maxt, mt_slabs,
+    cbounds, linC): rays aimed through the cloud, every 5th lane dead
+    (maxt = -1), and the full [10, 4*K*W] table of the whole-soup sweep."""
+    rs = np.random.RandomState(seed)
+    W = window
+    counts = rs.randint(W // 2, W + 1, size=K)
+    centres = rs.uniform(-10, 10, (K, 3))
+    v0 = np.zeros((K * W, 3), np.float32)
+    e1 = np.zeros_like(v0)
+    e2 = np.zeros_like(v0)
+    cb = np.zeros((K, 6), np.float32)
+    for k in range(K):
+        n = counts[k]
+        p0 = np.float32(centres[k] + rs.normal(0, 1.0, (n, 3)))
+        p1 = np.float32(p0 + rs.normal(0, 0.4, (n, 3)))
+        p2 = np.float32(p0 + rs.normal(0, 0.4, (n, 3)))
+        sl = slice(k * W, k * W + n)
+        v0[sl], e1[sl], e2[sl] = p0, p1 - p0, p2 - p0
+        pts = np.concatenate([p0, p1, p2])
+        cb[k] = np.concatenate([pts.min(0), pts.max(0)])
+    linC = isec.build_linear_mt(v0, e1, e2)
+    slabs = isec.build_mt_slabs(linC, W)
+    o = np.float32(rs.uniform(-14, 14, (n_rays, 3)))
+    target = np.float32(rs.uniform(-10, 10, (n_rays, 3)))
+    d = target - o
+    d = np.float32(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    mint = np.full(n_rays, 1e-4, np.float32)
+    maxt = np.full(n_rays, 3e38, np.float32)
+    maxt[::5] = -1.0
+    return o, d, mint, maxt, slabs, cb, linC

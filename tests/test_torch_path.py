@@ -1,0 +1,194 @@
+"""The port's path tracer on the CPU against the reference.
+
+1. PathTracer on a small generated forest (tools/gen_forest.generate with
+   a 2x2 grid: 25,476 triangles, 558 clusters of 128, above the
+   2048-triangle sweep limit, so the port walks the pair traversal's plain
+   version).  On the CPU the reference walks large scenes with its jnp
+   cluster traversal; here its intersectors are pinned to the linear-MT
+   matmul sweeps over a full coefficient table built in the test
+   (build_linear_mt over the padded cluster-major soup): the same math the
+   v7 kernel computes, with prims in the same slot space (k*W + lane).
+   Measured ray counts are equal; the image agrees at rtol 1e-3 / atol
+   1e-4 on >= 99% of pixels (the allowance covers an ulp-level t or u
+   difference flipping a Russian-roulette decision).
+2. render_accumulate resume is bit-exact.
+3. G-PT's primal + very_direct equals the path tracer's image (the
+   identity tests/test_gpt.py holds for the reference).
+"""
+import importlib.util
+import os
+import re
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from gradientdomain_mitsuba_tpu.models import path as ref_path
+from gradientdomain_mitsuba_tpu.ops import common as ref_common
+from gradientdomain_mitsuba_tpu.ops import intersect as ref_isec
+from gradientdomain_mitsuba_tpu.scene import scene as ref_scene
+from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+from gradientdomain_mitsuba_tpu_torch.parallel import checkpoint as cp
+from gradientdomain_mitsuba_tpu_torch.scene import bridge
+from gradientdomain_mitsuba_tpu_torch.scene import scene as port_scene
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "gen_forest", os.path.join(ROOT, "tools", "gen_forest.py"))
+gen_forest = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(gen_forest)
+CBOX = os.path.join(ROOT, "data/scenes/cbox/cbox.xml")
+FOREST_VARS = {"width": "16", "height": "16", "spp": "2", "maxDepth": "5"}
+SEED, SPP = 11, 2
+
+
+def write_small_forest(path):
+    """A 2x2-tree forest with the camera moved in to frame it."""
+    xml = re.sub(r'<lookat origin="[^"]*" target="[^"]*"',
+                 '<lookat origin="250, 300, -500" target="250, 120, 250"',
+                 gen_forest.generate(grid=2))
+    path.write_text(xml)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def small_forest(tmp_path_factory):
+    return write_small_forest(tmp_path_factory.mktemp("forest") /
+                              "forest.xml")
+
+
+def _pinned_full_matmul(linC):
+    def choose(settings, n_tris, n_clusters=0):
+        def closest(o, d, mint, maxt, geom):
+            return ref_isec.intersect_matmul(o, d, mint, maxt, linC)
+
+        def occl(o, d, mint, maxt, geom):
+            return ref_isec.occluded_matmul(o, d, mint, maxt, linC)
+        return ref_common.add_sphere_intersections(closest, occl)
+    return choose
+
+
+@pytest.fixture(scope="module")
+def forest_reference(small_forest):
+    scene, st = ref_scene.load_scene(small_forest, FOREST_VARS)
+    g = scene.geom
+    linC = jax.numpy.asarray(ref_isec.build_linear_mt(
+        np.asarray(g.tris.v0), np.asarray(g.tris.e1), np.asarray(g.tris.e2)))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ref_common, "choose_intersector", _pinned_full_matmul(linC))
+    try:
+        tracer = ref_path.PathTracer(scene, st)
+        tracer.count_rays = True
+        img = tracer.render(jax.device_put(scene), seed=SEED, spp=SPP,
+                            chunk=SPP)
+    finally:
+        mp.undo()
+    return np.asarray(img), tracer.last_ray_count
+
+
+@pytest.fixture(scope="module")
+def forest_port(small_forest):
+    scene, st = port_scene.load_scene(small_forest, FOREST_VARS)
+    ts = bridge.to_torch(scene, "cpu")
+    tracer = PathTracer(ts, st)
+    tracer.count_rays = True
+    img = tracer.render(ts, seed=SEED, spp=SPP, chunk=SPP)
+    return img.numpy(), tracer
+
+
+def test_forest_uses_pair_traversal(forest_port):
+    _, tracer = forest_port
+    assert tracer.large_scene
+    assert [k.name for k in tracer.kernels] == ["pair_closest",
+                                                "pair_occluded"]
+    # CPU tensors run the plain version: no kernel launch is counted
+    assert [k.launches for k in tracer.kernels] == [0, 0]
+
+
+def test_forest_ray_counts_equal(forest_reference, forest_port):
+    assert forest_port[1].last_ray_count == forest_reference[1] > 0
+
+
+def test_forest_image_matches_reference(forest_reference, forest_port):
+    got, ref = forest_port[0], forest_reference[0]
+    assert got.shape == ref.shape == (16, 16, 3)
+    assert np.isfinite(got).all()
+    assert (got > 0).any(-1).mean() > 0.3     # lit, not black
+    frac = np.isclose(got, ref, rtol=1e-3, atol=1e-4).all(-1).mean()
+    assert frac >= 0.99, frac
+    assert abs(got.mean() - ref.mean()) <= 1e-4 * abs(ref.mean()) + 1e-6
+
+
+@pytest.fixture(scope="module")
+def cbox16():
+    scene, st = port_scene.load_scene(
+        CBOX, {"width": "16", "height": "16", "spp": "8", "maxDepth": "3"})
+    return bridge.to_torch(scene, "cpu"), st
+
+
+def test_checkpoint_resume_exact(cbox16, tmp_path):
+    """A resumed render is bit-identical to an uninterrupted one."""
+    scene, st = cbox16
+    pt = PathTracer(scene, st)
+    pt.count_rays = True
+    straight = pt.render(scene, seed=7, spp=8, chunk=4)
+    rays = pt.last_ray_count
+    ck = str(tmp_path / "render.ckpt")
+    state, _ = cp.render_accumulate(pt, scene, 7, 4, chunk=4,
+                                    checkpoint_path=ck)
+    assert all(v.device == scene.geom.linC.device for v in state.values())
+    resumed = pt.render(scene, seed=7, spp=8, chunk=4, checkpoint_path=ck,
+                        resume=True)
+    assert torch.equal(resumed, straight)
+    assert pt.last_ray_count == rays > 0
+
+
+def test_checkpoint_seed_mismatch(cbox16, tmp_path):
+    scene, st = cbox16
+    pt = PathTracer(scene, st)
+    ck = str(tmp_path / "c.ckpt")
+    pt.render(scene, seed=1, spp=2, chunk=2, checkpoint_path=ck)
+    with pytest.raises(ValueError):
+        pt.render(scene, seed=2, spp=4, chunk=2, checkpoint_path=ck,
+                  resume=True)
+
+
+def test_gpt_primal_equals_path():
+    """G-PT's primal + very_direct equals the path tracer (same counters,
+    same estimator), as tests/test_gpt.py holds for the reference."""
+    scene_np, st = port_scene.load_scene(
+        CBOX, {"width": "24", "height": "24", "spp": "8", "maxDepth": "3"})
+    scene = bridge.to_torch(scene_np, "cpu")
+    out = GPTracer(scene, st).render(scene, seed=5, spp=2, chunk=2)
+    img = PathTracer(scene, st).render(scene, seed=5, spp=2)
+    torch.testing.assert_close(out["primal"] + out["very_direct"], img,
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_cbox_matches_reference_brute_in_mean(cbox16):
+    """The reference as it runs on the CPU (brute-force Moeller-Trumbore
+    for small scenes) agrees with the port's path tracer in image mean
+    within 1%."""
+    scene, st = cbox16
+    img = PathTracer(scene, st).render(scene, seed=3, spp=4).numpy()
+    rs, rst = ref_scene.load_scene(
+        CBOX, {"width": "16", "height": "16", "spp": "8", "maxDepth": "3"})
+    ref = np.asarray(ref_path.PathTracer(rs, rst).render(rs, seed=3, spp=4))
+    assert abs(img.mean() - ref.mean()) < 0.01 * abs(ref.mean())
+
+
+def test_unported_branches_raise(cbox16):
+    scene, st = cbox16
+    pt = PathTracer(scene, st)
+    o = torch.zeros((2, 3))
+    d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 1.0, 0.0]])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.trace_rays(scene, 0, torch.zeros(2, dtype=torch.int64),
+                      torch.arange(2), o, d, sss_cache=object())
+    scene_np, st2 = port_scene.load_scene(
+        os.path.join(ROOT, "data/scenes/cbox-mats/cbox-mats.xml"),
+        {"width": "16", "height": "16"})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PathTracer(bridge.to_torch(scene_np, "cpu"), st2)
