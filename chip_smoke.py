@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero before the result line; each prints
 its time):
   1. device and build: requires CUDA, prints the card's name and power
-     limit (nvidia-smi) and builds the sweep kernels (csrc/sweep.cu) and
-     the pair kernels (csrc/trace.cu), one nvcc each, in parallel;
+     limit (nvidia-smi) and builds the sweep kernels (csrc/sweep.cu), the
+     pair kernels (csrc/trace.cu) and the v4 / v2 block kernels
+     (csrc/trace_block.cu), one nvcc each, all started together;
   2. sweep kernels vs plain: both sweep kernels against their plain
      PyTorch versions on random soups (T = 3, 36, 130, 2048) and on the
      cbox soup with its own camera and shadow rays (dead lanes, N not a
@@ -22,15 +23,39 @@ its time):
      (3.08M triangles) with camera, shadow and cosine-sampled bounce rays,
      each batch both cut to 65,537 rays (more dead lanes, N not a
      multiple of the block) and whole at 1,048,576 rays, the size of the
-     main path's calls; then the kernels timed at 1,048,576 forest camera
-     and bounce rays (CUDA events), the plain version at its 1,048,576
-     camera rays;
+     main path's calls (the plain version's time is its 1,048,576-ray
+     camera call);
   6. slice 2: forest 256x256, 16 spp, maxDepth 5, PathTracer.render,
      timed after a warm-up, with the pair kernels' launch counters reset
-     just before it;
+     just before it; then one more render with each kernel launch
+     bracketed by CUDA events (the kernels' share of the render);
   7. forest kernel render vs plain render at 64x64, 2 spp, same seed, and
-     a G-PT render_final (L2) of the forest at 64x64, 4 spp.
-Prints one JSON line describing the kernels, then as the last line
+     a G-PT render_final (L2) of the forest at 64x64, 4 spp;
+  8. v4 and v2 block kernels vs plain: random soups (W = 128, 256); the
+     forest batches of phase 5 (cut and whole), v4 against phase 5's
+     plain results and against the v7 kernels' outputs, v2 (on tri9 slabs
+     built on the card) against its plain version tri9_plain; one v4 call
+     with ray sorting on against the same call with it off;
+  9. kernel times at 1,048,576 forest camera, shadow and bounce rays (CUDA
+     events): v7, v4 and v2 side by side, each beside the batch's bound,
+     and v4 with ray sorting on;
+ 10. slice 3: GDMT_KERNEL=v4, forest 256x256, 16 spp, maxDepth 5,
+     PathTracer.render through the v4 kernels, timed after a warm-up with
+     their launch counters reset just before it, checked against the v7
+     render of phase 6 (same seed), and the kernels' share of one more
+     render; then phase 7's G-PT render_final under v4 against the same
+     call under v7;
+ 11. the v2 path: the v2 wrappers (make_tri9_intersector / _occluder) on
+     the three whole forest batches, launch counters reset just before.
+Every kernel's bound is the larger of its operations over the H100 SXM's
+67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
+inputs: a sweep tests every (live ray, triangle) pair; a traversal needs
+the triangles of every (ray, cluster) pair whose member box passes against
+the ray's final hit t (its maxt where it missed; an occluded any-hit ray
+needs one cluster), and reads each such cluster's slab once, beside 32
+bytes of ray in and 16 bytes (closest) or 1 byte (any hit) out per ray.
+No single PyTorch call computes a closest or any hit, so library_ms is
+null.  Prints one JSON line describing the kernels, then as the last line
 {"ok": true, "device": {...}}.  Imports no jax.
 """
 from __future__ import annotations
@@ -61,6 +86,18 @@ PAIR_VALID, PAIR_PRIM, PAIR_OCC = 0.998, 0.995, 0.998
 N_PAIR_CMP = 65_537
 # render agreement (tests/test_torch_gpt.py): rtol/atol on >= 99% of pixels
 IMG_RTOL, IMG_ATOL, IMG_FRAC = 1e-3, 1e-4, 0.99
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): f32
+# outside the tensor cores, HBM3 bandwidth
+F32_PEAK, HBM_PEAK = 67e12, 3.35e12
+# f32 flops of one (ray, triangle) test, counted from each kernel's code
+FLOPS_SWEEP_CLOSEST = 81   # 4 dots of 10 (1 mul + 9 fma), rcp, 3 mul, add
+FLOPS_SWEEP_ANY = 83       # 4 dots of 10, 4 sign muls, 2 mul, add
+FLOPS_LINEAR_MT = 44       # 3 dots of 6 (1 mul + 5 fma), t dot (1 mul +
+#                            2 fma + add), rcp, 3 mul, add
+FLOPS_PAIRWISE_MT = 46     # 2 crosses (6 mul + 3 sub), 4 dots (3 mul +
+#                            2 add), 3 sub, rcp, 3 mul, add
+# floats of a cluster's slab that a traversal reads, per triangle slot
+SLAB_FLOATS = {"pair": 22, "mt": 22, "tri9": 9}
 
 
 def log(msg):
@@ -154,6 +191,68 @@ def compare(kernels, args):
     return prim_frac, max_abs, max_rel, occ_frac, occ_err
 
 
+def bound_ms(flops, nbytes):
+    """(ms, "operations" or "bytes"): the least time of the work at the
+    card's published peaks."""
+    ops_ms = flops / F32_PEAK * 1e3
+    bytes_ms = nbytes / HBM_PEAK * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+def sweep_bound(rays, n_tris, any_hit):
+    """A whole-soup sweep: every live ray against every triangle; rays in
+    and hits out once, the triangles' 40 coefficients once."""
+    n = rays[0].shape[0]
+    live = int((rays[3] > rays[2]).sum())
+    flops = live * n_tris * (FLOPS_SWEEP_ANY if any_hit else
+                             FLOPS_SWEEP_CLOSEST)
+    return bound_ms(flops, n * (33 if any_hit else 48) + 160 * n_tris)
+
+
+def traversal_bound(rays, hit, occ, cbounds, window, variant):
+    """A clustered traversal on this batch: the triangles of every (ray,
+    cluster) pair whose member box passes against the ray's final hit t
+    (hit: the closest-hit result; maxt where it missed), or with occ (any
+    hit) against maxt for the rays not occluded and one cluster for each
+    occluded ray; each such cluster's slab read once, rays in and hits out
+    once.  Returns (ms, bound_by, pairs, clusters, block pairs): the last
+    counts the distinct (64-ray block, cluster) pairs among the pairs, the
+    clusters the block kernels stage (against the final t; the kernels
+    cull with the running t)."""
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    o, d, mint, maxt = rays
+    if occ is None:
+        bound = torch.where(hit.valid, hit.t, maxt)
+    else:
+        bound = torch.where(occ, -1.0, maxt)
+    scb = trace._super_bounds(cbounds)
+    mb = trace._member_slabs(cbounds)
+    seen = torch.zeros(cbounds.shape[0], dtype=torch.bool, device=o.device)
+    pairs = block_pairs = 0
+    for a in range(0, o.shape[0], trace.RAY_CHUNK):   # whole 64-ray blocks
+        sl = slice(a, a + trace.RAY_CHUNK)
+        ray, k = trace._candidates(o[sl], d[sl], mint[sl], bound[sl], scb,
+                                   mb)
+        pairs += k.shape[0]
+        seen[k] = True
+        block_pairs += torch.unique(ray // 64 * cbounds.shape[0] +
+                                    k).shape[0]
+    if occ is not None:
+        found = occ & hit.valid
+        pairs += int(found.sum())
+        seen[(hit.prim[found] // window).long()] = True
+    n_clusters = int(seen.sum())
+    n = o.shape[0]
+    flops = pairs * window * (FLOPS_PAIRWISE_MT if variant == "tri9" else
+                              FLOPS_LINEAR_MT)
+    nbytes = (n * (33 if occ is not None else 48) +
+              n_clusters * (SLAB_FLOATS[variant] * window * 4 + 24))
+    ms, by = bound_ms(flops, nbytes)
+    return ms, by, pairs, n_clusters, block_pairs
+
+
 def cbox_rays(scene, settings, n, dev, seed=0):
     """n camera rays of the cbox camera (jittered over the film) and n
     shadow rays from their hits toward random points on the light."""
@@ -237,8 +336,12 @@ def phase_kernels(dev, kernels_rec):
     for i, kern, plain in timings:
         kernels_rec[i]["ms"] = cuda_ms(kern)
         kernels_rec[i]["plain_ms"] = cuda_ms(plain, iters=5)
+        ms, by = sweep_bound(cam if i == 0 else shadow, n_tris, i == 1)
+        kernels_rec[i].update(bound_ms=ms, bound_by=by)
         log(f"{kernels_rec[i]['name']} at {N_TIMED} rays: kernel "
-            f"{kernels_rec[i]['ms']:.4f} ms, plain {kernels_rec[i]['plain_ms']:.4f} ms")
+            f"{kernels_rec[i]['ms']:.4f} ms, plain "
+            f"{kernels_rec[i]['plain_ms']:.4f} ms, bound {ms:.4f} ms "
+            f"({by})")
 
 
 def render(scene, st, seed, spp, mode="L1", plain=False):
@@ -444,17 +547,12 @@ def forest_rays(scene, st, n, dev, seed=0):
             (bo, bd, mint, bmaxt))
 
 
-def compare_pairs(ks, rays, slabs, cb):
-    """Pair kernels vs their plain version on one ray batch.  Returns
-    (valid agreement, prim agreement over lanes both hit, max |dt| and
-    max relative dt where prims agree, occluded agreement, max |occluded
-    diff|, fraction of lanes hit, device ms of the plain closest and any
-    hit calls (CUDA events, one call each))."""
-    closest_k, occl_k = ks
-    got = closest_k(*rays, slabs, cb)
-    occ = occl_k(*rays, slabs, cb)
-    ref, ms_c = timed_call(lambda: closest_k.plain(*rays, slabs, cb))
-    ref_occ, ms_o = timed_call(lambda: occl_k.plain(*rays, slabs, cb))
+def agreement(got, occ, ref, ref_occ, rays, label):
+    """Kernel outputs (got Hit, occ) vs reference outputs on one ray
+    batch.  Checks the miss encoding and dead lanes; returns (valid
+    agreement, prim agreement over lanes both hit, max |dt| and max
+    relative dt where prims agree, occluded agreement, max |occluded
+    diff|, fraction of lanes hit, bit-for-bit equal)."""
     valid_frac = float((got.valid == ref.valid).float().mean())
     both = got.valid & ref.valid
     same = both & (got.prim == ref.prim)
@@ -465,79 +563,251 @@ def compare_pairs(ks, rays, slabs, cb):
                if bool(same.any()) else 0.0)
     miss = ~got.valid
     check(bool((got.t[miss] == np.float32(3.0e38)).all()) and
-          bool((got.prim[miss] == -1).all()), "pair closest: miss encoding")
+          bool((got.prim[miss] == -1).all()), f"{label}: miss encoding")
     dead = rays[3] <= rays[2]
     check(not bool(got.valid[dead].any()) and not bool(occ[dead].any()),
-          "pair kernels: a dead lane came back hit")
+          f"{label}: a dead lane came back hit")
     occ_frac = float((occ == ref_occ).float().mean())
     occ_err = float((occ.float() - ref_occ.float()).abs().max())
+    exact = (all(torch.equal(a, b) for a, b in zip(got, ref)) and
+             torch.equal(occ, ref_occ))
     return (valid_frac, prim_frac, max_abs, max_rel, occ_frac, occ_err,
-            float(ref.valid.float().mean()), (ms_c, ms_o))
+            float(ref.valid.float().mean()), exact)
 
 
-def check_pairs(label, res):
-    vf, pf, ma, mr, of, _, hf, (pc, po) = res
+def compare_pairs(ks, rays, table, cb, label):
+    """Traversal kernels (closest, any hit) vs their plain version on one
+    ray batch.  Returns (agreement(...), (kernel Hit, kernel occluded,
+    plain Hit, plain occluded), device ms of the plain closest and any
+    hit calls (CUDA events, one call each))."""
+    closest_k, occl_k = ks
+    got = closest_k(*rays, table, cb)
+    occ = occl_k(*rays, table, cb)
+    ref, ms_c = timed_call(lambda: closest_k.plain(*rays, table, cb))
+    ref_occ, ms_o = timed_call(lambda: occl_k.plain(*rays, table, cb))
+    return (agreement(got, occ, ref, ref_occ, rays, label),
+            (got, occ, ref, ref_occ), (ms_c, ms_o))
+
+
+def check_pairs(label, res, plain_ms=None):
+    vf, pf, ma, mr, of, _, hf, exact = res
     log(f"{label}: valid agree {vf:.6f}, prim agree {pf:.6f}, max |dt| "
-        f"{ma:.3e} (rel {mr:.3e}), occluded agree {of:.6f}, hit {hf:.4f}; "
-        f"plain closest {pc:.1f} ms, any hit {po:.1f} ms")
+        f"{ma:.3e} (rel {mr:.3e}), occluded agree {of:.6f}, hit {hf:.4f}, "
+        f"bit for bit {exact}" + ("" if plain_ms is None else
+                                  f"; plain closest {plain_ms[0]:.1f} ms, "
+                                  f"any hit {plain_ms[1]:.1f} ms"))
     check(vf >= PAIR_VALID and pf >= PAIR_PRIM and mr <= T_RTOL and
-          of >= PAIR_OCC, f"pair kernels vs plain disagree on {label}")
+          of >= PAIR_OCC, f"kernels vs reference disagree on {label}")
+
+
+def forest_batches(rays_by_name):
+    """(name, n, rays): each forest batch cut to N_PAIR_CMP rays with more
+    dead lanes, then whole, at the 1,048,576 rays of the main path's
+    calls."""
+    for name, rays in rays_by_name:
+        sub = [x[:N_PAIR_CMP] for x in rays]
+        sub[3] = sub[3].clone()
+        sub[3][::13] = -1.0                  # more dead lanes
+        for n, batch in ((N_PAIR_CMP, sub), (N_TIMED, rays)):
+            yield name, n, batch
 
 
 def phase_pair_kernels(dev, kernels_rec, forest):
+    """Returns {(batch name, n): (rays, v7 Hit, v7 occluded, plain Hit,
+    plain occluded, plain ms)} for the later phases."""
     from gradientdomain_mitsuba_tpu_torch.ops import trace
     scene, st, _ = forest
     log(f"tolerances: valid equal on >= {PAIR_VALID} of lanes; prim equal "
         f"on >= {PAIR_PRIM} of lanes both hit; t rtol {T_RTOL} where prim "
         f"agrees; occluded equal on >= {PAIR_OCC} of lanes")
     for W in (128, 256):
-        o, d, mint, maxt, slabs, cb, _ = (
+        o, d, mint, maxt, slabs, cb, _, _ = (
             torch.from_numpy(a).to(dev)
             for a in trace.random_cluster_soup(300, W, W, 100_003))
         ks = (trace.make_pair_intersector(W, 300),
               trace.make_pair_occluder(W, 300))
-        check_pairs(f"random soup K=300 W={W} N={o.shape[0]}",
-                    compare_pairs(ks, (o, d, mint, maxt), slabs, cb))
+        label = f"random soup K=300 W={W} N={o.shape[0]}"
+        res, _, ms = compare_pairs(ks, (o, d, mint, maxt), slabs, cb, label)
+        check_pairs(label, res, ms)
 
-    # the forest: each batch cut to N_PAIR_CMP rays with more dead lanes,
-    # then whole, at the 1,048,576 rays of the main path's calls
     g = scene.geom
     K, W = g.cbounds.shape[0], st.cluster_window
     ks = (trace.make_pair_intersector(W, K), trace.make_pair_occluder(W, K))
     cam, shadow, bounce = forest_rays(scene, st, N_TIMED, dev)
-    results = []
-    for name, rays in (("camera", cam), ("shadow", shadow),
-                       ("bounce", bounce)):
-        sub = [x[:N_PAIR_CMP] for x in rays]
-        sub[3] = sub[3].clone()
-        sub[3][::13] = -1.0                  # more dead lanes
-        for n, batch in ((N_PAIR_CMP, sub), (N_TIMED, rays)):
-            res = compare_pairs(ks, batch, g.mt_slabs, g.cbounds)
-            check_pairs(f"forest {name} rays N={n}", res)
-            results.append(res)
-            if name == "camera" and n == N_TIMED:
-                cam_plain_ms = res[7]
-    kernels_rec[2]["max_abs_err"] = max(r[2] for r in results)
-    kernels_rec[3]["max_abs_err"] = max(r[5] for r in results)
-
-    # timing at the main path's size: kernels at 1,048,576 forest camera
-    # and bounce rays; the plain version's time is its 1,048,576-ray
-    # camera comparison call above
-    for i, k in ((2, ks[0]), (3, ks[1])):
-        rec = kernels_rec[i]
-        for name, rays in (("camera", cam), ("bounce", bounce)):
-            ms = cuda_ms(lambda: k(*rays, g.mt_slabs, g.cbounds), iters=5,
-                         warmup=1)
-            rec[f"ms_{name}"] = ms
-            log(f"{k.name} at {N_TIMED} forest {name} rays: kernel "
-                f"{ms:.4f} ms")
-        rec.update(ms=rec["ms_camera"], n=N_TIMED,
-                   plain_ms=cam_plain_ms[i - 2], plain_n=N_TIMED)
-        log(f"{k.name} plain version at {N_TIMED} forest camera rays: "
-            f"{rec['plain_ms']:.4f} ms")
-    k_launches = [k.launches for k in ks]
+    out = {}
+    for name, n, batch in forest_batches((("camera", cam), ("shadow", shadow),
+                                          ("bounce", bounce))):
+        label = f"forest {name} rays N={n}"
+        res, outs, ms = compare_pairs(ks, batch, g.mt_slabs, g.cbounds, label)
+        check_pairs(label, res, ms)
+        out[(name, n)] = (batch, *outs, ms, res)
+    kernels_rec[2]["max_abs_err"] = max(r[-1][2] for r in out.values())
+    kernels_rec[3]["max_abs_err"] = max(r[-1][5] for r in out.values())
     log(f"(comparison launches, not counted as the main path's: "
-        f"{k_launches})")
+        f"{[k.launches for k in ks]})")
+    return out
+
+
+def phase_block_kernels(dev, recs, forest, pair_out):
+    """v4 and v2 kernels vs their plain versions; v4 also vs v7.  Returns
+    (tri9 of the forest, {(batch name, n): (v2 Hit, v2 occluded, plain
+    Hit, plain occluded, plain ms)})."""
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    scene, st, _ = forest
+    makers = {"mt": (trace.make_mt_intersector, trace.make_mt_occluder),
+              "tri9": (trace.make_tri9_intersector, trace.make_tri9_occluder)}
+    for W in (128, 256):
+        o, d, mint, maxt, slabs, cb, _, tri9 = (
+            torch.from_numpy(a).to(dev)
+            for a in trace.random_cluster_soup(300, W, W + 2, 100_003))
+        for variant, table in (("mt", slabs), ("tri9", tri9)):
+            ks = tuple(m(W, 300) for m in makers[variant])
+            label = f"{variant} random soup K=300 W={W} N={o.shape[0]}"
+            res, _, ms = compare_pairs(ks, (o, d, mint, maxt), table, cb,
+                                       label)
+            check_pairs(label, res, ms)
+
+    g = scene.geom
+    K, W = g.cbounds.shape[0], st.cluster_window
+    t0 = time.time()
+    tri9 = trace.tri9_from_soup(g.tris, W)
+    torch.cuda.synchronize()
+    log(f"forest tri9 {tuple(tri9.shape)} built on the card in "
+        f"{time.time() - t0:.3f} s ({tri9.numel() * 4} bytes)")
+    mt = tuple(m(W, K, ray_sort=False) for m in makers["mt"])
+    v2 = tuple(m(W, K) for m in makers["tri9"])
+    v2_out = {}
+    err = {"mt": [0.0, 0.0], "tri9": [0.0, 0.0]}
+    for (name, n), (batch, v7h, v7o, ref, ref_occ, _, _) in pair_out.items():
+        label = f"mt forest {name} rays N={n}"
+        hit = mt[0](*batch, g.mt_slabs, g.cbounds)
+        occ = mt[1](*batch, g.mt_slabs, g.cbounds)
+        res = agreement(hit, occ, ref, ref_occ, batch, label)
+        check_pairs(label + " vs plain", res)
+        same_v7 = agreement(hit, occ, v7h, v7o, batch, label)
+        log(f"{label} vs v7 kernels: bit for bit {same_v7[-1]}, prim agree "
+            f"{same_v7[1]:.6f}")
+        check(same_v7[1] >= PAIR_PRIM and same_v7[4] >= PAIR_OCC,
+              f"{label}: v4 and v7 disagree")
+        err["mt"] = [max(err["mt"][0], res[2]), max(err["mt"][1], res[5])]
+
+        label = f"tri9 forest {name} rays N={n}"
+        res, outs, ms = compare_pairs(v2, batch, tri9, g.cbounds, label)
+        check_pairs(label, res, ms)
+        v2_out[(name, n)] = (*outs, ms)
+        err["tri9"] = [max(err["tri9"][0], res[2]),
+                       max(err["tri9"][1], res[5])]
+    for variant, (e_c, e_o) in err.items():
+        recs[f"{variant}_closest"]["max_abs_err"] = e_c
+        recs[f"{variant}_occluded"]["max_abs_err"] = e_o
+
+    # ray sorting around v4 changes nothing
+    batch = pair_out[("bounce", N_TIMED)][0]
+    for k in mt:
+        srt = type(k)("mt", k.any_hit, W, K, ray_sort=True)
+        a = k(*batch, g.mt_slabs, g.cbounds)
+        b = srt(*batch, g.mt_slabs, g.cbounds)
+        same = (torch.equal(a, b) if k.any_hit else
+                all(torch.equal(x, y) for x, y in zip(a, b)))
+        log(f"{k.name} on forest bounce rays N={N_TIMED}, ray sort on vs "
+            f"off: identical {same}")
+        check(same, f"{k.name}: ray sorting changed the results")
+    log(f"(comparison launches, not counted as the main path's: "
+        f"{[k.launches for k in mt + v2]})")
+    return tri9, v2_out
+
+
+def phase_kernel_times(recs, forest, pair_out, tri9, v2_out):
+    """All six traversal kernels at 1,048,576 forest camera, shadow and
+    bounce rays, each beside the batch's bound."""
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    scene, st, _ = forest
+    g = scene.geom
+    K, W = g.cbounds.shape[0], st.cluster_window
+    kernels = {
+        "pair": (trace.make_pair_intersector(W, K),
+                 trace.make_pair_occluder(W, K), g.mt_slabs),
+        "mt": (trace.make_mt_intersector(W, K, ray_sort=False),
+               trace.make_mt_occluder(W, K, ray_sort=False), g.mt_slabs),
+        "tri9": (trace.make_tri9_intersector(W, K),
+                 trace.make_tri9_occluder(W, K), tri9)}
+    for name in ("camera", "shadow", "bounce"):
+        batch, _, _, ref, ref_occ, _, _ = pair_out[(name, N_TIMED)]
+        v2_ref, v2_occ = v2_out[(name, N_TIMED)][2:4]
+        for variant, (ck, ok, table) in kernels.items():
+            hit, occ = (v2_ref, v2_occ) if variant == "tri9" else (ref,
+                                                                   ref_occ)
+            for k, occl in ((ck, None), (ok, occ)):
+                ms = cuda_ms(lambda: k(*batch, table, g.cbounds), iters=5,
+                             warmup=1)
+                b_ms, by, pairs, clusters, blocks = traversal_bound(
+                    batch, hit, occl, g.cbounds, W, variant)
+                rec = recs[k.name]
+                rec[f"ms_{name}"] = ms
+                rec[f"bound_ms_{name}"] = b_ms
+                if name == "camera":
+                    rec.update(ms=ms, bound_ms=b_ms, bound_by=by, n=N_TIMED)
+                log(f"{k.name} at {N_TIMED} forest {name} rays: kernel "
+                    f"{ms:.4f} ms; bound {b_ms:.4f} ms ({by}: {pairs} (ray, "
+                    f"cluster) pairs, {clusters} clusters; {blocks} (64-ray "
+                    f"block, cluster) pairs, {blocks * 64 / max(pairs, 1):.2f}"
+                    f"x the ray pairs)")
+        # v4 with GDMT_RAY_SORT's coherence sort around it
+        for k in kernels["mt"][:2]:
+            srt = trace.BlockKernel("mt", k.any_hit, W, K, ray_sort=True)
+            ms = cuda_ms(lambda: srt(*batch, g.mt_slabs, g.cbounds), iters=5,
+                         warmup=1)
+            recs[k.name][f"ms_{name}_sorted"] = ms
+            log(f"{k.name} at {N_TIMED} forest {name} rays, ray sort on "
+                f"(sort and unsort included): {ms:.4f} ms")
+    # the plain versions' times: their 1,048,576-ray camera comparison
+    # calls (pair_plain serves v7 and v4)
+    cam_ms = pair_out[("camera", N_TIMED)][5]
+    v2_ms = v2_out[("camera", N_TIMED)][4]
+    for variant, (c_ms, o_ms) in (("pair", cam_ms), ("mt", cam_ms),
+                                  ("tri9", v2_ms)):
+        recs[f"{variant}_closest"].update(plain_ms=c_ms, plain_n=N_TIMED)
+        recs[f"{variant}_occluded"].update(plain_ms=o_ms, plain_n=N_TIMED)
+
+
+def kernel_time_render(tracer, scene, seed):
+    """One more forest render (16 spp) with every traversal launch
+    bracketed by CUDA events: returns (wall s, {kernel name: (device ms,
+    calls)}).  The events' own launches make the wall a little longer
+    than the timed render's."""
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    marks = []
+    launch = trace.PairKernel._launch
+
+    def timed_launch(k, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(k, *args)
+        end.record()
+        marks.append((k.name, start, end))
+        return out
+
+    trace.PairKernel._launch = timed_launch
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tracer.render(scene, seed=seed, spp=16, chunk=16)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        trace.PairKernel._launch = launch
+    per = {}
+    for name, start, end in marks:
+        ms, n = per.get(name, (0.0, 0))
+        per[name] = (ms + start.elapsed_time(end), n + 1)
+    total = sum(ms for ms, _ in per.values())
+    log(f"  traversal kernels inside one more render (seed {seed}): "
+        + ", ".join(f"{n} {ms:.3f} ms over {c} calls"
+                    for n, (ms, c) in per.items())
+        + f"; {total:.3f} ms of {wall * 1e3:.3f} ms wall "
+          f"({100 * total / (wall * 1e3):.1f}%)")
+    return wall, per
 
 
 def phase_forest_slice(dev, kernels_rec, forest):
@@ -576,8 +846,10 @@ def phase_forest_slice(dev, kernels_rec, forest):
     mean = float(img.mean())
     log(f"forest image mean {mean:.5f}, lit pixels {lit:.4f}")
     check(mean > 0 and lit > 0.1, "forest image is black")
+    _, per = kernel_time_render(tracer, scene, 2)
     return dict(wall_s=wall, rays=rays, mrays_per_s=rays / wall / 1e6,
-                peak_bytes=peak, image_mean=mean, lit_frac=lit, **info)
+                peak_bytes=peak, image_mean=mean, lit_frac=lit,
+                kernel_ms=per, **info), img
 
 
 def phase_forest_vs_plain(dev, forest):
@@ -634,10 +906,130 @@ def phase_forest_vs_plain(dev, forest):
     check(all(bool(torch.isfinite(bufs[k]).all())
               for k in ("primal", "dx", "dy", "very_direct")),
           "forest G-PT buffers not finite")
+    return final, int(bufs["rays"])
+
+
+def phase_v4_slice(dev, recs, forest, v7_img, v7_rays, v7_gpt):
+    """Slice 3: the forest render with GDMT_KERNEL=v4, through
+    choose_intersector and PathTracer.render, against the v7 render of
+    phase 6 (same seed); then G-PT render_final under v4 against the same
+    call under v7 (phase 7)."""
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    scene, st, _ = forest
+    saved = os.environ.get("GDMT_KERNEL")
+    os.environ["GDMT_KERNEL"] = "v4"
+    try:
+        tracer = PathTracer(scene, st)
+        gst = dataclasses.replace(st, width=64, height=64, spp=4,
+                                  integrator="gpt")
+        gpt = GPTracer(scene, gst)
+    finally:
+        if saved is None:
+            del os.environ["GDMT_KERNEL"]
+        else:
+            os.environ["GDMT_KERNEL"] = saved
+    names = [k.name for k in tracer.kernels + gpt.kernels]
+    check(names == ["mt_closest", "mt_occluded"] * 2,
+          f"GDMT_KERNEL=v4 chose {names}")
+    tracer.count_rays = True
+    t0 = time.time()
+    tracer.render(scene, seed=0, spp=16, chunk=16)
+    torch.cuda.synchronize()
+    log(f"v4 forest warm-up render {time.time() - t0:.3f} s")
+
+    # a v7 launch would load csrc/trace.cu's library: count those loads
+    v7_loads = [0]
+    load_v7 = trace.load_library
+
+    def counting_load():
+        v7_loads[0] += 1
+        return load_v7()
+
+    trace.load_library = counting_load
+    try:
+        for k in tracer.kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        img = tracer.render(scene, seed=1, spp=16, chunk=16)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = [k.launches for k in tracer.kernels]
+    finally:
+        trace.load_library = load_v7
+    peak = torch.cuda.max_memory_allocated(dev)
+    rays = tracer.last_ray_count
+    for k, n in zip(tracer.kernels, launches):
+        recs[k.name]["launches"] = n
+    log(f"forest PathTracer.render 256x256 16spp maxDepth 5, GDMT_KERNEL=v4: "
+        f"wall {wall:.4f} s, measured rays {rays}, "
+        f"{rays / wall / 1e6:.3f} Mrays/s, kernel launches mt_closest "
+        f"{launches[0]} mt_occluded {launches[1]}, v7 launches "
+        f"{v7_loads[0]}, peak device memory {peak} bytes")
+    check(all(n > 0 for n in launches) and v7_loads[0] == 0,
+          f"the v4 render launched v4 {launches} and v7 {v7_loads[0]} times")
+    check(bool(torch.isfinite(img).all()), "v4 forest image not finite")
+    diff = float((img - v7_img).abs().max())
+    frac = float(torch.isclose(img, v7_img, rtol=IMG_RTOL, atol=IMG_ATOL)
+                 .all(-1).float().mean())
+    log(f"  vs the v7 render (seed 1): rays {rays} vs {v7_rays}, max |diff| "
+        f"{diff:.3e}, {frac:.5f} of pixels within rtol {IMG_RTOL} atol "
+        f"{IMG_ATOL}")
+    check(rays == v7_rays, "v4 and v7 forest renders traced different rays")
+    check(frac >= IMG_FRAC, "v4 and v7 forest images differ")
+    _, per = kernel_time_render(tracer, scene, 2)
+
+    t0 = time.time()
+    gpt.count_rays = True
+    final, bufs = gpt.render_final(scene, 2, 4, alpha=0.2, mode="L2")
+    torch.cuda.synchronize()
+    g_launches = [k.launches for k in gpt.kernels]
+    g_frac = float(torch.isclose(final, v7_gpt[0], rtol=IMG_RTOL,
+                                 atol=IMG_ATOL).all(-1).float().mean())
+    log(f"forest G-PT 64x64 4spp L2 under v4: {time.time() - t0:.3f} s, "
+        f"rays {int(bufs['rays'])} vs {v7_gpt[1]} under v7, launches "
+        f"{g_launches}, {g_frac:.5f} of pixels within tolerance of v7's "
+        f"final (max |diff| {float((final - v7_gpt[0]).abs().max()):.3e})")
+    check(all(n > 0 for n in g_launches), "G-PT under v4 did not launch "
+          "both v4 kernels")
+    check(int(bufs["rays"]) == v7_gpt[1] and g_frac >= IMG_FRAC,
+          "G-PT finals under v4 and v7 differ")
+    return dict(wall_s=wall, rays=rays, mrays_per_s=rays / wall / 1e6,
+                peak_bytes=peak, launches=launches, max_abs_diff_vs_v7=diff,
+                kernel_ms=per)
+
+
+def phase_v2_path(recs, forest, pair_out, tri9):
+    """The v2 entry point (make_tri9_intersector / make_tri9_occluder)
+    on the whole forest batches: closest hits of the camera and bounce
+    rays, any hits of the shadow rays, counters reset just before."""
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    scene, st, _ = forest
+    g = scene.geom
+    K, W = g.cbounds.shape[0], st.cluster_window
+    ck, ok = trace.make_tri9_intersector(W, K), trace.make_tri9_occluder(W, K)
+    t0 = time.time()
+    hits = [ck(*pair_out[(name, N_TIMED)][0], tri9, g.cbounds)
+            for name in ("camera", "bounce")]
+    occ = ok(*pair_out[("shadow", N_TIMED)][0], tri9, g.cbounds)
+    torch.cuda.synchronize()
+    for k in (ck, ok):
+        recs[k.name]["launches"] = k.launches
+    log(f"v2 path on {N_TIMED} camera, bounce (closest) and shadow (any "
+        f"hit) forest rays: {time.time() - t0:.3f} s, hit fractions "
+        f"{[round(float(h.valid.float().mean()), 4) for h in hits]}, "
+        f"occluded {float(occ.float().mean()):.4f}, launches "
+        f"{ck.launches} / {ok.launches}")
+    check(ck.launches == 2 and ok.launches == 1, "v2 path launch counts")
 
 
 def build_kernels():
-    """Build both kernel libraries, one nvcc each, started together."""
+    """Build the three kernel libraries, one nvcc each, all started
+    together; prints how much the overlap saves against building them
+    one after another (the sum of the per-source times)."""
     from gradientdomain_mitsuba_tpu_torch.ops import sweep, trace
 
     def timed(load):
@@ -645,11 +1037,19 @@ def build_kernels():
         load()
         return time.time() - t0
 
-    with ThreadPoolExecutor(2) as pool:
-        futs = {name: pool.submit(timed, lib.load_library)
-                for name, lib in (("sweep.cu", sweep), ("trace.cu", trace))}
-        for name, fut in futs.items():
-            log(f"kernel build+load {name}: {fut.result():.3f} s")
+    sources = (("sweep.cu", sweep.load_library),
+               ("trace.cu", trace.load_library),
+               ("trace_block.cu", trace.load_block_library))
+    t0 = time.time()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        futs = {name: pool.submit(timed, load) for name, load in sources}
+        each = {name: fut.result() for name, fut in futs.items()}
+    wall = time.time() - t0
+    for name, sec in each.items():
+        log(f"kernel build+load {name}: {sec:.3f} s")
+    log(f"parallel build wall {wall:.3f} s against {sum(each.values()):.3f} "
+        f"s of per-source time: the overlap saves "
+        f"{sum(each.values()) - wall:.3f} s")
 
 
 def main():
@@ -668,15 +1068,21 @@ def main():
 
     csrc = "gradientdomain_mitsuba_tpu_torch/csrc/"
     ref_sweep = "gradientdomain_mitsuba_tpu/ops/pallas_sweep.py:"
-    ref_trace = "gradientdomain_mitsuba_tpu/ops/pallas_trace.py:919"
+    ref_trace = "gradientdomain_mitsuba_tpu/ops/pallas_trace.py:"
     kernels_rec = [
         dict(name=name, route="cuda", source=csrc + src, replaces=replaces,
-             launches=0, max_abs_err=None, ms=None, plain_ms=None)
+             launches=0, max_abs_err=None, ms=None, plain_ms=None,
+             bound_ms=None, bound_by=None, library_ms=None)
         for name, src, replaces in (
             ("sweep_closest", "sweep.cu", ref_sweep + "91"),
             ("sweep_occluded", "sweep.cu", ref_sweep + "131"),
-            ("pair_closest", "trace.cu", ref_trace),
-            ("pair_occluded", "trace.cu", ref_trace))]
+            ("pair_closest", "trace.cu", ref_trace + "919"),
+            ("pair_occluded", "trace.cu", ref_trace + "919"),
+            ("mt_closest", "trace_block.cu", ref_trace + "324"),
+            ("mt_occluded", "trace_block.cu", ref_trace + "324"),
+            ("tri9_closest", "trace_block.cu", ref_trace + "62"),
+            ("tri9_occluded", "trace_block.cu", ref_trace + "62"))]
+    recs = {r["name"]: r for r in kernels_rec}
     with Phase("sweep kernels vs plain"):
         phase_kernels(dev, kernels_rec)
     with Phase("slice 1: cbox G-PT + L1"):
@@ -686,12 +1092,22 @@ def main():
     with Phase("forest load"):
         forest = load_forest(dev)
     with Phase("pair kernels vs plain"):
-        phase_pair_kernels(dev, kernels_rec, forest)
+        pair_out = phase_pair_kernels(dev, kernels_rec, forest)
     with Phase("slice 2: forest PathTracer"):
-        forest_summary = phase_forest_slice(dev, kernels_rec, forest)
+        forest_summary, v7_img = phase_forest_slice(dev, kernels_rec, forest)
     with Phase("forest kernel render vs plain render, forest G-PT"):
-        phase_forest_vs_plain(dev, forest)
-    log(json.dumps({"slice": summary, "forest": forest_summary}))
+        v7_gpt = phase_forest_vs_plain(dev, forest)
+    with Phase("v4 and v2 kernels vs plain"):
+        tri9, v2_out = phase_block_kernels(dev, recs, forest, pair_out)
+    with Phase("kernel times at 1M forest rays"):
+        phase_kernel_times(recs, forest, pair_out, tri9, v2_out)
+    with Phase("slice 3: forest PathTracer with GDMT_KERNEL=v4"):
+        v4_summary = phase_v4_slice(dev, recs, forest, v7_img,
+                                    forest_summary["rays"], v7_gpt)
+    with Phase("v2 path"):
+        phase_v2_path(recs, forest, pair_out, tri9)
+    log(json.dumps({"slice": summary, "forest": forest_summary,
+                    "forest_v4": v4_summary}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

@@ -6,13 +6,13 @@ named by a hash of their sources and command line, so a changed source
 never loads a stale library.  A build writes to a temporary file and
 renames it into place, so concurrent processes never load a torn file.
 
-  bvh_builder — the reference's binned-SAH BVH builder, compiled BY PATH
-                from gradientdomain_mitsuba_tpu/native/bvh_builder.cpp
-                (read as a source file; the reference package is never
-                imported).  Both packages take the same route (native
-                when it builds, Python otherwise), so both lay triangles
-                out in the same order.
-  sweep, trace — the CUDA kernels of csrc/ (ops/sweep.py, ops/trace.py),
+  bvh_builder — the binned-SAH BVH builder, native/bvh_builder.cpp: a
+                byte-identical copy of the reference's source (a CPU
+                test holds the two equal).  Both packages take the same
+                route (native when it builds, Python otherwise), so both
+                lay triangles out in the same order.
+  sweep, trace, trace_block — the CUDA kernels of csrc/ (ops/sweep.py,
+                ops/trace.py),
                 compiled by nvcc_command for sm_90a and loaded by
                 load_cuda; check_tensors validates what their wrappers
                 pass as pointers.
@@ -31,8 +31,7 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
-BVH_SOURCE = os.path.join(os.path.dirname(_PKG), "gradientdomain_mitsuba_tpu",
-                          "native", "bvh_builder.cpp")
+BVH_SOURCE = os.path.join(_PKG, "native", "bvh_builder.cpp")
 
 _LOCK = threading.Lock()
 _LIBS = {}

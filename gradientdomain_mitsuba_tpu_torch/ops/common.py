@@ -7,13 +7,16 @@ gathers vertex attributes and material/emitter ids into the flat
 Intersection record every integrator uses.
 
 Ported: the small-scene (<= 2048 triangles) traversal through the sweep
-kernels, the large-scene traversal through the pair kernels, the
+kernels, the large-scene traversal through the pair kernels (or, under
+GDMT_KERNEL=v4, the v4 block kernels), the
 untextured material gather, and the hit fill without the barycentric
 payload or normal perturbation.  The reference's one-hot
 matmul gather (fast_row_gather) is a TPU workaround; here it is plain
 indexing.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -54,8 +57,12 @@ def choose_intersector(settings, n_tris: int, n_clusters: int = 0):
     version on a CPU tensor).  Larger scenes walk the clustered soup with
     the pair kernels (ops/trace.py, the reference's default v7 kernel):
     the CUDA kernels on a CUDA tensor, their plain version on a CPU
-    tensor.  Each returned function carries the kernel wrapper it calls
-    as `.kernel` (its `.launches` counts launches).
+    tensor.  GDMT_KERNEL, read here at each call as the reference reads
+    it, selects the traversal: "pairs" (the default) the pair kernels,
+    any other value the v4 block kernels (make_mt_intersector /
+    make_mt_occluder, same tables, same results).  Each returned function
+    carries the kernel wrapper it calls as `.kernel` (its `.launches`
+    counts launches).
 
     Deviation: on the CPU the reference walks large scenes with its jnp
     two-level traversal (make_cluster_intersector); the port runs the
@@ -73,10 +80,14 @@ def choose_intersector(settings, n_tris: int, n_clusters: int = 0):
         def occl(o, d, mint, maxt, geom):
             return occl_k(o, d, mint, maxt, geom.linC)
     elif n_clusters > 0:
-        closest_k = trace.make_pair_intersector(settings.cluster_window,
-                                                n_clusters)
-        occl_k = trace.make_pair_occluder(settings.cluster_window,
-                                          n_clusters)
+        if os.environ.get("GDMT_KERNEL", "pairs") == "pairs":
+            make_closest = trace.make_pair_intersector
+            make_occl = trace.make_pair_occluder
+        else:
+            make_closest = trace.make_mt_intersector
+            make_occl = trace.make_mt_occluder
+        closest_k = make_closest(settings.cluster_window, n_clusters)
+        occl_k = make_occl(settings.cluster_window, n_clusters)
 
         def closest(o, d, mint, maxt, geom):
             return closest_k(o, d, mint, maxt, geom.mt_slabs, geom.cbounds)

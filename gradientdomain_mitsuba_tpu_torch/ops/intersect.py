@@ -1,11 +1,13 @@
 """Ray-triangle intersection: scene tables and the plain linear-MT sweeps.
 
 Counterpart of gradientdomain_mitsuba_tpu/ops/intersect.py for what the
-small-scene path needs: the NamedTuple tables the scene loader fills, the
-linear-MT coefficient builders, and intersect_matmul / occluded_matmul —
+ported paths need: the NamedTuple tables the scene loader fills, the
+linear-MT coefficient builders, intersect_matmul / occluded_matmul —
 the PLAIN PyTorch versions of the two CUDA sweep kernels (ops/sweep.py,
-csrc/sweep.cu).  The CPU path and the tests use them; a CUDA tensor goes
-through the kernels.
+csrc/sweep.cu) — and the pairwise Moeller-Trumbore test `_mt` with the
+all-pairs intersect_brute / occluded_brute, the reference's exact oracle
+and the arithmetic of the v2 traversal (ops/trace.tri9_plain).  The CPU
+path and the tests use them; a CUDA tensor goes through the kernels.
 
 Linear Moeller-Trumbore (reference ops/intersect.py:415-435): with
 n = e1 x e2,
@@ -97,6 +99,78 @@ def build_mt_slabs(linC: np.ndarray, window: int) -> np.ndarray:
         K, 6, 3 * window)
     slabs[:K, 0:4, 3 * window:] = per[:, 6:10, 3, :]
     return slabs
+
+
+def _mt(o, d, v0, e1, e2, mint, maxt):
+    """Moeller-Trumbore; o, d [..., 3] broadcast against v0/e1/e2 [..., 3],
+    mint / maxt against the result.  Returns (t, u, v, hit).
+
+    One evaluation order, which csrc/trace_block.cu's v2 kernels repeat
+    with _rn intrinsics: every product rounded once, cross products as
+    a*b - c*d, three-term dots as (x0 + x1) + x2, inv_det an IEEE
+    reciprocal (0 where |det| <= 1e-12)."""
+    def comp(a):
+        return a[..., 0], a[..., 1], a[..., 2]
+
+    dx, dy, dz = comp(d)
+    v0x, v0y, v0z = comp(v0)
+    e1x, e1y, e1z = comp(e1)
+    e2x, e2y, e2z = comp(e2)
+    ox, oy, oz = comp(o)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    big = det.abs() > 1e-12
+    inv_det = torch.where(big, 1.0 / det, 0.0)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    hit = (big & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > mint) &
+           (t < maxt))
+    return t, u, v, hit
+
+
+def intersect_brute(o, d, mint, maxt, tris: TriSoup, chunk: int = 2048,
+                    ray_chunk: int = 4096) -> Hit:
+    """Closest hit, all rays x all triangles, by _mt over triangle chunks
+    (and ray chunks, to bound the [rays, chunk] temporaries).  Among
+    equal minimal t the lowest triangle index wins, as the reference's
+    scan over chunks with a strict `<` gives."""
+    R = o.shape[0]
+    T = tris.v0.shape[0]
+    dev = o.device
+    t_out = torch.full((R,), F32_MAX, device=dev)
+    u_out = torch.zeros(R, device=dev)
+    v_out = torch.zeros(R, device=dev)
+    p_out = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    for a in range(0, R, ray_chunk):
+        sl = slice(a, min(a + ray_chunk, R))
+        bt, bu, bv, bp = t_out[sl], u_out[sl], v_out[sl], p_out[sl]
+        for c in range(0, T, chunk):
+            tc = slice(c, min(c + chunk, T))
+            t, u, v, h = _mt(o[sl, None], d[sl, None], tris.v0[None, tc],
+                             tris.e1[None, tc], tris.e2[None, tc],
+                             mint[sl, None], maxt[sl, None])
+            t = torch.where(h, t, F32_MAX)
+            tj, j = t.min(1)                # first index among equal t
+            better = h.any(1) & (tj < bt)
+            pick = j[:, None]
+            bu.copy_(torch.where(better, u.gather(1, pick)[:, 0], bu))
+            bv.copy_(torch.where(better, v.gather(1, pick)[:, 0], bv))
+            bp.copy_(torch.where(better, (j + c).to(torch.int32), bp))
+            bt.copy_(torch.where(better, tj, bt))
+    return Hit(t=t_out, u=u_out, v=v_out, prim=p_out, valid=p_out >= 0)
+
+
+def occluded_brute(o, d, mint, maxt, tris: TriSoup, chunk: int = 2048):
+    return intersect_brute(o, d, mint, maxt, tris, chunk).valid
 
 
 def _features(o, d):

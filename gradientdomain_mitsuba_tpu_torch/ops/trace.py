@@ -1,32 +1,48 @@
 """Closest-hit / any-hit traversal of the clustered triangle soup.
 
 Counterpart of gradientdomain_mitsuba_tpu/ops/pallas_trace.py for its
-default large-scene kernel, v7 (`_v7_kernel` with the XLA-side
-`_v7_phase1` / `_v7_expand` culling rounds): the hand-written CUDA
-kernels of csrc/trace.cu (see the note there for the design) and their
-plain PyTorch version.
+three traversal kernels, each with its plain PyTorch version:
+
+  v7 (`_v7_kernel` with the XLA-side `_v7_phase1` / `_v7_expand` culling
+     rounds; the default large-scene kernel): csrc/trace.cu, one warp
+     per ray (PairKernel, make_pair_intersector / make_pair_occluder);
+  v4 (`_mt_kernel` with `_super_worklists`; GDMT_KERNEL=v4): the same
+     function over the same tables, csrc/trace_block.cu, one block of 64
+     rays walking its superclusters near to far (BlockKernel "mt",
+     make_mt_intersector / make_mt_occluder), with the optional ray sort
+     around it (sort_rays, GDMT_RAY_SORT);
+  v2 (`_traverse_kernel`; the reference's make_pallas_intersector /
+     make_pallas_occluder): pairwise Moeller-Trumbore over `tri9` slabs,
+     csrc/trace_block.cu (BlockKernel "tri9", make_tri9_intersector /
+     make_tri9_occluder).
 
 The scene loader lays triangles out cluster-major: cluster k owns prim
 slots [k*W, (k+1)*W) of the window-padded soup, its linear-MT
 coefficients sit in the 8-row slab mt_slabs[k] (ops/intersect.
-build_mt_slabs) and its bounds in cbounds[k] = (min xyz, max xyz).
-SUPER_FACTOR consecutive clusters form a supercluster.  A ray tests the
-supercluster boxes, then the member boxes of each pending supercluster,
-then every triangle of each pending member; a hit's prim is k*W + lane,
-the row of tri_shade.  The box tests are the reference's expressions:
+build_mt_slabs), its v0/e1/e2 rows in tri9[k] (tri9_from_soup) and its
+bounds in cbounds[k] = (min xyz, max xyz).  SUPER_FACTOR consecutive
+clusters form a supercluster.  A ray tests the supercluster boxes, then
+the member boxes of each pending supercluster, then every triangle of
+each pending member; a hit's prim is k*W + lane, the row of tri_shade.
+The box tests are the reference's expressions:
 
   inv = where(|d| > 1e-12, 1/d, 1e30)
   tn = max_axes min((lo - o)*inv, (hi - o)*inv), tf = max..min likewise
   pending = tn <= tf & tf >= mint & tn <= t & t >= mint   (member id >= 0)
 
-with t the ray's bound.  The triangle test is divide-first linear MT for
-both queries, as v7 runs it: inv = 1/det, u = u_num*inv, v = v_num*inv,
+with t the ray's bound.  The triangle test of v7 and v4 is divide-first
+linear MT for both queries: inv = 1/det, u = u_num*inv, v = v_num*inv,
 t = t_num*inv, ok = u >= 0 & v >= 0 & u + v <= 1 & t > mint & t < bound.
-A miss is t = 3e38 (F32_MAX), u = v = 0, prim = -1.  Among equal minimal
-t the lowest prim wins.
+v2's is ops/intersect._mt.  A miss is t = 3e38 (F32_MAX), u = v = 0,
+prim = -1.  Among equal minimal t the lowest prim wins (the reference
+keeps the first hit in its visit order instead: a documented deviation).
 
-The GDMT_* environment switches of the reference are not ported: the
-port has no traversal knobs.
+Environment switches: GDMT_KERNEL is read by ops/common.
+choose_intersector as the reference reads it ("pairs", the default,
+takes v7; any other value v4), GDMT_RAY_SORT here (RAY_SORT, default
+off), as pallas_trace.py reads it.  GDMT_SUPER_FACTOR, GDMT_RBLK and
+GDMT_PAIR_* are TPU tiling knobs and are not ported: SUPER_FACTOR is
+fixed at 128 and the CUDA kernels choose their own blocking.
 """
 from __future__ import annotations
 
@@ -46,8 +62,17 @@ SUPER_FACTOR = 128        # clusters per supercluster
 MAX_WINDOW = 4096
 F32_MAX = isec.F32_MAX
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "trace.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+_SRC = os.path.join(_CSRC, "trace.cu")
+_BLOCK_SRC = os.path.join(_CSRC, "trace_block.cu")
+# the block kernels sort a block's pending superclusters in shared memory
+# (next power of two of S entries of 8 bytes); 4096 keeps the sort at
+# 32 KB
+MAX_SUPERS = 4096
+# the v4 wrappers' default ray sort: the reference's RAY_SORT, off unless
+# GDMT_RAY_SORT is set to something other than "0"
+RAY_SORT = os.environ.get("GDMT_RAY_SORT", "0") != "0"
 
 # plain version: rays per chunk of the supercluster test, (ray, super)
 # pairs per chunk of the member test, (ray, cluster) pairs per chunk of
@@ -167,6 +192,18 @@ def _candidates(o, d, mint, maxt, scb, mb):
     return torch.cat(rays), torch.cat(ks)
 
 
+def _best_lane(ok, t, u, v):
+    """Per pair (row): the minimal hit t (F32_MAX for none), its lowest
+    lane among equal t, and that lane's u, v."""
+    W = t.shape[1]
+    tt = torch.where(ok, t, F32_MAX)
+    tbest = tt.amin(1)
+    lanes = torch.arange(W, device=tt.device)
+    lane = torch.where(tt == tbest[:, None], lanes, W).amin(1)
+    pick = torch.clamp_max(lane, W - 1)[:, None]
+    return (tbest, lane, u.gather(1, pick)[:, 0], v.gather(1, pick)[:, 0])
+
+
 def _sweep_pairs(fa, fb, mint, maxt, slabs, window, ray, k):
     """Divide-first linear-MT test of every triangle of cluster k[p]
     against ray[p], bounded by (mint, maxt).  Returns the per-pair best
@@ -185,23 +222,28 @@ def _sweep_pairs(fa, fb, mint, maxt, slabs, window, ray, k):
     t = tn * inv
     ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) &
           (t > mint[ray, None]) & (t < maxt[ray, None]))
-    tt = torch.where(ok, t, F32_MAX)
-    tbest = tt.amin(1)
-    lanes = torch.arange(W, device=tt.device)
-    lane = torch.where(tt == tbest[:, None], lanes, W).amin(1)
-    pick = torch.clamp_max(lane, W - 1)[:, None]
-    return (tbest, lane, u.gather(1, pick)[:, 0], v.gather(1, pick)[:, 0])
+    return _best_lane(ok, t, u, v)
 
 
-def pair_plain(o, d, mint, maxt, slabs, cbounds, window, any_hit=False):
-    """Plain PyTorch version of the pair kernels (the CPU path and the
-    kernels' oracle on the card).
+def _sweep_tri9(o, d, mint, maxt, tri9, ray, k):
+    """Pairwise Moeller-Trumbore (ops/intersect._mt) of every triangle of
+    cluster k[p] against ray[p], from the tri9 rows.  Returns the per-pair
+    best as _sweep_pairs does."""
+    rows = tri9[k, 0:9].transpose(1, 2)             # [P, W, 9]
+    t, u, v, ok = isec._mt(o[ray, None], d[ray, None], rows[..., 0:3],
+                           rows[..., 3:6], rows[..., 6:9], mint[ray, None],
+                           maxt[ray, None])
+    return _best_lane(ok, t, u, v)
+
+
+def _walk_plain(o, d, mint, maxt, cbounds, window, any_hit, sweep):
+    """The plain traversal shared by the three kernels' plain versions.
 
     It keeps no running t: every cluster whose box passes against maxt
-    is swept, a superset of what the kernels sweep, so it shares no
-    traversal order with them.  Work is chunked over rays and over
-    (ray, cluster) pairs.  Returns a Hit (closest) or occluded [N] bool
-    (any hit)."""
+    is swept (sweep(ray, k) -> per-pair best), a superset of what the
+    kernels sweep, so it shares no traversal order with them.  Work is
+    chunked over rays and over (ray, cluster) pairs.  Returns a Hit
+    (closest) or occluded [N] bool (any hit)."""
     _check_pair_super_factor()
     _check_window(window)
     N = o.shape[0]
@@ -209,7 +251,6 @@ def pair_plain(o, d, mint, maxt, slabs, cbounds, window, any_hit=False):
     dev = o.device
     scb = _super_bounds(cbounds)
     mb = _member_slabs(cbounds)
-    fa, fb = _features(o, d)
     t_out = torch.full((N,), F32_MAX, device=dev)
     u_out = torch.zeros(N, device=dev)
     v_out = torch.zeros(N, device=dev)
@@ -219,8 +260,7 @@ def pair_plain(o, d, mint, maxt, slabs, cbounds, window, any_hit=False):
         sl = slice(a, min(a + RAY_CHUNK, N))
         ray, k = _candidates(o[sl], d[sl], mint[sl], maxt[sl], scb, mb)
         ray = ray + a
-        parts = [_sweep_pairs(fa, fb, mint, maxt, slabs, W,
-                              ray[b:b + PAIR_CHUNK], k[b:b + PAIR_CHUNK])
+        parts = [sweep(ray[b:b + PAIR_CHUNK], k[b:b + PAIR_CHUNK])
                  for b in range(0, ray.shape[0], PAIR_CHUNK)]
         if not parts:
             continue
@@ -245,6 +285,77 @@ def pair_plain(o, d, mint, maxt, slabs, cbounds, window, any_hit=False):
     return isec.Hit(t=t_out, u=u_out, v=v_out, prim=p_out, valid=p_out >= 0)
 
 
+def pair_plain(o, d, mint, maxt, slabs, cbounds, window, any_hit=False):
+    """Plain PyTorch version of the v7 pair kernels and of the v4 block
+    kernels (the CPU path and the kernels' oracle on the card): the
+    divide-first linear-MT test over mt_slabs (_walk_plain)."""
+    fa, fb = _features(o, d)
+    return _walk_plain(
+        o, d, mint, maxt, cbounds, window, any_hit,
+        lambda ray, k: _sweep_pairs(fa, fb, mint, maxt, slabs, window, ray,
+                                    k))
+
+
+def tri9_plain(o, d, mint, maxt, tri9, cbounds, window, any_hit=False):
+    """Plain PyTorch version of the v2 block kernels: the pairwise
+    Moeller-Trumbore test (ops/intersect._mt) over the tri9 rows of every
+    (ray, cluster) pair that _candidates keeps (_walk_plain).  The
+    reference's v2 culls per cluster against its block's rays; super ->
+    member culling keeps every cluster a ray enters (a member box lies
+    inside its supercluster's), so it computes the same function."""
+    return _walk_plain(
+        o, d, mint, maxt, cbounds, window, any_hit,
+        lambda ray, k: _sweep_tri9(o, d, mint, maxt, tri9, ray, k))
+
+
+def tri9_from_soup(tris, window):
+    """[K, 16, W] tri9 slabs of a cluster-major window-padded soup (the
+    loader's recipe, scene/prep_cache.py): rows 0-8 = v0, e1, e2 xyz of
+    the cluster's W slots, rows 9-15 zero.  `tris` holds v0/e1/e2 [K*W, 3]
+    tensors of either device (a TriSoup)."""
+    v0 = tris.v0
+    K = v0.shape[0] // window
+    rows = torch.cat([v0, tris.e1, tris.e2], dim=1)            # [Tp, 9]
+    tri9 = v0.new_zeros((K, 16, window))
+    tri9[:, :9] = rows.T.reshape(9, K, window).transpose(0, 1)
+    return tri9
+
+
+def _part1by2(x):
+    """Spread the low 10 bits of x so there are 2 zero bits between each
+    (Morton interleave helper)."""
+    x = x & 0x3ff
+    x = (x | (x << 16)) & 0x30000ff
+    x = (x | (x << 8)) & 0x300f00f
+    x = (x | (x << 4)) & 0x30c30c3
+    x = (x | (x << 2)) & 0x9249249
+    return x
+
+
+def ray_sort_keys(o, d, bmin, bmax):
+    """Coherence key of each ray: (direction octant << 21) |
+    morton7(origin quantised to 128 cells per axis of [bmin, bmax])."""
+    extent = torch.clamp_min(bmax - bmin, 1e-6)
+    q = torch.clamp((o - bmin[None]) / extent[None] * 127.0, 0.0,
+                    127.0).to(torch.int32)
+    morton = (_part1by2(q[:, 0]) | (_part1by2(q[:, 1]) << 1) |
+              (_part1by2(q[:, 2]) << 2))
+    octant = ((d[:, 0] < 0).to(torch.int32) * 4 +
+              (d[:, 1] < 0).to(torch.int32) * 2 +
+              (d[:, 2] < 0).to(torch.int32))
+    return (octant << 21) | morton
+
+
+def sort_rays(o, d, mint, maxt, bmin, bmax):
+    """Counterpart of the reference's sort_rays: the rays sorted by
+    ray_sort_keys, ascending (stable), and `inv`, the original index of
+    each sorted ray.  Results come back in the original order with
+    out[inv] = sorted_out.  torch.sort and gathers replace the payload
+    that the TPU version carries through its sort network."""
+    _, inv = torch.sort(ray_sort_keys(o, d, bmin, bmax), stable=True)
+    return o[inv], d[inv], mint[inv], maxt[inv], inv
+
+
 def load_library():
     """Build (first call only) and load the pair kernels' library."""
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -253,17 +364,32 @@ def load_library():
         "pair_occluded": [p] * 7 + [i] * 4 + [p] * 2})
 
 
-def _check(o, d, mint, maxt, slabs, cbounds, window, n_clusters):
+def load_block_library():
+    """Build (first call only) and load the v4 / v2 block kernels'
+    library (csrc/trace_block.cu)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for variant in ("mt", "tri9"):
+        fns[f"{variant}_closest"] = [p] * 7 + [i] * 4 + [p] * 5
+        fns[f"{variant}_occluded"] = [p] * 7 + [i] * 4 + [p] * 2
+    return native.load_cuda("trace_block", _BLOCK_SRC, fns)
+
+
+def _check(o, d, mint, maxt, table, table_rows, table_cols, cbounds,
+           window, n_clusters):
     """Validate what the kernels take: f32 contiguous tensors of matching
-    shapes on one device, and int32 prims and rays."""
+    shapes on one device (the per-cluster table [>= K, rows, cols]), and
+    int32 prims and rays."""
     N = o.shape[0]
     K = n_clusters
     native.check_tensors(o, {
         "o": (o, (N, 3)), "d": (d, (N, 3)), "mint": (mint, (N,)),
         "maxt": (maxt, (N,)), "cbounds": (cbounds, (K, 6)),
-        "slabs": (slabs, (slabs.shape[0], 8, 4 * window))})
-    if slabs.shape[0] < K:
-        raise ValueError(f"{slabs.shape[0]} slabs for {K} clusters")
+        "table": (table, (table.shape[0], table_rows, table_cols))})
+    if table.shape[0] < K:
+        raise ValueError(f"{table.shape[0]} cluster slabs for {K} clusters")
+    if table.data_ptr() % 16:
+        raise ValueError("the cluster table must start 16-byte aligned")
     if K * window >= 2 ** 31 or N >= 2 ** 31:
         raise ValueError("prims or rays exceed the kernels' int32 range")
 
@@ -276,6 +402,8 @@ class PairKernel:
     runs the plain version (pair_plain) and does not count; a CUDA tensor
     launches the kernel or raises."""
 
+    variant = "pair"
+
     def __init__(self, any_hit: bool, window: int, n_clusters: int):
         _check_pair_super_factor()
         _check_window(window)
@@ -287,7 +415,7 @@ class PairKernel:
 
     @property
     def name(self):
-        return "pair_occluded" if self.any_hit else "pair_closest"
+        return f"{self.variant}_{'occluded' if self.any_hit else 'closest'}"
 
     def super_bounds(self, cbounds):
         """_super_bounds(cbounds), built once per cluster-bounds table (a
@@ -296,39 +424,47 @@ class PairKernel:
             self._sbounds = (cbounds, _super_bounds(cbounds).contiguous())
         return self._sbounds[1]
 
-    def plain(self, o, d, mint, maxt, slabs, cbounds):
-        return pair_plain(o, d, mint, maxt, slabs, cbounds, self.window,
+    def plain(self, o, d, mint, maxt, table, cbounds):
+        return pair_plain(o, d, mint, maxt, table, cbounds, self.window,
                           self.any_hit)
 
-    def __call__(self, o, d, mint, maxt, slabs, cbounds):
+    def _table_shape(self):
+        return 8, 4 * self.window
+
+    def _library(self):
+        return load_library()
+
+    def __call__(self, o, d, mint, maxt, table, cbounds):
         if o.device.type == "cpu":
-            return self.plain(o, d, mint, maxt, slabs, cbounds)
+            return self.plain(o, d, mint, maxt, table, cbounds)
         if o.device.type != "cuda":
-            raise ValueError(f"no pair kernel for device {o.device}")
-        _check(o, d, mint, maxt, slabs, cbounds, self.window,
-               self.n_clusters)
-        lib = load_library()
+            raise ValueError(f"no {self.name} kernel for device {o.device}")
+        _check(o, d, mint, maxt, table, *self._table_shape(), cbounds,
+               self.window, self.n_clusters)
+        return self._launch(o, d, mint, maxt, table, cbounds)
+
+    def _launch(self, o, d, mint, maxt, table, cbounds):
+        lib = self._library()
+        fn = getattr(lib, self.name)
         N = o.shape[0]
         K = self.n_clusters
         with torch.cuda.device(o.device):
             scb = self.super_bounds(cbounds)
             S = scb.shape[0]
             stream = torch.cuda.current_stream(o.device).cuda_stream
-            ptrs = [x.data_ptr() for x in (o, d, mint, maxt, slabs, cbounds,
+            ptrs = [x.data_ptr() for x in (o, d, mint, maxt, table, cbounds,
                                            scb)]
             if self.any_hit:
                 occ = torch.empty(N, dtype=torch.bool, device=o.device)
-                err = lib.pair_occluded(*ptrs, N, K, S, self.window,
-                                        occ.data_ptr(), stream)
+                err = fn(*ptrs, N, K, S, self.window, occ.data_ptr(), stream)
                 out = occ
             else:
                 t = torch.empty(N, dtype=torch.float32, device=o.device)
                 u = torch.empty_like(t)
                 v = torch.empty_like(t)
                 prim = torch.empty(N, dtype=torch.int32, device=o.device)
-                err = lib.pair_closest(*ptrs, N, K, S, self.window,
-                                       t.data_ptr(), u.data_ptr(),
-                                       v.data_ptr(), prim.data_ptr(), stream)
+                err = fn(*ptrs, N, K, S, self.window, t.data_ptr(),
+                         u.data_ptr(), v.data_ptr(), prim.data_ptr(), stream)
                 out = isec.Hit(t=t, u=u, v=v, prim=prim, valid=prim >= 0)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error "
@@ -337,14 +473,99 @@ class PairKernel:
         return out
 
 
+class BlockKernel(PairKernel):
+    """One block traversal of csrc/trace_block.cu with its launch count:
+    variant "mt" (the reference's v4, over mt_slabs; plain version
+    pair_plain) or "tri9" (v2, over tri9 slabs; plain version
+    tri9_plain).  Call signature (o, d, mint, maxt, table, cbounds) with
+    table = mt_slabs or tri9.  With ray_sort (v4 only; default
+    GDMT_RAY_SORT) the rays are sorted by sort_rays before the launch and
+    the results put back in the callers' order; the results are the same
+    either way."""
+
+    def __init__(self, variant: str, any_hit: bool, window: int,
+                 n_clusters: int, ray_sort: bool | None = None):
+        if variant not in ("mt", "tri9"):
+            raise ValueError(f"unknown block traversal {variant!r}")
+        super().__init__(any_hit, window, n_clusters)
+        self.variant = variant
+        if ray_sort is None:
+            ray_sort = RAY_SORT and variant == "mt"
+        self.ray_sort = bool(ray_sort)
+
+    def plain(self, o, d, mint, maxt, table, cbounds):
+        fn = pair_plain if self.variant == "mt" else tri9_plain
+        return fn(o, d, mint, maxt, table, cbounds, self.window,
+                  self.any_hit)
+
+    def _table_shape(self):
+        if self.variant == "mt":
+            return 8, 4 * self.window
+        return 16, self.window
+
+    def _library(self):
+        return load_block_library()
+
+    def super_bounds(self, cbounds):
+        sb = super().super_bounds(cbounds)
+        if sb.shape[0] > MAX_SUPERS:
+            raise ValueError(f"{sb.shape[0]} superclusters: the block "
+                             f"kernels sort at most {MAX_SUPERS}")
+        return sb
+
+    def _launch(self, o, d, mint, maxt, table, cbounds):
+        if not self.ray_sort:
+            return super()._launch(o, d, mint, maxt, table, cbounds)
+        return sorted_call(
+            lambda *rays: super(BlockKernel, self)._launch(*rays, table,
+                                                           cbounds),
+            self.any_hit, o, d, mint, maxt, cbounds[:, 0:3].amin(0),
+            cbounds[:, 3:6].amax(0))
+
+
+def sorted_call(fn, any_hit, o, d, mint, maxt, bmin, bmax):
+    """fn(o, d, mint, maxt) -> Hit (or occluded [N] with any_hit) run on
+    the rays sorted by sort_rays, with its results put back in the
+    callers' order."""
+    so, sd, smi, sma, inv = sort_rays(o, d, mint, maxt, bmin, bmax)
+    out = fn(so, sd, smi, sma)
+    if any_hit:
+        return torch.empty_like(out).index_put_((inv,), out)
+    back = [torch.empty_like(x).index_put_((inv,), x)
+            for x in (out.t, out.u, out.v, out.prim)]
+    return isec.Hit(*back, valid=back[3] >= 0)
+
+
 def make_pair_intersector(window: int, n_clusters: int) -> PairKernel:
-    """Closest hit: (o, d, mint, maxt, mt_slabs, cbounds) -> Hit."""
+    """v7 closest hit: (o, d, mint, maxt, mt_slabs, cbounds) -> Hit."""
     return PairKernel(any_hit=False, window=window, n_clusters=n_clusters)
 
 
 def make_pair_occluder(window: int, n_clusters: int) -> PairKernel:
-    """Any hit: (o, d, mint, maxt, mt_slabs, cbounds) -> bool [N]."""
+    """v7 any hit: (o, d, mint, maxt, mt_slabs, cbounds) -> bool [N]."""
     return PairKernel(any_hit=True, window=window, n_clusters=n_clusters)
+
+
+def make_mt_intersector(window: int, n_clusters: int,
+                        ray_sort: bool | None = None) -> BlockKernel:
+    """v4 closest hit: (o, d, mint, maxt, mt_slabs, cbounds) -> Hit."""
+    return BlockKernel("mt", False, window, n_clusters, ray_sort)
+
+
+def make_mt_occluder(window: int, n_clusters: int,
+                     ray_sort: bool | None = None) -> BlockKernel:
+    """v4 any hit: (o, d, mint, maxt, mt_slabs, cbounds) -> bool [N]."""
+    return BlockKernel("mt", True, window, n_clusters, ray_sort)
+
+
+def make_tri9_intersector(window: int, n_clusters: int) -> BlockKernel:
+    """v2 closest hit: (o, d, mint, maxt, tri9, cbounds) -> Hit."""
+    return BlockKernel("tri9", False, window, n_clusters)
+
+
+def make_tri9_occluder(window: int, n_clusters: int) -> BlockKernel:
+    """v2 any hit: (o, d, mint, maxt, tri9, cbounds) -> bool [N]."""
+    return BlockKernel("tri9", True, window, n_clusters)
 
 
 def random_cluster_soup(K, window, seed, n_rays):
@@ -352,8 +573,9 @@ def random_cluster_soup(K, window, seed, n_rays):
     smoke run: K clusters of up to `window` small random triangles around
     random centres, laid out cluster-major with zero padding columns as
     the scene loader does.  Returns numpy (o, d, mint, maxt, mt_slabs,
-    cbounds, linC): rays aimed through the cloud, every 5th lane dead
-    (maxt = -1), and the full [10, 4*K*W] table of the whole-soup sweep."""
+    cbounds, linC, tri9): rays aimed through the cloud, every 5th lane
+    dead (maxt = -1), the full [10, 4*K*W] table of the whole-soup sweep
+    and the [K, 16, W] tri9 slabs of the v2 kernels."""
     rs = np.random.RandomState(seed)
     W = window
     counts = rs.randint(W // 2, W + 1, size=K)
@@ -380,4 +602,6 @@ def random_cluster_soup(K, window, seed, n_rays):
     mint = np.full(n_rays, 1e-4, np.float32)
     maxt = np.full(n_rays, 3e38, np.float32)
     maxt[::5] = -1.0
-    return o, d, mint, maxt, slabs, cb, linC
+    tri9 = tri9_from_soup(isec.TriSoup(*map(torch.from_numpy, (v0, e1, e2)),
+                                       orig_id=None), W).numpy()
+    return o, d, mint, maxt, slabs, cb, linC, tri9

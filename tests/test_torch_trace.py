@@ -1,8 +1,11 @@
-"""Port pair traversal (ops/trace.py): the plain PyTorch version (the CPU
-path and the oracle of the CUDA kernels) against the reference's v7
-pair kernels, make_pair_intersector / make_pair_occluder, run in Pallas
-interpret mode as tests/test_pallas.py runs them.  The CUDA kernels
-themselves are tested on the card in test_torch_trace_cuda.py.
+"""Port traversal (ops/trace.py, ops/intersect.py): the plain PyTorch
+versions (the CPU path and the oracles of the CUDA kernels) against the
+reference's v7 pair kernels (make_pair_intersector / make_pair_occluder),
+v4 kernels (make_pallas_mt_intersector / _occluder) and v2 kernels
+(make_pallas_intersector / _occluder), run in Pallas interpret mode as
+tests/test_pallas.py runs them, and against the reference's
+intersect_brute.  The CUDA kernels themselves are tested on the card in
+test_torch_trace_cuda.py.
 
 Thresholds (as tests/test_pallas.py holds v7): valid equal on >= 0.998
 of lanes, prim equal on >= 0.995 of lanes both hit, t within rtol 1e-5
@@ -10,6 +13,7 @@ where the prims agree, occluded equal on >= 0.998 of lanes."""
 import functools
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -202,7 +206,7 @@ def test_super_and_member_bounds_match_reference(small_forest):
 def test_plain_matches_whole_soup_sweep(window):
     """Multi-cluster random soups at W = 128 and 256: the pair traversal
     finds the whole-soup sweep's hits (same prim slots)."""
-    o, d, mint, maxt, slabs, cb, linC = map(
+    o, d, mint, maxt, slabs, cb, linC, _ = map(
         torch.from_numpy,
         trace.random_cluster_soup(150, window, window, 1501))
     got = trace.make_pair_intersector(window, 150)(o, d, mint, maxt,
@@ -252,3 +256,239 @@ def test_choose_intersector_large_scene(small_forest):
                                                        "pair_occluded")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         common.choose_intersector(st, 25476, 0)
+
+
+# --- v4 and v2 (the block kernels' plain versions), brute force, ray sort
+
+
+@pytest.fixture(scope="module")
+def block_hits(interpret_pallas, small_forest):
+    """Per case: the reference's v4 and v2 (interpret mode) and the port's
+    v4 / v2 wrappers on the CPU (pair_plain / tri9_plain), closest hit on
+    the camera rays and any hit on the shadow rays, and the reference's
+    intersect_brute / occluded_brute on the same rays."""
+    out = {}
+    for name, (scene, st, slabs, cam, sh) in _cases(small_forest).items():
+        cb = np.asarray(scene.geom.cbounds)
+        tri9 = np.asarray(scene.geom.tri9)
+        K, W = cb.shape[0], st.cluster_window
+        ref, port = {}, {}
+        for kernel, table, make in (
+                ("v4", slabs, (ptr.make_pallas_mt_intersector,
+                               ptr.make_pallas_mt_occluder,
+                               trace.make_mt_intersector,
+                               trace.make_mt_occluder)),
+                ("v2", tri9, (ptr.make_pallas_intersector,
+                              ptr.make_pallas_occluder,
+                              trace.make_tri9_intersector,
+                              trace.make_tri9_occluder))):
+            jt, jc = jnp.asarray(table), jnp.asarray(cb)
+            ref[kernel] = (make[0](W, K)(*map(jnp.asarray, cam), jt, jc),
+                           np.asarray(make[1](W, K)(*map(jnp.asarray, sh),
+                                                    jt, jc)))
+            tt, tc = torch.from_numpy(table), torch.from_numpy(cb)
+            ck, ok = make[2](W, K), make[3](W, K)
+            port[kernel] = (ck(*map(torch.from_numpy, cam), tt, tc),
+                            ok(*map(torch.from_numpy, sh), tt, tc).numpy())
+            assert ck.launches == ok.launches == 0   # CPU: plain version
+        tris = scene.geom.tris
+        brute = (ref_isec.intersect_brute(*map(jnp.asarray, cam), tris,
+                                          chunk=1024),
+                 np.asarray(ref_isec.occluded_brute(
+                     *map(jnp.asarray, sh), tris, chunk=1024)))
+        out[name] = dict(ref=ref, port=port, brute=brute)
+    return out
+
+
+def _assert_hits_agree(ref, got):
+    """Reference Hit (jax) vs port Hit (torch) at the round's thresholds."""
+    rv, gv = np.asarray(ref.valid), got.valid.numpy()
+    assert (rv == gv).mean() >= 0.998
+    assert rv.mean() > 0.2
+    both = rv & gv
+    same = np.asarray(ref.prim)[both] == got.prim.numpy()[both]
+    assert same.mean() >= 0.995
+    mk = both.copy()
+    mk[both] &= same
+    np.testing.assert_allclose(got.t.numpy()[mk], np.asarray(ref.t)[mk],
+                               rtol=1e-5)
+    miss = ~gv
+    np.testing.assert_array_equal(got.t.numpy()[miss], np.float32(3.0e38))
+    np.testing.assert_array_equal(got.prim.numpy()[miss], -1)
+    assert not gv[::7].any()                 # dead lanes
+
+
+BLOCK_KERNELS = ["v4", "v2"]
+
+
+@pytest.mark.parametrize("kernel", BLOCK_KERNELS)
+@pytest.mark.parametrize("case", CASES)
+def test_block_plain_closest_matches_reference(block_hits, case, kernel):
+    h = block_hits[case]
+    _assert_hits_agree(h["ref"][kernel][0], h["port"][kernel][0])
+
+
+@pytest.mark.parametrize("kernel", BLOCK_KERNELS)
+@pytest.mark.parametrize("case", CASES)
+def test_block_plain_occluder_matches_reference(block_hits, case, kernel):
+    ref, got = block_hits[case]["ref"][kernel][1], \
+        block_hits[case]["port"][kernel][1]
+    assert (got == ref).mean() >= 0.998
+    assert 0.05 < got.mean() < 0.95
+    assert not got[::7].any()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tri9_plain_matches_brute(block_hits, case):
+    h = block_hits[case]
+    _assert_hits_agree(h["brute"][0], h["port"]["v2"][0])
+    assert (h["port"]["v2"][1] == h["brute"][1]).mean() >= 0.998
+
+
+def _random_soup_tris(seed, T):
+    rs = np.random.RandomState(seed)
+    v0, e1, e2 = (np.float32(rs.normal(size=(T, 3)) * s)
+                  for s in (4.0, 1.0, 1.0))
+    return v0, e1, e2
+
+
+@pytest.mark.parametrize("case", ["cbox-mats", "random"])
+def test_intersect_brute_matches_reference(case):
+    if case == "cbox-mats":
+        scene, _, _ = _mats_scene_with_slabs()
+        v0, e1, e2 = (np.asarray(getattr(scene.geom.tris, f))
+                      for f in ("v0", "e1", "e2"))
+        cam = _rays(0, 1500, [50] * 3, [500] * 3, 3e38)
+    else:
+        v0, e1, e2 = _random_soup_tris(2, 700)
+        cam = _rays(5, 1200, [-6] * 3, [6] * 3, 3e38)
+    ref_tris = ref_isec.TriSoup(*map(jnp.asarray, (v0, e1, e2)),
+                                orig_id=jnp.zeros(len(v0), jnp.int32))
+    ref = ref_isec.intersect_brute(*map(jnp.asarray, cam), ref_tris,
+                                   chunk=512)
+    tris = isec.TriSoup(*map(torch.from_numpy, (v0, e1, e2)), orig_id=None)
+    got = isec.intersect_brute(*map(torch.from_numpy, cam), tris, chunk=512,
+                               ray_chunk=500)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
+    assert got.valid.numpy().mean() > 0.2
+    m = np.asarray(ref.valid)
+    np.testing.assert_array_equal(got.prim.numpy()[m], np.asarray(ref.prim)[m])
+    np.testing.assert_array_equal(got.prim.numpy()[~m], -1)
+    np.testing.assert_allclose(got.t.numpy()[m], np.asarray(ref.t)[m],
+                               rtol=1e-5)
+    sh = list(cam)
+    sh[3] = np.where(cam[3] > 0, np.float32(8.0), cam[3])
+    np.testing.assert_array_equal(
+        isec.occluded_brute(*map(torch.from_numpy, sh), tris).numpy(),
+        np.asarray(ref_isec.occluded_brute(*map(jnp.asarray, sh), ref_tris)))
+
+
+def test_sort_rays_matches_reference():
+    """Same keys, the same order where keys are distinct, and an exact
+    round trip (sort, then put back)."""
+    rs = np.random.RandomState(7)
+    N = 3000
+    o = np.float32(rs.uniform(-5, 5, (N, 3)))
+    d = np.float32(rs.normal(size=(N, 3)))
+    mint = np.float32(rs.uniform(0, 1, N))
+    maxt = np.float32(rs.uniform(10, 20, N))
+    bmin = np.float32([-4.0, -5.0, -3.0])     # clips some origins
+    bmax = np.float32([5.0, 2.0, 5.0])
+    np.testing.assert_array_equal(
+        trace._part1by2(torch.arange(1024, dtype=torch.int32)).numpy(),
+        np.asarray(ptr._part1by2(jnp.arange(1024, dtype=jnp.int32))))
+    rso, rsd, rmi, rma, rinv = ptr.sort_rays(
+        *map(jnp.asarray, (o, d, mint, maxt, bmin, bmax)))
+    so, sd, smi, sma, inv = trace.sort_rays(
+        *map(torch.from_numpy, (o, d, mint, maxt, bmin, bmax)))
+    tb = (torch.from_numpy(bmin), torch.from_numpy(bmax))
+    keys = trace.ray_sort_keys(so, sd, *tb)
+    ref_keys = trace.ray_sort_keys(torch.from_numpy(np.array(rso)),
+                                   torch.from_numpy(np.array(rsd)), *tb)
+    np.testing.assert_array_equal(keys.numpy(), ref_keys.numpy())
+    assert bool((keys[1:] >= keys[:-1]).all())
+    assert len(np.unique(keys.numpy())) > N // 2
+    _, first, counts = np.unique(keys.numpy(), return_index=True,
+                                 return_counts=True)
+    lone = first[counts == 1]
+    np.testing.assert_array_equal(inv.numpy()[lone], np.asarray(rinv)[lone])
+    for x, y in ((so, o), (sd, d), (smi, mint), (sma, maxt)):
+        back = torch.empty_like(x).index_put_((inv,), x)
+        np.testing.assert_array_equal(back.numpy(), y)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_sorted_call_returns_the_unsorted_results(any_hit):
+    o, d, mint, maxt, slabs, cb, _, _ = map(
+        torch.from_numpy, trace.random_cluster_soup(150, 128, 9, 1001))
+    k = (trace.make_mt_occluder if any_hit else trace.make_mt_intersector)(
+        128, 150)
+    plain = k(o, d, mint, maxt, slabs, cb)
+    got = trace.sorted_call(lambda *r: k(*r, slabs, cb), any_hit, o, d, mint,
+                            maxt, cb[:, :3].amin(0), cb[:, 3:].amax(0))
+    for a, b in zip(*((x,) if any_hit else x for x in (got, plain))):
+        assert torch.equal(a, b)
+
+
+def test_tri9_from_soup_matches_loader(small_forest):
+    path, ref, rst = small_forest
+    port, pst = port_scene.load_scene(path, VARS)
+    tris = isec.TriSoup(*(torch.from_numpy(np.asarray(getattr(port.geom.tris,
+                                                              f)))
+                          for f in ("v0", "e1", "e2")), orig_id=None)
+    got = trace.tri9_from_soup(tris, pst.cluster_window)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref.geom.tri9))
+
+
+def test_block_wrappers_on_the_cpu_run_the_plain_versions():
+    o, d, mint, maxt, slabs, cb, _, tri9 = map(
+        torch.from_numpy, trace.random_cluster_soup(300, 256, 4, 777))
+    for make, table, plain in (
+            (trace.make_mt_intersector, slabs, trace.pair_plain),
+            (trace.make_tri9_intersector, tri9, trace.tri9_plain)):
+        k = make(256, 300)
+        got = k(o, d, mint, maxt, table, cb)
+        ref = plain(o, d, mint, maxt, table, cb, 256)
+        assert k.launches == 0
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert ref.valid.float().mean() > 0.3
+    names = [f(128, 10).name for f in (
+        trace.make_mt_intersector, trace.make_mt_occluder,
+        trace.make_tri9_intersector, trace.make_tri9_occluder)]
+    assert names == ["mt_closest", "mt_occluded", "tri9_closest",
+                     "tri9_occluded"]
+    with pytest.raises(ValueError):
+        trace.BlockKernel("v3", False, 128, 10)
+    with pytest.raises(ValueError):
+        trace.make_tri9_intersector(200, 10)
+    many = torch.zeros((trace.SUPER_FACTOR * trace.MAX_SUPERS + 1, 6))
+    with pytest.raises(ValueError, match="superclusters"):
+        trace.make_mt_occluder(128, many.shape[0]).super_bounds(many)
+
+
+@pytest.mark.parametrize("setting", [None, "pairs", "v4"])
+def test_choose_intersector_reads_gdmt_kernel(small_forest, monkeypatch,
+                                              setting):
+    if setting is None:
+        monkeypatch.delenv("GDMT_KERNEL", raising=False)
+    else:
+        monkeypatch.setenv("GDMT_KERNEL", setting)
+    _, _, st = small_forest
+    closest, occl = common.choose_intersector(st, 25476, 558)
+    prefix = "mt" if setting == "v4" else "pair"
+    assert (closest.kernel.name, occl.kernel.name) == (f"{prefix}_closest",
+                                                       f"{prefix}_occluded")
+    assert isinstance(closest.kernel, trace.BlockKernel) == (setting == "v4")
+
+
+def test_bvh_builder_source_is_the_reference_copy():
+    """The port compiles its own copy of the BVH builder, byte-identical
+    to the reference's, so both packages lay prims out alike."""
+    from gradientdomain_mitsuba_tpu_torch import native
+    port_pkg = os.path.join(ROOT, "gradientdomain_mitsuba_tpu_torch")
+    assert os.path.commonpath([native.BVH_SOURCE, port_pkg]) == port_pkg
+    ref = os.path.join(ROOT, "gradientdomain_mitsuba_tpu", "native",
+                       "bvh_builder.cpp")
+    with open(native.BVH_SOURCE, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
