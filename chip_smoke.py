@@ -24,7 +24,14 @@ its time):
      each batch both cut to 65,537 rays (more dead lanes, N not a
      multiple of the block) and whole at 1,048,576 rays, the size of the
      main path's calls (the plain version's time is its 1,048,576-ray
-     camera call);
+     camera call); bit for bit is required.  Per forest batch it also
+     prints the walk: the (ray, cluster) pairs whose member box passes
+     against maxt (what an id-order walk may sweep) and against the final
+     hit t (what the bound counts), beside the clusters each kernel swept
+     and the superclusters whose members it tested (the kernels' optional
+     visit counters, PairKernel.count_visits), per live ray, and the boxes
+     it tested: S supercluster boxes and 128 member boxes a supercluster
+     whose members it tested;
   6. slice 2: forest 256x256, 16 spp, maxDepth 5, PathTracer.render,
      timed after a warm-up, with the pair kernels' launch counters reset
      just before it; then one more render with each kernel launch
@@ -37,8 +44,9 @@ its time):
      built on the card) against its plain version tri9_plain; one v4 call
      with ray sorting on against the same call with it off;
   9. kernel times at 1,048,576 forest camera, shadow and bounce rays (CUDA
-     events): v7, v4 and v2 side by side, each beside the batch's bound,
-     and v4 with ray sorting on;
+     events): v7, v4 and v2 side by side, each beside the batch's bound
+     (and v7 beside its swept clusters per ray from phase 5), and v4 with
+     ray sorting on;
  10. slice 3: GDMT_KERNEL=v4, forest 256x256, 16 spp, maxDepth 5,
      PathTracer.render through the v4 kernels, timed after a warm-up with
      their launch counters reset just before it, checked against the v7
@@ -499,11 +507,13 @@ def load_forest(dev):
                            scene_bytes=nbytes)
 
 
-def forest_rays(scene, st, n, dev, seed=0):
-    """n forest camera rays (jittered over the film), shadow rays from
-    their hits toward the light, and cosine-sampled bounce rays from the
-    hits (incoherent).  Lanes whose camera ray missed are dead (maxt = -1)
-    in the shadow and bounce batches.  Hits come from the pair kernel."""
+def forest_rays(scene, st, n, dev, seed=0, raster=False):
+    """n forest camera rays (jittered over the film, in random order; with
+    raster, in the render's own order: pixels in raster order, one
+    jittered sample each, n / (W*H) passes), shadow rays from their hits
+    toward the light, and cosine-sampled bounce rays from the hits
+    (incoherent).  Lanes whose camera ray missed are dead (maxt = -1) in
+    the shadow and bounce batches.  Hits come from the pair kernel."""
     from gradientdomain_mitsuba_tpu_torch.core import math as m
     from gradientdomain_mitsuba_tpu_torch.core import warp
     from gradientdomain_mitsuba_tpu_torch.ops import common
@@ -513,8 +523,12 @@ def forest_rays(scene, st, n, dev, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     geom = scene.geom
     W, H = st.width, st.height
-    pos = torch.rand((n, 2), generator=g, device=dev) * torch.tensor(
-        [W, H], dtype=torch.float32, device=dev)
+    pos = torch.rand((n, 2), generator=g, device=dev)
+    if raster:
+        ids = torch.arange(n, device=dev) % (W * H)
+        pos = pos + torch.stack([ids % W, ids // W], 1)
+    else:
+        pos = pos * torch.tensor([W, H], dtype=torch.float32, device=dev)
     o, d = sensor.sample_ray(scene.camera, W, H, pos,
                              torch.zeros((n, 2), device=dev))
     o, d = o.contiguous(), d.contiguous()
@@ -600,6 +614,56 @@ def check_pairs(label, res, plain_ms=None):
           of >= PAIR_OCC, f"kernels vs reference disagree on {label}")
 
 
+def candidate_pairs(rays, bound, cbounds):
+    """(ray, cluster) pairs whose member box passes against `bound` [N]
+    (pair_plain's super -> member test, chunked as it chunks)."""
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    o, d, mint, _ = rays
+    scb = trace._super_bounds(cbounds)
+    mb = trace._member_slabs(cbounds)
+    return sum(trace._candidates(o[a:a + trace.RAY_CHUNK],
+                                 d[a:a + trace.RAY_CHUNK],
+                                 mint[a:a + trace.RAY_CHUNK],
+                                 bound[a:a + trace.RAY_CHUNK], scb,
+                                 mb)[0].shape[0]
+               for a in range(0, o.shape[0], trace.RAY_CHUNK))
+
+
+def walk_counts(ks, rays, table, cbounds, ref, ref_occ):
+    """What the pair kernels' walk did on one batch, per live ray: prints
+    the (ray, cluster) pairs against maxt and against the final hit t
+    (closest: the plain hit's t where it hit; any hit: maxt for the rays
+    not occluded and one cluster for each occluded ray) beside the
+    clusters each kernel swept, the superclusters whose members it tested
+    and the boxes it tested (all S supercluster boxes, then 128 member
+    boxes for each such supercluster).  Returns {kernel name: (swept,
+    superclusters, needed) per live ray}."""
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    live = max(int((rays[3] > rays[2]).sum()), 1)
+    at_maxt = candidate_pairs(rays, rays[3], cbounds) / live
+    needed = {
+        "pair_closest": candidate_pairs(
+            rays, torch.where(ref.valid, ref.t, rays[3]), cbounds) / live,
+        "pair_occluded": (candidate_pairs(
+            rays, torch.where(ref_occ, -1.0, rays[3]), cbounds) +
+            int(ref_occ.sum())) / live}
+    out = {}
+    for k in ks:
+        got, swept, supers = k.count_visits(*rays, table, cbounds)
+        same = (torch.equal(got, ref_occ) if k.any_hit else
+                all(torch.equal(a, b) for a, b in zip(got, ref)))
+        check(same, f"{k.name}: the counting launch differs from pair_plain")
+        out[k.name] = (swept / live, supers / live, needed[k.name])
+    S = -(-cbounds.shape[0] // trace.SUPER_FACTOR)
+    log(f"  walk per live ray ({live} live): pairs against maxt "
+        f"{at_maxt:.3f}; " + "; ".join(
+            f"{name} swept {sw:.3f} clusters (needed {nd:.3f}), tested the "
+            f"members of {su:.3f} superclusters "
+            f"({S + trace.SUPER_FACTOR * su:.1f} boxes)"
+            for name, (sw, su, nd) in out.items()))
+    return out
+
+
 def forest_batches(rays_by_name):
     """(name, n, rays): each forest batch cut to N_PAIR_CMP rays with more
     dead lanes, then whole, at the 1,048,576 rays of the main path's
@@ -629,6 +693,7 @@ def phase_pair_kernels(dev, kernels_rec, forest):
         label = f"random soup K=300 W={W} N={o.shape[0]}"
         res, _, ms = compare_pairs(ks, (o, d, mint, maxt), slabs, cb, label)
         check_pairs(label, res, ms)
+        check(res[-1], f"{label}: the pair kernels differ from pair_plain")
 
     g = scene.geom
     K, W = g.cbounds.shape[0], st.cluster_window
@@ -640,6 +705,12 @@ def phase_pair_kernels(dev, kernels_rec, forest):
         label = f"forest {name} rays N={n}"
         res, outs, ms = compare_pairs(ks, batch, g.mt_slabs, g.cbounds, label)
         check_pairs(label, res, ms)
+        check(res[-1], f"{label}: the pair kernels differ from pair_plain")
+        walk = walk_counts(ks, batch, g.mt_slabs, g.cbounds, outs[2],
+                           outs[3])
+        for k in ks:
+            kernels_rec[2 + k.any_hit].setdefault("swept_per_ray", {})[
+                f"{name}_{n}"] = walk[k.name][0]
         out[(name, n)] = (batch, *outs, ms, res)
     kernels_rec[2]["max_abs_err"] = max(r[-1][2] for r in out.values())
     kernels_rec[3]["max_abs_err"] = max(r[-1][5] for r in out.values())
@@ -747,11 +818,14 @@ def phase_kernel_times(recs, forest, pair_out, tri9, v2_out):
                 rec[f"bound_ms_{name}"] = b_ms
                 if name == "camera":
                     rec.update(ms=ms, bound_ms=b_ms, bound_by=by, n=N_TIMED)
+                swept = rec.get("swept_per_ray", {}).get(f"{name}_{N_TIMED}")
                 log(f"{k.name} at {N_TIMED} forest {name} rays: kernel "
                     f"{ms:.4f} ms; bound {b_ms:.4f} ms ({by}: {pairs} (ray, "
                     f"cluster) pairs, {clusters} clusters; {blocks} (64-ray "
                     f"block, cluster) pairs, {blocks * 64 / max(pairs, 1):.2f}"
-                    f"x the ray pairs)")
+                    f"x the ray pairs)" + ("" if swept is None else
+                                          f"; swept {swept:.3f} clusters per "
+                                          f"live ray"))
         # v4 with GDMT_RAY_SORT's coherence sort around it
         for k in kernels["mt"][:2]:
             srt = trace.BlockKernel("mt", k.any_hit, W, K, ray_sort=True)
@@ -777,7 +851,7 @@ def kernel_time_render(tracer, scene, seed):
     than the timed render's."""
     from gradientdomain_mitsuba_tpu_torch.ops import trace
     marks = []
-    launch = trace.PairKernel._launch
+    launch = trace.TraversalKernel._launch
 
     def timed_launch(k, *args):
         start = torch.cuda.Event(enable_timing=True)
@@ -788,7 +862,7 @@ def kernel_time_render(tracer, scene, seed):
         marks.append((k.name, start, end))
         return out
 
-    trace.PairKernel._launch = timed_launch
+    trace.TraversalKernel._launch = timed_launch
     try:
         torch.cuda.synchronize()
         t0 = time.time()
@@ -796,7 +870,7 @@ def kernel_time_render(tracer, scene, seed):
         torch.cuda.synchronize()
         wall = time.time() - t0
     finally:
-        trace.PairKernel._launch = launch
+        trace.TraversalKernel._launch = launch
     per = {}
     for name, start, end in marks:
         ms, n = per.get(name, (0.0, 0))

@@ -4,8 +4,11 @@ Counterpart of gradientdomain_mitsuba_tpu/ops/pallas_trace.py for its
 three traversal kernels, each with its plain PyTorch version:
 
   v7 (`_v7_kernel` with the XLA-side `_v7_phase1` / `_v7_expand` culling
-     rounds; the default large-scene kernel): csrc/trace.cu, one warp
-     per ray (PairKernel, make_pair_intersector / make_pair_occluder);
+     rounds; the default large-scene kernel): csrc/trace.cu, persistent
+     warps, each walking one ray's superclusters and then their members
+     near to far with early exit, over SoA box tables built once per
+     cbounds (PairKernel.box_tables; make_pair_intersector /
+     make_pair_occluder);
   v4 (`_mt_kernel` with `_super_worklists`; GDMT_KERNEL=v4): the same
      function over the same tables, csrc/trace_block.cu, one block of 64
      rays walking its superclusters near to far (BlockKernel "mt",
@@ -32,10 +35,11 @@ The box tests are the reference's expressions:
 
 with t the ray's bound.  The triangle test of v7 and v4 is divide-first
 linear MT for both queries: inv = 1/det, u = u_num*inv, v = v_num*inv,
-t = t_num*inv, ok = u >= 0 & v >= 0 & u + v <= 1 & t > mint & t < bound.
+t = t_num*inv, ok = u >= 0 & v >= 0 & u + v <= 1 & t > mint & t < maxt.
 v2's is ops/intersect._mt.  A miss is t = 3e38 (F32_MAX), u = v = 0,
-prim = -1.  Among equal minimal t the lowest prim wins (the reference
-keeps the first hit in its visit order instead: a documented deviation).
+prim = -1.  Among equal minimal t the lowest prim wins, whatever order a
+kernel visits clusters in (the reference keeps the first hit in its
+visit order instead: a documented deviation).
 
 Environment switches: GDMT_KERNEL is read by ops/common.
 choose_intersector as the reference reads it ("pairs", the default,
@@ -66,9 +70,11 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 _SRC = os.path.join(_CSRC, "trace.cu")
 _BLOCK_SRC = os.path.join(_CSRC, "trace_block.cu")
-# the block kernels sort a block's pending superclusters in shared memory
-# (next power of two of S entries of 8 bytes); 4096 keeps the sort at
-# 32 KB
+# superclusters the CUDA kernels take: the block kernels sort a block's
+# pending superclusters in shared memory (next power of two of S entries
+# of 8 bytes: 32 KB at 4096), the pair kernels keep each warp's S keys
+# there (4 bytes each: 128 KB a block of 8 warps at 4096).  The wrappers
+# raise above it; the plain versions take any S.
 MAX_SUPERS = 4096
 # the v4 wrappers' default ray sort: the reference's RAY_SORT, off unless
 # GDMT_RAY_SORT is set to something other than "0"
@@ -360,8 +366,8 @@ def load_library():
     """Build (first call only) and load the pair kernels' library."""
     p, i = ctypes.c_void_p, ctypes.c_int
     return native.load_cuda("trace", _SRC, {
-        "pair_closest": [p] * 7 + [i] * 4 + [p] * 5,
-        "pair_occluded": [p] * 7 + [i] * 4 + [p] * 2})
+        "pair_closest": [p] * 7 + [i] * 4 + [p] * 7,
+        "pair_occluded": [p] * 7 + [i] * 4 + [p] * 4})
 
 
 def load_block_library():
@@ -394,15 +400,22 @@ def _check(o, d, mint, maxt, table, table_rows, table_cols, cbounds,
         raise ValueError("prims or rays exceed the kernels' int32 range")
 
 
-class PairKernel:
-    """One pair traversal (closest hit or any hit) with its launch count.
+def _check_supers(n_supers):
+    if n_supers > MAX_SUPERS:
+        raise ValueError(f"{n_supers} superclusters: the CUDA traversal "
+                         f"kernels take at most {MAX_SUPERS}")
 
-    Call signature (o, d, mint, maxt, mt_slabs, cbounds), as the
-    reference's make_pair_intersector / make_pair_occluder.  A CPU tensor
-    runs the plain version (pair_plain) and does not count; a CUDA tensor
-    launches the kernel or raises."""
 
-    variant = "pair"
+class TraversalKernel:
+    """What the traversal wrappers share: a closest-hit or any-hit
+    kernel with its launch count, called as (o, d, mint, maxt, table,
+    cbounds).  A CPU tensor runs the plain version and does not count; a
+    CUDA tensor launches the kernel or raises.  Subclasses give the
+    variant, the plain version, the library, the tables the kernel reads
+    besides the slab table (_kernel_tables) and its trailing pointers
+    (_extra)."""
+
+    variant = ""
 
     def __init__(self, any_hit: bool, window: int, n_clusters: int):
         _check_pair_super_factor()
@@ -411,18 +424,77 @@ class PairKernel:
         self.window = int(window)
         self.n_clusters = int(n_clusters)
         self.launches = 0
-        self._sbounds = (None, None)   # (cbounds, its supercluster bounds)
+        self._tables = (None, None)   # (cbounds, the tables built from it)
 
     @property
     def name(self):
         return f"{self.variant}_{'occluded' if self.any_hit else 'closest'}"
 
-    def super_bounds(self, cbounds):
-        """_super_bounds(cbounds), built once per cluster-bounds table (a
-        scene's cbounds is never changed in place)."""
-        if self._sbounds[0] is not cbounds:
-            self._sbounds = (cbounds, _super_bounds(cbounds).contiguous())
-        return self._sbounds[1]
+    def _cached(self, cbounds, build):
+        """build(cbounds), built once per cluster-bounds table (a scene's
+        cbounds is never changed in place)."""
+        if self._tables[0] is not cbounds:
+            self._tables = (cbounds, build(cbounds))
+        return self._tables[1]
+
+    def __call__(self, o, d, mint, maxt, table, cbounds):
+        if o.device.type == "cpu":
+            return self.plain(o, d, mint, maxt, table, cbounds)
+        if o.device.type != "cuda":
+            raise ValueError(f"no {self.name} kernel for device {o.device}")
+        _check(o, d, mint, maxt, table, *self._table_shape(), cbounds,
+               self.window, self.n_clusters)
+        return self._launch(o, d, mint, maxt, table, cbounds)
+
+    def _launch(self, o, d, mint, maxt, table, cbounds, stats=None):
+        fn = getattr(self._library(), self.name)
+        N = o.shape[0]
+        with torch.cuda.device(o.device):
+            tables, S = self._kernel_tables(cbounds)
+            if self.any_hit:
+                outs = (torch.empty(N, dtype=torch.bool, device=o.device),)
+            else:
+                t = torch.empty(N, dtype=torch.float32, device=o.device)
+                outs = (t, torch.empty_like(t), torch.empty_like(t),
+                        torch.empty(N, dtype=torch.int32, device=o.device))
+            extra = self._extra(o.device, stats)
+            stream = torch.cuda.current_stream(o.device).cuda_stream
+            err = fn(*(x.data_ptr() for x in (o, d, mint, maxt, table,
+                                               *tables)),
+                     N, self.n_clusters, S, self.window,
+                     *(x.data_ptr() for x in outs),
+                     *(None if x is None else x.data_ptr() for x in extra),
+                     stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1
+        if self.any_hit:
+            return outs[0]
+        t, u, v, prim = outs
+        return isec.Hit(t=t, u=u, v=v, prim=prim, valid=prim >= 0)
+
+
+class PairKernel(TraversalKernel):
+    """One v7 pair traversal (closest hit or any hit), csrc/trace.cu.
+
+    Call signature (o, d, mint, maxt, mt_slabs, cbounds), as the
+    reference's make_pair_intersector / make_pair_occluder; plain
+    version pair_plain."""
+
+    variant = "pair"
+
+    def box_tables(self, cbounds):
+        """The pair kernels' box tables: supercluster bounds sbounds
+        [6, S] (_super_bounds(cbounds) as rows min x, y, z, max x, y, z)
+        and member bounds [S, 8, SUPER_FACTOR] (_member_slabs), so a warp
+        reads each row as coalesced lines.  Built once per cbounds;
+        raises above MAX_SUPERS superclusters."""
+        def build(cb):
+            sb = _super_bounds(cb)
+            _check_supers(sb.shape[0])
+            return sb.T.contiguous(), _member_slabs(cb)
+        return self._cached(cbounds, build)
 
     def plain(self, o, d, mint, maxt, table, cbounds):
         return pair_plain(o, d, mint, maxt, table, cbounds, self.window,
@@ -434,46 +506,30 @@ class PairKernel:
     def _library(self):
         return load_library()
 
-    def __call__(self, o, d, mint, maxt, table, cbounds):
-        if o.device.type == "cpu":
-            return self.plain(o, d, mint, maxt, table, cbounds)
+    def count_visits(self, o, d, mint, maxt, table, cbounds):
+        """One launch of the counting instantiation on CUDA tensors: the
+        same walk as the main path's kernel, also counting it.  Returns
+        (result, clusters swept, superclusters whose members were
+        tested), summed over the rays."""
         if o.device.type != "cuda":
-            raise ValueError(f"no {self.name} kernel for device {o.device}")
+            raise ValueError("visit counts come from the CUDA kernel")
         _check(o, d, mint, maxt, table, *self._table_shape(), cbounds,
                self.window, self.n_clusters)
-        return self._launch(o, d, mint, maxt, table, cbounds)
+        stats = torch.zeros(2, dtype=torch.int64, device=o.device)
+        out = self._launch(o, d, mint, maxt, table, cbounds, stats)
+        return (out, *stats.tolist())
 
-    def _launch(self, o, d, mint, maxt, table, cbounds):
-        lib = self._library()
-        fn = getattr(lib, self.name)
-        N = o.shape[0]
-        K = self.n_clusters
-        with torch.cuda.device(o.device):
-            scb = self.super_bounds(cbounds)
-            S = scb.shape[0]
-            stream = torch.cuda.current_stream(o.device).cuda_stream
-            ptrs = [x.data_ptr() for x in (o, d, mint, maxt, table, cbounds,
-                                           scb)]
-            if self.any_hit:
-                occ = torch.empty(N, dtype=torch.bool, device=o.device)
-                err = fn(*ptrs, N, K, S, self.window, occ.data_ptr(), stream)
-                out = occ
-            else:
-                t = torch.empty(N, dtype=torch.float32, device=o.device)
-                u = torch.empty_like(t)
-                v = torch.empty_like(t)
-                prim = torch.empty(N, dtype=torch.int32, device=o.device)
-                err = fn(*ptrs, N, K, S, self.window, t.data_ptr(),
-                         u.data_ptr(), v.data_ptr(), prim.data_ptr(), stream)
-                out = isec.Hit(t=t, u=u, v=v, prim=prim, valid=prim >= 0)
-        if err != 0:
-            raise RuntimeError(f"{self.name} launch failed: CUDA error "
-                               f"{err}")
-        self.launches += 1
-        return out
+    def _kernel_tables(self, cbounds):
+        sb, members = self.box_tables(cbounds)
+        return (sb, members), sb.shape[1]
+
+    def _extra(self, dev, stats):
+        """The zeroed ray counter of the persistent warps and the
+        optional visit counters (None: a null pointer)."""
+        return [torch.zeros(1, dtype=torch.int32, device=dev), stats]
 
 
-class BlockKernel(PairKernel):
+class BlockKernel(TraversalKernel):
     """One block traversal of csrc/trace_block.cu with its launch count:
     variant "mt" (the reference's v4, over mt_slabs; plain version
     pair_plain) or "tri9" (v2, over tri9 slabs; plain version
@@ -507,13 +563,22 @@ class BlockKernel(PairKernel):
         return load_block_library()
 
     def super_bounds(self, cbounds):
-        sb = super().super_bounds(cbounds)
-        if sb.shape[0] > MAX_SUPERS:
-            raise ValueError(f"{sb.shape[0]} superclusters: the block "
-                             f"kernels sort at most {MAX_SUPERS}")
-        return sb
+        """_super_bounds(cbounds) [S, 6], built once per cbounds; raises
+        above MAX_SUPERS superclusters."""
+        def build(cb):
+            sb = _super_bounds(cb).contiguous()
+            _check_supers(sb.shape[0])
+            return sb
+        return self._cached(cbounds, build)
 
-    def _launch(self, o, d, mint, maxt, table, cbounds):
+    def _kernel_tables(self, cbounds):
+        sb = self.super_bounds(cbounds)
+        return (cbounds, sb), sb.shape[0]
+
+    def _extra(self, dev, stats):
+        return []          # no counter; the block kernels count no visits
+
+    def _launch(self, o, d, mint, maxt, table, cbounds, stats=None):
         if not self.ray_sort:
             return super()._launch(o, d, mint, maxt, table, cbounds)
         return sorted_call(

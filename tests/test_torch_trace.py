@@ -30,6 +30,7 @@ from gradientdomain_mitsuba_tpu_torch.ops import trace
 from gradientdomain_mitsuba_tpu_torch.scene import bridge
 from gradientdomain_mitsuba_tpu_torch.scene import scene as port_scene
 from test_torch_path import write_small_forest
+from test_torch_trace_cuda import TIE_HIGH, TIE_LOW, tie_soup
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARS = {"width": "16", "height": "16", "spp": "1", "maxDepth": "2"}
@@ -223,10 +224,11 @@ def test_plain_matches_whole_soup_sweep(window):
 
 
 def test_super_bounds_built_once_per_table():
-    """The kernels' supercluster bounds are built once per cbounds table
-    and equal _super_bounds of it (K = 300 pads the last supercluster)."""
+    """The block kernels' supercluster bounds are built once per cbounds
+    table and equal _super_bounds of it (K = 300 pads the last
+    supercluster)."""
     cb = torch.from_numpy(trace.random_cluster_soup(300, 128, 5, 8)[5])
-    k = trace.make_pair_intersector(128, 300)
+    k = trace.make_mt_intersector(128, 300)
     sb = k.super_bounds(cb)
     assert k.super_bounds(cb) is sb
     assert sb.shape == (3, 6) and sb.is_contiguous()
@@ -236,6 +238,43 @@ def test_super_bounds_built_once_per_table():
                                rtol=0, atol=0)
     other = cb.clone()
     assert k.super_bounds(other) is not sb
+
+
+def test_pair_box_tables_built_once_per_table():
+    """The pair kernels' SoA box tables equal _super_bounds (as rows) and
+    _member_slabs, are built once per cbounds table, and are refused
+    above MAX_SUPERS superclusters."""
+    cb = torch.from_numpy(trace.random_cluster_soup(300, 128, 5, 8)[5])
+    k = trace.make_pair_occluder(128, 300)
+    sb, members = k.box_tables(cb)
+    assert k.box_tables(cb)[0] is sb and k.box_tables(cb)[1] is members
+    assert sb.shape == (6, 3) and sb.is_contiguous()
+    assert members.shape == (3, 8, trace.SUPER_FACTOR)
+    assert members.is_contiguous()
+    torch.testing.assert_close(sb, trace._super_bounds(cb).T, rtol=0,
+                               atol=0)
+    torch.testing.assert_close(members, trace._member_slabs(cb), rtol=0,
+                               atol=0)
+    assert k.box_tables(cb.clone())[0] is not sb
+    many = torch.zeros((trace.SUPER_FACTOR * trace.MAX_SUPERS + 1, 6))
+    with pytest.raises(ValueError, match="superclusters"):
+        trace.make_pair_intersector(128, many.shape[0]).box_tables(many)
+    trace.make_pair_intersector(128, many.shape[0] - 1).box_tables(many[1:])
+
+
+def test_plain_breaks_ties_by_lowest_prim():
+    """The tie soup (one triangle in two superclusters, the higher prim
+    in the nearer one): the pair wrappers on the CPU take the lowest prim
+    among equal minimal t, as the kernels must."""
+    o, d, mint, maxt, slabs, cb = map(torch.from_numpy, tie_soup(601))
+    hit = trace.make_pair_intersector(128, 256)(o, d, mint, maxt, slabs, cb)
+    occ = trace.make_pair_occluder(128, 256)(o, d, mint, maxt, slabs, cb)
+    tie = hit.prim == TIE_LOW
+    assert tie.float().mean() > 0.5
+    assert not bool((hit.prim == TIE_HIGH).any())
+    assert bool(occ[tie].all()) and not bool(occ[::5].any())
+    torch.testing.assert_close(hit.t[tie], 20.0 / d[tie, 2], rtol=1e-5,
+                               atol=0)
 
 
 def test_window_and_super_factor_checks(monkeypatch):

@@ -7,7 +7,9 @@ the repo's conftest:
     python -m pytest --noconftest tests/test_torch_trace_cuda.py -m cuda -q
 
 Without a card every case skips.  The soups come from
-ops/trace.random_cluster_soup, as in the CPU tests and chip_smoke.py."""
+ops/trace.random_cluster_soup, as in the CPU tests and chip_smoke.py, and
+from tie_soup here (which test_torch_trace.py also runs through the plain
+version)."""
 import numpy as np
 import pytest
 import torch
@@ -28,31 +30,128 @@ def _on(dev, arrays):
     return [torch.from_numpy(a).to(dev) for a in arrays]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("window", [128, 256])
-def test_pair_kernels_match_plain(cuda_device, window):
-    o, d, mint, maxt, slabs, cb, linC, _ = _on(
-        cuda_device, trace.random_cluster_soup(300, window, window, 10_007))
+# the tie soup's duplicated triangle: its prim in supercluster 0 (far
+# key) and in supercluster 1 (near key)
+TIE_LOW, TIE_HIGH = 7 * 128 + 3, 140 * 128 + 3
+
+
+def tie_soup(n_rays=3001, seed=0):
+    """Numpy (o, d, mint, maxt, mt_slabs, cbounds) of K = 256 clusters of
+    W = 128 (two superclusters) in which visit order would decide ties:
+    one triangle T in the plane z = 20 sits in slot 3 of cluster 7 (prim
+    TIE_LOW) and of cluster 140 (prim TIE_HIGH), so one lane sweeps both
+    copies; each cluster also holds a small triangle at z = 15 off the
+    rays' path, so its box is entered before T.  Supercluster 1 also
+    holds cluster 150, a sliver along x = y at z = 5, so it is entered
+    first.  Every other cluster holds one small
+    triangle far off.  Rays start in the plane z = 0 below T, aim along
+    +z with a small jitter, and every 5th is dead: a walk near to far
+    meets TIE_HIGH first, and among equal minimal t the lowest prim
+    (TIE_LOW) must win."""
+    K, W = 256, 128
+    v0 = np.zeros((K * W, 3), np.float32)
+    e1 = np.zeros_like(v0)
+    e2 = np.zeros_like(v0)
+    far = np.arange(K, dtype=np.float32)[:, None] * 3 + 1000
+    v0[::W] = far
+    e1[::W] = (1, 0, 0)
+    e2[::W] = (0, 1, 0)
+    for k in (7, 140):
+        p = k * W
+        v0[p + 3], e1[p + 3], e2[p + 3] = (-50, -50, 20), (100, 0, 0), \
+            (0, 100, 0)
+        v0[p], e1[p], e2[p] = (40, 40, 15), (1, 0, 0), (0, 1, 0)
+    p = 150 * W
+    v0[p], e1[p], e2[p] = (-60, -60, 5), (120, 120, 0.1), (120, 120.1, 0)
+    pts = np.stack([v0, v0 + e1, v0 + e2]).reshape(3, K, W, 3)
+    used = np.zeros((K, W), bool)
+    used[:, 0] = True
+    used[7, 3] = used[140, 3] = True
+    lo = np.where(used[None, ..., None], pts, np.inf).min((0, 2))
+    hi = np.where(used[None, ..., None], pts, -np.inf).max((0, 2))
+    cb = np.float32(np.concatenate([lo, hi], 1))
+    slabs = isec.build_mt_slabs(isec.build_linear_mt(v0, e1, e2), W)
+    rs = np.random.RandomState(seed)
+    o = np.zeros((n_rays, 3), np.float32)
+    o[:, :2] = rs.uniform(-40, -5, (n_rays, 2))
+    d = np.ones((n_rays, 3), np.float32)
+    d[:, :2] = rs.uniform(-0.05, 0.05, (n_rays, 2))
+    d = np.float32(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    mint = np.zeros(n_rays, np.float32)
+    maxt = np.full(n_rays, 3e38, np.float32)
+    maxt[::5] = -1.0
+    return o, d, mint, maxt, slabs, cb
+
+
+def _assert_pair_matches_plain(rays, slabs, cb, window):
+    """Both pair kernels equal pair_plain bit for bit; returns (Hit,
+    occluded)."""
     K = cb.shape[0]
     ck = trace.make_pair_intersector(window, K)
-    got = ck(o, d, mint, maxt, slabs, cb)
-    ref = ck.plain(o, d, mint, maxt, slabs, cb)
+    ok = trace.make_pair_occluder(window, K)
+    got = ck(*rays, slabs, cb)
+    occ = ok(*rays, slabs, cb)
+    ref = ck.plain(*rays, slabs, cb)
+    ref_occ = ok.plain(*rays, slabs, cb)
     torch.cuda.synchronize()
-    assert ck.launches == 1
-    assert (got.valid == ref.valid).float().mean() >= 0.998
-    both = got.valid & ref.valid
-    same = both & (got.prim == ref.prim)
-    assert same.sum() >= 0.995 * both.sum()
-    assert both.sum() > 1000
-    torch.testing.assert_close(got.t[same], ref.t[same], rtol=1e-5, atol=0)
+    assert ck.launches == ok.launches == 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, ref_occ)
+    dead = rays[3] <= rays[2]
+    assert not got.valid[dead].any() and not occ[dead].any()
+    return got, occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, window, n", [(300, 128, 10_007),
+                                          (300, 256, 10_007),
+                                          (40, trace.MAX_WINDOW, 2_003)])
+def test_pair_kernels_match_plain(cuda_device, K, window, n):
+    """Random soups at W = 128, 256 and MAX_WINDOW (32 chunks of 128 a
+    cluster), N not a multiple of a block's 8 rays, dead lanes: both
+    kernels equal pair_plain bit for bit."""
+    o, d, mint, maxt, slabs, cb, linC, _ = _on(
+        cuda_device, trace.random_cluster_soup(K, window, window, n))
+    got, occ = _assert_pair_matches_plain((o, d, mint, maxt), slabs, cb,
+                                          window)
+    assert got.valid.float().mean() > 0.3
     # the whole-soup sweep agrees on which rays hit
     full = isec.intersect_matmul(o, d, mint, maxt, linC)
     assert (got.valid == full.valid).float().mean() >= 0.998
-    ok = trace.make_pair_occluder(window, K)
-    occ = ok(o, d, mint, maxt, slabs, cb)
-    assert ok.launches == 1
-    assert (occ == ok.plain(o, d, mint, maxt, slabs, cb)).float().mean() \
-        >= 0.998
+    assert (occ == full.valid).float().mean() >= 0.998
+
+
+@pytest.mark.cuda
+def test_pair_kernels_break_ties_by_lowest_prim(cuda_device):
+    """On the tie soup the near-to-far walk meets the higher prim first;
+    both kernels still equal pair_plain, which takes the lowest prim."""
+    o, d, mint, maxt, slabs, cb = _on(cuda_device, tie_soup())
+    got, occ = _assert_pair_matches_plain((o, d, mint, maxt), slabs, cb, 128)
+    tie = got.prim == TIE_LOW
+    assert tie.float().mean() > 0.5
+    assert not bool((got.prim == TIE_HIGH).any())
+    assert bool(occ[tie].all())
+
+
+@pytest.mark.cuda
+def test_pair_visit_counts(cuda_device):
+    """count_visits launches the same kernel and counts its walk: the same
+    hits, and no more swept clusters than the plain version's (ray,
+    cluster) pairs against maxt."""
+    o, d, mint, maxt, slabs, cb, _, _ = _on(
+        cuda_device, trace.random_cluster_soup(300, 128, 2, 5_001))
+    ck = trace.make_pair_intersector(128, 300)
+    got, swept, supers = ck.count_visits(o, d, mint, maxt, slabs, cb)
+    ref = ck(o, d, mint, maxt, slabs, cb)
+    torch.cuda.synchronize()
+    assert ck.launches == 2
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    ray, _ = trace._candidates(o, d, mint, maxt, trace._super_bounds(cb),
+                               trace._member_slabs(cb))
+    assert 0 < swept <= ray.shape[0]
+    assert 0 < supers <= 3 * int((maxt > mint).sum())
 
 
 @pytest.mark.cuda
@@ -70,6 +169,26 @@ def test_pair_kernels_dead_lanes_and_miss_encoding(cuda_device):
     assert bool((hit.prim[miss] == -1).all())
     assert bool((hit.u[miss] == 0).all() and (hit.v[miss] == 0).all())
     assert bool((hit.prim[hit.valid] < K * 128).all())
+
+
+@pytest.mark.cuda
+def test_pair_kernels_many_superclusters(cuda_device):
+    """S = 45 (not a multiple of 32) with empty clusters among the real
+    ones, and S = MAX_SUPERS: both kernels equal pair_plain; one more
+    supercluster and the wrapper raises."""
+    soup = _on(cuda_device, trace.random_cluster_soup(300, 128, 5, 3_001))
+    # at the cap the empty boxes spread over [-300, 300]^3: every
+    # supercluster box spans the rays' region, few member boxes are entered
+    for K_total, spread in ((45 * trace.SUPER_FACTOR, 10),
+                            (trace.MAX_SUPERS * trace.SUPER_FACTOR, 300)):
+        o, d, mint, maxt, slabs, cb, _, _ = _with_empty_clusters(
+            soup, K_total, 5, spread)
+        got, _ = _assert_pair_matches_plain((o, d, mint, maxt), slabs, cb,
+                                            128)
+        assert got.valid.float().mean() > 0.3
+    k = trace.make_pair_occluder(128, K_total + 1)
+    with pytest.raises(ValueError, match="superclusters"):
+        k.box_tables(torch.cat([cb, cb[:1]]))
 
 
 @pytest.mark.cuda
@@ -161,14 +280,16 @@ def test_mt_kernels_ray_sort_changes_nothing(cuda_device):
             assert torch.equal(a, b)
 
 
-def _with_empty_clusters(soup, K_total, seed):
+def _with_empty_clusters(soup, K_total, seed, spread=10):
     """The soup with clusters appended up to K_total: all-zero slabs and
     tri9 rows (padding triangles that never hit) inside random unit boxes
-    among the real clusters, so rays walk many superclusters."""
+    centred in [-spread, spread]^3 (by default among the real clusters, so
+    rays walk many superclusters)."""
     o, d, mint, maxt, slabs, cb, linC, tri9 = soup
     K, W = cb.shape[0], tri9.shape[2]
     g = torch.Generator(device=o.device).manual_seed(seed)
-    centre = torch.rand((K_total - K, 3), generator=g, device=o.device) * 20 - 10
+    centre = torch.rand((K_total - K, 3), generator=g,
+                        device=o.device) * (2 * spread) - spread
     cb = torch.cat([cb, torch.cat([centre - 0.5, centre + 0.5], 1)])
     big_slabs = slabs.new_zeros((K_total + 3, 8, 4 * W))
     big_slabs[:K] = slabs[:K]
