@@ -38,14 +38,18 @@ its time):
      bracketed by CUDA events (the kernels' share of the render);
   7. forest kernel render vs plain render at 64x64, 2 spp, same seed, and
      a G-PT render_final (L2) of the forest at 64x64, 4 spp;
-  8. v4 and v2 block kernels vs plain: random soups (W = 128, 256); the
-     forest batches of phase 5 (cut and whole), v4 against phase 5's
-     plain results and against the v7 kernels' outputs, v2 (on tri9 slabs
-     built on the card) against its plain version tri9_plain; one v4 call
-     with ray sorting on against the same call with it off;
+  8. v4 and v2 block kernels vs plain: random soups (W = 128, 256; v4 bit
+     for bit); the forest batches of phase 5 (cut and whole), v4 bit for
+     bit against phase 5's plain results and against the v7 kernels'
+     outputs, with ray sorting off and on, v2 (on tri9 slabs built on the
+     card) against its plain version tri9_plain;
   9. kernel times at 1,048,576 forest camera, shadow and bounce rays (CUDA
      events): v7, v4 and v2 side by side, each beside the batch's bound
-     (and v7 beside its swept clusters per ray from phase 5), and v4 with
+     and the batch's block-union dilution (64 x (block, cluster) pairs
+     over (ray, cluster) pairs: what one thread a ray pays), v7 beside its
+     swept clusters per ray from phase 5, v4 beside its own counts ((ray,
+     tile) sweeps, (block, cluster) slab reads and worklist entries
+     entered, per live ray, from its counting instantiation), and v4 with
      ray sorting on;
  10. slice 3: GDMT_KERNEL=v4, forest 256x256, 16 spp, maxDepth 5,
      PathTracer.render through the v4 kernels, timed after a warm-up with
@@ -226,9 +230,9 @@ def traversal_bound(rays, hit, occ, cbounds, window, variant):
     hit) against maxt for the rays not occluded and one cluster for each
     occluded ray; each such cluster's slab read once, rays in and hits out
     once.  Returns (ms, bound_by, pairs, clusters, block pairs): the last
-    counts the distinct (64-ray block, cluster) pairs among the pairs, the
-    clusters the block kernels stage (against the final t; the kernels
-    cull with the running t)."""
+    counts the distinct (64-ray block, cluster) pairs among the pairs: the
+    slabs a block kernel reads or stages when it shares them over its 64
+    rays (against the final t; the kernels cull with the running t)."""
     from gradientdomain_mitsuba_tpu_torch.ops import trace
     o, d, mint, maxt = rays
     if occ is None:
@@ -737,6 +741,8 @@ def phase_block_kernels(dev, recs, forest, pair_out):
             res, _, ms = compare_pairs(ks, (o, d, mint, maxt), table, cb,
                                        label)
             check_pairs(label, res, ms)
+            check(res[-1] or variant != "mt",
+                  f"{label}: the v4 kernels differ from pair_plain")
 
     g = scene.geom
     K, W = g.cbounds.shape[0], st.cluster_window
@@ -746,6 +752,7 @@ def phase_block_kernels(dev, recs, forest, pair_out):
     log(f"forest tri9 {tuple(tri9.shape)} built on the card in "
         f"{time.time() - t0:.3f} s ({tri9.numel() * 4} bytes)")
     mt = tuple(m(W, K, ray_sort=False) for m in makers["mt"])
+    mt_sorted = tuple(m(W, K, ray_sort=True) for m in makers["mt"])
     v2 = tuple(m(W, K) for m in makers["tri9"])
     v2_out = {}
     err = {"mt": [0.0, 0.0], "tri9": [0.0, 0.0]}
@@ -756,10 +763,15 @@ def phase_block_kernels(dev, recs, forest, pair_out):
         res = agreement(hit, occ, ref, ref_occ, batch, label)
         check_pairs(label + " vs plain", res)
         same_v7 = agreement(hit, occ, v7h, v7o, batch, label)
+        srt_hit = mt_sorted[0](*batch, g.mt_slabs, g.cbounds)
+        srt_occ = mt_sorted[1](*batch, g.mt_slabs, g.cbounds)
+        same_sorted = (all(torch.equal(x, y) for x, y in zip(hit, srt_hit))
+                       and torch.equal(occ, srt_occ))
         log(f"{label} vs v7 kernels: bit for bit {same_v7[-1]}, prim agree "
-            f"{same_v7[1]:.6f}")
-        check(same_v7[1] >= PAIR_PRIM and same_v7[4] >= PAIR_OCC,
-              f"{label}: v4 and v7 disagree")
+            f"{same_v7[1]:.6f}; ray sort on vs off: identical {same_sorted}")
+        check(res[-1] and same_v7[-1],
+              f"{label}: v4 differs from pair_plain or from v7")
+        check(same_sorted, f"{label}: ray sorting changed the results")
         err["mt"] = [max(err["mt"][0], res[2]), max(err["mt"][1], res[5])]
 
         label = f"tri9 forest {name} rays N={n}"
@@ -772,19 +784,8 @@ def phase_block_kernels(dev, recs, forest, pair_out):
         recs[f"{variant}_closest"]["max_abs_err"] = e_c
         recs[f"{variant}_occluded"]["max_abs_err"] = e_o
 
-    # ray sorting around v4 changes nothing
-    batch = pair_out[("bounce", N_TIMED)][0]
-    for k in mt:
-        srt = type(k)("mt", k.any_hit, W, K, ray_sort=True)
-        a = k(*batch, g.mt_slabs, g.cbounds)
-        b = srt(*batch, g.mt_slabs, g.cbounds)
-        same = (torch.equal(a, b) if k.any_hit else
-                all(torch.equal(x, y) for x, y in zip(a, b)))
-        log(f"{k.name} on forest bounce rays N={N_TIMED}, ray sort on vs "
-            f"off: identical {same}")
-        check(same, f"{k.name}: ray sorting changed the results")
     log(f"(comparison launches, not counted as the main path's: "
-        f"{[k.launches for k in mt + v2]})")
+        f"{[k.launches for k in mt + mt_sorted + v2]})")
     return tri9, v2_out
 
 
@@ -819,13 +820,26 @@ def phase_kernel_times(recs, forest, pair_out, tri9, v2_out):
                 if name == "camera":
                     rec.update(ms=ms, bound_ms=b_ms, bound_by=by, n=N_TIMED)
                 swept = rec.get("swept_per_ray", {}).get(f"{name}_{N_TIMED}")
+                walk = "" if swept is None else (f"; swept {swept:.3f} "
+                                                 f"clusters per live ray")
+                if variant == "mt":
+                    live = max(int((batch[3] > batch[2]).sum()), 1)
+                    got, *counts = k.count_visits(*batch, table, g.cbounds)
+                    same = (torch.equal(got, ref_occ) if k.any_hit else
+                            all(torch.equal(a, b) for a, b in zip(got, ref)))
+                    check(same, f"{k.name}: the counting launch differs from "
+                          f"pair_plain on {name} rays")
+                    sweeps, reads, entered = (c / live for c in counts)
+                    rec.setdefault("walk_per_ray", {})[name] = dict(
+                        sweeps=sweeps, slab_reads=reads, entered=entered)
+                    walk = (f"; per live ray {sweeps:.3f} (ray, tile) sweeps, "
+                            f"{reads:.3f} (block, cluster) slab reads, "
+                            f"{entered:.3f} worklist entries entered")
                 log(f"{k.name} at {N_TIMED} forest {name} rays: kernel "
                     f"{ms:.4f} ms; bound {b_ms:.4f} ms ({by}: {pairs} (ray, "
                     f"cluster) pairs, {clusters} clusters; {blocks} (64-ray "
                     f"block, cluster) pairs, {blocks * 64 / max(pairs, 1):.2f}"
-                    f"x the ray pairs)" + ("" if swept is None else
-                                          f"; swept {swept:.3f} clusters per "
-                                          f"live ray"))
+                    f"x the ray pairs)" + walk)
         # v4 with GDMT_RAY_SORT's coherence sort around it
         for k in kernels["mt"][:2]:
             srt = trace.BlockKernel("mt", k.any_hit, W, K, ray_sort=True)

@@ -1,5 +1,6 @@
 // Block-cooperative closest-hit and any-hit traversal of the clustered
-// triangle soup: the v4 and v2 kernels.
+// triangle soup: the v4 kernels (mt_closest, mt_occluded) and the v2
+// kernels (tri9_closest, tri9_occluded).
 //
 // Replaces two TPU kernels of gradientdomain_mitsuba_tpu/ops/pallas_trace.py,
 // each in its closest-hit and any-hit variant:
@@ -13,49 +14,105 @@
 //    pairwise Moeller-Trumbore test (ops/intersect._mt) over the tri9
 //    slabs [K', 16, W] (rows 0-8 = v0, e1, e2 xyz of the cluster's W
 //    slots).  Plain version: ops/trace.tri9_plain.
-// Both take rays o [N,3], d [N,3], mint [N], maxt [N], cluster bounds
-// cbounds [K,6] and supercluster bounds sbounds [S,6] (ops/trace.
-// _super_bounds: 128 consecutive clusters each), all f32 and contiguous.
-// W is a runtime multiple of 128 (at most ops/trace.MAX_WINDOW), S at most
-// kMaxSupers.
+// Both take rays o [N,3], d [N,3], mint [N], maxt [N], all f32 and
+// contiguous, and a BLOCK OF 64 CONSECUTIVE RAYS (the reference's MT_RBLK)
+// shares one near-to-far worklist of superclusters (128 consecutive
+// clusters each).  W is a runtime multiple of 128 (at most ops/trace.
+// MAX_WINDOW), S at most kMaxSupers.
 //
-// What bounds it on an H100: reading triangle slabs.  A pending cluster
-// costs its 22 x W linear-MT coefficients (11 KB at W = 128; 9 x W, 4.5 KB,
-// for v2) against ~50 flops per (ray, triangle), and the forest's slab
-// table is ten times the 50 MB L2.  The warp-per-ray kernels of trace.cu
-// read a cluster's slab once per ray that enters it.  Design here: ONE
-// BLOCK OF 64 CONSECUTIVE RAYS (the reference's MT_RBLK), one thread per
-// ray, stages each pending cluster once per block:
+// What bounds both on an H100: reading triangle slabs, and the latency of
+// the walk.  A swept cluster costs its 22 x W linear-MT coefficients
+// (11 KB at W = 128; 9 x W, 4.5 KB, for v2) against ~44 flops per (ray,
+// triangle), and the forest's slab table is ten times the 50 MB L2.  The
+// warp-per-ray kernels of trace.cu read a cluster's slab once per ray that
+// enters it; here a slab is read once per block and reused by every ray
+// of the block that enters the cluster.
+//
+// v4 (mt_kernel): lanes across triangles, 2 warps a block of 64 rays.
+// Box tables are the pair kernels' SoA tables (ops/trace.py box_tables):
+// sbounds [6, S] (rows min x, y, z, max x, y, z) and members [S, 8, 128]
+// (rows 1-3 min xyz, rows 4-6 max xyz of the supercluster's member
+// clusters).
+//  0. The block's ray state (origin, inverse direction, the features
+//     (o x d, d), mint, maxt) lives in shared memory, with each ray's best
+//     hit as one 64-bit word (order-preserving bits of t) << 32 | prim,
+//     initially (maxt, no prim): its high word is always the ray's
+//     culling bound t (maxt, then its closest hit so far).
+//  1. The 64 x S supercluster tests against maxt are spread over all
+//     threads: a thread holds one box in registers and tests the block's
+//     rays, read from shared memory (a broadcast), keeping the least key
+//     max(tn, 0); one shared atomicMin per box that some ray enters leaves
+//     the block's key of each supercluster.
+//  2. The entries some ray enters are compacted (ballots) and rank-sorted
+//     (an entry's place is the count of entries below it: one pass, one
+//     barrier), ascending (key, index).  This takes the place of
+//     _super_worklists.
+//  3. The walk has no block barrier.  Each warp takes the next entry, near
+//     to far, from a shared counter.  Lanes over rays: the supercluster box
+//     against each ray's current t (two rays a lane); the warp stops when
+//     the entry's key exceeds every live ray's max(t, 0) (the reference's
+//     early exit: every later entry is farther).  Lanes over boxes: lane l
+//     holds member boxes l, l+32, l+64, l+96 in registers and tests them
+//     against every entering ray, building each member's 64-bit list of
+//     rays and its key, the least max(tn, 0) of those rays.  The entered
+//     members are swept nearest first (a warp min-reduction on the key
+//     bits picks the next).  For each, lanes over rays again: the listed
+//     rays whose bound, which may have fallen since, still reaches the
+//     member box (any hit: those not yet occluded); if none is left the
+//     slab is not read.  Else the warp loads the member's triangles 128 at
+//     a time into registers, lane l triangles 4l..4l+3 as one float4 per
+//     coefficient row (22 independent 16-byte loads, 88 registers), and
+//     loops over ALL those rays: four triangles a lane, every hit merged
+//     into the ray's word with a shared atomicMin.  That is the
+//     lexicographic (t, prim) minimum whatever the order in which warps
+//     merge, so results do not depend on scheduling; only the number of
+//     sweeps does.  A t read for culling may be older than another warp's
+//     merge: that only sweeps more, never less (t only falls, and culling
+//     keeps ties, tn <= t).  Any hit: a hit clears the ray's bit in the
+//     block's active mask, and a ray that is no longer active is dropped
+//     from every later list and loop.
+//  4. After the block's one closing barrier, a thread per ray writes the
+//     results: u and v come from one more test of the winning triangle
+//     through the same chain, so their bits are those of the sweep's.
+// A hit's t lies in (mint, maxt), of either sign: the order-preserving map
+// of its bits (sign bit flipped for t >= 0, all bits for t < 0; -0
+// canonicalised to +0) makes the unsigned order of the words the order of
+// (t, prim) for any mint.  No lane idles because another ray entered a
+// member, nothing is staged in shared memory, and shared memory per block
+// is 4.1 KB + 16 S bytes, so registers (128 a thread: eight blocks, 16
+// warps an SM) bound residency.  Narrow blocks measured faster than wide
+// ones (2 warps against 4 and 8): a block ends with its slowest warp, and
+// more blocks an SM overlap one block's set-up with another's sweeps.
+// Nothing of the TPU form is carried over: no worklist DMA chunks, SMEM
+// scalar walks, masked-iota lane extraction or ring of slab semaphores.
+// With `stats` non-null the counting instantiation adds to stats[0..2] the
+// (ray, 128-triangle tile) sweeps, the (block, member) slab reads and the
+// worklist entries some ray entered; the main path passes null and
+// launches the instantiation compiled without counters.
+//
+// v2 (block_kernel<Tri9Test>): one thread per ray, 64 threads a block,
+// over cbounds [K, 6] and sbounds [S, 6]:
 //  1. every ray tests the S supercluster boxes against its maxt; a block
 //     entry per supercluster holds (min over the rays that enter it of
-//     max(tn, 0), index), reduced with shared-memory atomicMin.  This
-//     takes the place of _super_worklists;
+//     max(tn, 0), index), reduced with shared-memory atomicMin;
 //  2. the block sorts its S entries in shared memory (bitonic, next power
 //     of two of S, ascending (key, index); non-pending entries sort last);
-//  3. it walks the pending superclusters near to far, and stops as soon as
-//     the next entry's key exceeds every live ray's current t (the
-//     reference's early exit; a ray's t is its closest hit so far, or maxt;
-//     an occluded any-hit ray is no longer live).  For each supercluster
-//     each ray tests the 128 member boxes against its current t; the
-//     block ORs the per-ray member bits, and for each member some ray
-//     enters, in ascending member order, the block stages the member's
-//     triangles in shared-memory TILES of 128 triangles (v4: slab rows
-//     0-5 of the det|u|v columns and rows 0-3 of the t columns, 11 KB; v2:
-//     tri9 rows 0-8, 4.5 KB), double-buffered with cp.async (the TPU
-//     kernel's DEPTH = 8 DMA ring), so shared memory does not grow with W.
-//     Every thread whose ray enters the member (re-tested against its
-//     current t) sweeps its ray over the tile: all threads read the same
-//     triangle at once (a broadcast, no bank conflict).
-// The cost of the design is block-union dilution: a member some ray of the
-// block enters is staged for all 64, and threads whose ray does not enter
-// it idle through the sweep.  Coherent camera rays share most members;
-// bounce rays of one block share few (the reference measured the pending
-// union of a 64-ray block at 16-42x the per-ray set).
-// Every thread runs every loop of the walk: trip counts come from shared
-// memory and the early exit from __syncthreads_or, so a block whose rays
-// all died (or all missed) still meets every barrier together.  Nothing of
-// the TPU form is carried over: no worklist DMA chunks, SMEM scalar walks,
-// masked-iota lane extraction or ring of slab semaphores.
+//  3. it walks the pending superclusters near to far with the same early
+//     exit.  For each supercluster each ray tests the 128 member boxes
+//     against its current t; the block ORs the per-ray member bits, and
+//     for each member some ray enters, in ascending member order, the
+//     block stages the member's tri9 rows 0-8 in shared-memory tiles of 128
+//     triangles (4.5 KB), double-buffered with cp.async.  Every thread
+//     whose ray enters the member (re-tested against its current t) sweeps
+//     its ray over the tile: all threads read the same triangle at once (a
+//     broadcast, no bank conflict).
+// Its cost is block-union dilution: a member some ray of the block enters
+// is staged for all 64, and threads whose ray does not enter it idle
+// through the sweep.  Every thread runs every loop of that walk: trip
+// counts come from shared memory and the early exit from __syncthreads_or,
+// so a block whose rays all died (or all missed) still meets every barrier
+// together.  The TPU culls v2 per cluster; supercluster -> member culling
+// keeps every cluster a ray enters.
 //
 // Semantics held exactly (the plain versions compute the same values):
 //  - boxes: inv = |d| > 1e-12 ? 1/d : 1e30 (IEEE division), per axis
@@ -63,13 +120,11 @@
 //    the maxima; pending = tn <= tf & tf >= mint & tn <= t & t >= mint,
 //    the reference's expressions.  A member box lies inside its
 //    supercluster box, so a ray entering a member enters its supercluster
-//    (each slab bound is computed from the same floats).  The same
-//    supercluster -> member culling therefore serves v2, which the TPU
-//    culls per cluster: it keeps every cluster a ray enters;
-//  - v4 triangles, as trace.cu: inv = 1/det, u = u_num*inv, v = v_num*inv,
-//    t = t_num*inv, with the same fmaf chains in feature order; det == 0
-//    (all-zero padding columns) cannot pass and is skipped.  So v4's hits
-//    equal v7's bit for bit;
+//    (each slab bound is computed from the same floats);
+//  - v4 triangles, as trace.cu: inv = 1/det (__frcp_rn: IEEE, the same
+//    float as 1.0f / det), u = u_num*inv, v = v_num*inv, t = t_num*inv,
+//    with the same fmaf chains in feature order; det == 0 (all-zero
+//    padding columns) cannot pass.  So v4's hits equal v7's bit for bit;
 //  - v2 triangles, ops/intersect._mt in one fixed order of _rn
 //    intrinsics: products rounded once, crosses a*b - c*d, three-term dots
 //    (x0 + x1) + x2, inv_det = 1/det where |det| > 1e-12;
@@ -82,7 +137,7 @@
 //  - lanes whose maxt <= mint (dead wavefront lanes carry maxt = -1) do no
 //    work and come back unhit: t = 3e38 (F32_MAX), u = v = 0, prim = -1 /
 //    not occluded;
-//  - prim = k*W + lane, the row of tri_shade.
+//  - prim = k*W + slot, the row of tri_shade.
 // Precision: true fp32 throughout (the TPU's v4 runs its matmuls at
 // Precision.DEFAULT).
 
@@ -91,16 +146,499 @@
 
 namespace {
 
-constexpr int kRays = 64;        // rays (threads) per block
+constexpr int kRays = 64;        // rays per block
 constexpr int kSuper = 128;      // clusters per supercluster
-constexpr int kTile = 128;       // triangles per staged tile
-constexpr int kMaxSupers = 4096; // sort buffer: 32 KB of shared memory
+constexpr int kTile = 128;       // triangles per tile
+constexpr int kMaxSupers = 4096; // ops/trace.MAX_SUPERS
 constexpr float kF32Max = 3.0e38f;
+
+// The reference's ray/box test of the box (lo, hi) against bound t for a
+// ray with origin o, inverse direction inv and lower bound mint; tn is the
+// entry distance.
+__device__ __forceinline__ bool box_test(const float (&lo)[3],
+                                         const float (&hi)[3],
+                                         const float (&o)[3],
+                                         const float (&inv)[3], float mint,
+                                         float t, float& tn) {
+  float tf = 0.0f;
+  tn = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t0 = __fmul_rn(__fsub_rn(lo[a], o[a]), inv[a]);
+    const float t1 = __fmul_rn(__fsub_rn(hi[a], o[a]), inv[a]);
+    const float mn = fminf(t0, t1), mx = fmaxf(t0, t1);
+    tn = a == 0 ? mn : fmaxf(tn, mn);
+    tf = a == 0 ? mx : fminf(tf, mx);
+  }
+  return (tn <= tf) & (tf >= mint) & (tn <= t) & (t >= mint);
+}
+
+// ---------------------------------------------------------------------
+// v4: lanes across triangles, each slab read once per block
+
+constexpr int kWarps = 2;        // warps per block
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlocksPerSm = 8;  // 128 registers a thread
+constexpr int kPer = 4;          // member boxes a lane holds per entry
+constexpr int kSplit = kSuper / (32 * kPer);   // worklist items per entry
+constexpr int kGroup = 64;       // rays a thread tests one supercluster on
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kNone = 0xffffffffu;   // no key / no prim
+
+// Order-preserving bits of a float: a < b exactly when ord(a) < ord(b)
+// (-0 orders below +0; callers canonicalise).
+__device__ __forceinline__ unsigned ord(float x) {
+  const unsigned b = __float_as_uint(x);
+  return b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
+}
+
+__device__ __forceinline__ float unord(unsigned k) {
+  return __uint_as_float(k ^ ((k >> 31) ? 0x80000000u : 0xffffffffu));
+}
+
+// A block's rays.  om = (origin xyz, mint), im = (inverse direction xyz,
+// maxt), fa | fb = the features (o x d, d); best = ord(t) << 32 | prim;
+// live: maxt > mint and inside the batch; active: live and (any hit) not
+// yet occluded.  One bit a ray, word r / 32.
+struct BlockRays {
+  float4 om[kRays];
+  float4 im[kRays];
+  float4 fa[kRays];
+  float2 fb[kRays];
+  unsigned long long best[kRays];
+  unsigned live[kRays / 32];
+  unsigned active[kRays / 32];
+  int n_pending;
+  int next_item;
+};
+
+__device__ __forceinline__ unsigned peek(const unsigned* p) {
+  return *reinterpret_cast<const volatile unsigned*>(p);
+}
+
+// ray r's culling bound: the high word of its best hit
+__device__ __forceinline__ float bound_of(const BlockRays& sm, int r) {
+  return unord(peek(reinterpret_cast<const unsigned*>(sm.best) + 2 * r + 1));
+}
+
+__device__ __forceinline__ bool is_active(const BlockRays& sm, int r) {
+  return (peek(&sm.active[r >> 5]) >> (r & 31)) & 1u;
+}
+
+__device__ __forceinline__ bool ray_box(const float (&lo)[3],
+                                        const float (&hi)[3],
+                                        const float4& om, const float4& im,
+                                        float t, float& tn) {
+  const float o[3] = {om.x, om.y, om.z};
+  const float inv[3] = {im.x, im.y, im.z};
+  return box_test(lo, hi, o, inv, om.w, t, tn);
+}
+
+__device__ __forceinline__ void super_box(const float* __restrict__ sbounds,
+                                          int S, int s, float (&lo)[3],
+                                          float (&hi)[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = __ldg(sbounds + a * S + s);
+    hi[a] = __ldg(sbounds + (a + 3) * S + s);
+  }
+}
+
+__device__ __forceinline__ void member_box(const float* __restrict__ members,
+                                           int s, int m, float (&lo)[3],
+                                           float (&hi)[3]) {
+  const float* b = members + (size_t)s * 8 * kSuper + m;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = __ldg(b + (a + 1) * kSuper);
+    hi[a] = __ldg(b + (a + 4) * kSuper);
+  }
+}
+
+__device__ __forceinline__ float comp(const float4& a, int q) {
+  return q == 0 ? a.x : q == 1 ? a.y : q == 2 ? a.z : a.w;
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// The divide-first linear-MT test of one triangle from its 22 coefficients
+// (cd | cu | cv: det, u, v against fa; ct: t against (o, 1)).
+__device__ __forceinline__ bool mt_hit(const float (&cd)[6],
+                                       const float (&cu)[6],
+                                       const float (&cv)[6],
+                                       const float (&ct)[4],
+                                       const float (&fa)[6],
+                                       const float (&o)[3], float mint,
+                                       float maxt, float& t, float& u,
+                                       float& v) {
+  float det = __fmul_rn(fa[0], cd[0]);
+  float un = __fmul_rn(fa[0], cu[0]);
+  float vn = __fmul_rn(fa[0], cv[0]);
+#pragma unroll
+  for (int k = 1; k < 6; ++k) {
+    det = fmaf(fa[k], cd[k], det);
+    un = fmaf(fa[k], cu[k], un);
+    vn = fmaf(fa[k], cv[k], vn);
+  }
+  float tn = __fmul_rn(o[0], ct[0]);
+  tn = fmaf(o[1], ct[1], tn);
+  tn = fmaf(o[2], ct[2], tn);
+  tn = __fadd_rn(tn, ct[3]);
+  const float inv = __frcp_rn(det);
+  u = __fmul_rn(un, inv);
+  v = __fmul_rn(vn, inv);
+  t = __fmul_rn(tn, inv);
+  return (u >= 0.0f) & (v >= 0.0f) & (__fadd_rn(u, v) <= 1.0f) &
+         (t > mint) & (t < maxt);
+}
+
+// Per-warp counts of the optional `stats`; without kCount (the main path)
+// they compile away and hold no registers.
+enum { kSweeps, kReads, kEntered };
+template <bool kCount>
+struct Visits {
+  unsigned c[3] = {0, 0, 0};
+  __device__ __forceinline__ void add(int i) {
+    if constexpr (kCount) ++c[i];
+  }
+};
+
+// Cluster k against every ray of `rays` (bit r = ray r of the block): its
+// triangles, 128 at a time, are read once and every listed ray still
+// active whose bound still reaches the member box (lo, hi) is tested.
+template <bool kAnyHit, typename Counts>
+__device__ __forceinline__ void sweep(BlockRays& sm,
+                                      const float* __restrict__ slabs,
+                                      int k, int W, unsigned long long rays,
+                                      const float (&lo)[3],
+                                      const float (&hi)[3], Counts& n) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = 4 * (size_t)W;
+  const float* slab = slabs + (size_t)k * 8 * row + 4 * lane;
+  // The listed rays that still need the member; no read at all when none
+  // is left.  Any hit: those not occluded since (their bound is maxt, as
+  // when they were listed).  Closest hit, lanes over rays: those whose
+  // bound, which may have fallen since, still reaches the box.
+  unsigned long long left = 0ull;
+#pragma unroll
+  for (int h = 0; h < kRays / 32; ++h) {
+    unsigned stays;
+    if constexpr (kAnyHit) {
+      stays = peek(&sm.active[h]);
+    } else {
+      const int r = 32 * h + lane;
+      float tn;
+      stays = __ballot_sync(kFull, ray_box(lo, hi, sm.om[r], sm.im[r],
+                                           bound_of(sm, r), tn));
+    }
+    left |= (unsigned long long)stays << (32 * h);
+  }
+  left &= rays;
+  if (!left) return;
+  n.add(kReads);
+  for (int j0 = 0; j0 < W; j0 += kTile) {
+    const float* c = slab + j0;
+    float4 cd[6], cu[6], cv[6], ct[4];
+#pragma unroll
+    for (int f = 0; f < 6; ++f) {
+      cd[f] = load4(c + f * row);
+      cu[f] = load4(c + f * row + W);
+      cv[f] = load4(c + f * row + 2 * W);
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) ct[f] = load4(c + f * row + 3 * W);
+    for (unsigned long long bits = left; bits; bits &= bits - 1) {
+      const int r = __ffsll((long long)bits) - 1;
+      if (kAnyHit && !is_active(sm, r)) continue;
+      const float4 om = sm.om[r];
+      const float maxt = sm.im[r].w;
+      n.add(kSweeps);
+      const float4 fa4 = sm.fa[r];
+      const float2 fb2 = sm.fb[r];
+      const float fa[6] = {fa4.x, fa4.y, fa4.z, fa4.w, fb2.x, fb2.y};
+      const float o[3] = {om.x, om.y, om.z};
+      bool any = false;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float d6[6], u6[6], v6[6], t4[4];
+#pragma unroll
+        for (int f = 0; f < 6; ++f) {
+          d6[f] = comp(cd[f], q);
+          u6[f] = comp(cu[f], q);
+          v6[f] = comp(cv[f], q);
+        }
+#pragma unroll
+        for (int f = 0; f < 4; ++f) t4[f] = comp(ct[f], q);
+        float t, u, v;
+        if (mt_hit(d6, u6, v6, t4, fa, o, om.w, maxt, t, u, v)) {
+          if constexpr (kAnyHit) {
+            any = true;
+          } else {
+            const unsigned p = (unsigned)(k * W + j0 + 4 * lane + q);
+            atomicMin(&sm.best[r],
+                      ((unsigned long long)ord(__fadd_rn(t, 0.0f)) << 32) |
+                          p);
+          }
+        }
+      }
+      if (kAnyHit && any) atomicAnd(&sm.active[r >> 5], ~(1u << (r & 31)));
+    }
+  }
+}
+
+// one of kPer warp-uniformly indexed values, without dynamic indexing
+template <typename T>
+__device__ __forceinline__ T pick(const T (&x)[kPer], int j) {
+  T out = x[0];
+#pragma unroll
+  for (int c = 1; c < kPer; ++c) out = j == c ? x[c] : out;
+  return out;
+}
+
+template <bool kAnyHit, bool kCount>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+mt_kernel(const float* __restrict__ o, const float* __restrict__ d,
+          const float* __restrict__ mint, const float* __restrict__ maxt,
+          const float* __restrict__ slabs,
+          const float* __restrict__ sbounds,
+          const float* __restrict__ members, int n_rays, int K, int S,
+          int W, float* __restrict__ t_out, float* __restrict__ u_out,
+          float* __restrict__ v_out, int32_t* __restrict__ prim_out,
+          uint8_t* __restrict__ occ_out,
+          unsigned long long* __restrict__ stats) {
+  // S sorted entries (key bits << 32 | index; first the S keys), then the
+  // S compacted ones
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* sorted = reinterpret_cast<unsigned long long*>(smem);
+  unsigned* keys = reinterpret_cast<unsigned*>(smem);
+  unsigned long long* list = sorted + S;
+  __shared__ BlockRays sm;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int base = blockIdx.x * kRays;
+
+  // 0. the block's rays
+  for (int r = tid; r < kRays; r += kThreads) {   // whole warps
+    const int i = base + r;
+    const bool in = i < n_rays;
+    const int ii = in ? i : n_rays - 1;
+    const float ox = o[3 * ii], oy = o[3 * ii + 1], oz = o[3 * ii + 2];
+    const float dx = d[3 * ii], dy = d[3 * ii + 1], dz = d[3 * ii + 2];
+    const float mn = mint[ii], mx = maxt[ii];
+    const float dd[3] = {dx, dy, dz};
+    float inv[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      inv[a] = fabsf(dd[a]) > 1e-12f ? __fdiv_rn(1.0f, dd[a]) : 1e30f;
+    sm.om[r] = make_float4(ox, oy, oz, mn);
+    sm.im[r] = make_float4(inv[0], inv[1], inv[2], mx);
+    sm.fa[r] = make_float4(
+        __fsub_rn(__fmul_rn(oy, dz), __fmul_rn(oz, dy)),
+        __fsub_rn(__fmul_rn(oz, dx), __fmul_rn(ox, dz)),
+        __fsub_rn(__fmul_rn(ox, dy), __fmul_rn(oy, dx)), dx);
+    sm.fb[r] = make_float2(dy, dz);
+    sm.best[r] = ((unsigned long long)ord(mx) << 32) | kNone;
+    const unsigned alive = __ballot_sync(kFull, in && mx > mn);
+    if (lane == 0) sm.live[r >> 5] = sm.active[r >> 5] = alive;
+  }
+  for (int s = tid; s < S; s += kThreads) keys[s] = kNone;
+  if (tid == 0) {
+    sm.n_pending = 0;
+    sm.next_item = 0;
+  }
+  __syncthreads();
+
+  // 1. the block's key of each supercluster: the least max(tn, 0) over the
+  // rays that enter it against maxt (a key is a non-negative float, so its
+  // bits order as the floats do)
+  for (int unit = tid; unit < S * (kRays / kGroup); unit += kThreads) {
+    const int g = unit / S, s = unit - g * S;
+    float lo[3], hi[3];
+    super_box(sbounds, S, s, lo, hi);
+    unsigned kmin = kNone;
+#pragma unroll 8
+    for (int r = g * kGroup; r < (g + 1) * kGroup; ++r) {
+      const float4 om = sm.om[r], im = sm.im[r];
+      float tn;
+      if (ray_box(lo, hi, om, im, im.w, tn) &
+          ((sm.live[r >> 5] >> (r & 31)) & 1u))
+        kmin = min(kmin, __float_as_uint(tn > 0.0f ? tn : 0.0f));
+    }
+    if (kmin != kNone) atomicMin(&keys[s], kmin);
+  }
+  __syncthreads();
+
+  // 2. compact the entries some ray enters, then rank-sort them
+  for (int s0 = warp * 32; s0 < S; s0 += kThreads) {
+    const int s = s0 + lane;
+    const unsigned key = s < S ? keys[s] : kNone;
+    const unsigned pend = __ballot_sync(kFull, key != kNone);
+    int at = 0;
+    if (lane == 0 && pend) at = atomicAdd(&sm.n_pending, __popc(pend));
+    at = __shfl_sync(kFull, at, 0);
+    if (key != kNone)
+      list[at + __popc(pend & ((1u << lane) - 1u))] =
+          ((unsigned long long)key << 32) | (unsigned)s;
+  }
+  __syncthreads();
+  const int n_entries = sm.n_pending;
+  for (int a = tid; a < n_entries; a += kThreads) {
+    const unsigned long long e = list[a];
+    int rank = 0;
+    for (int b = 0; b < n_entries; ++b) rank += list[b] < e;
+    sorted[rank] = e;
+  }
+  __syncthreads();
+
+  // 3. the walk: a warp an item (kSuper / kSplit members of one entry),
+  // near to far, no block barrier
+  Visits<kCount> n;
+  const int n_items = n_entries * kSplit;
+  for (;;) {
+    int item = 0;
+    if (lane == 0) item = atomicAdd(&sm.next_item, 1);
+    item = __shfl_sync(kFull, item, 0);
+    if (item >= n_items) break;
+    const unsigned long long ent = sorted[item / kSplit];
+    const int m0 = (item % kSplit) * (32 * kPer);
+    const float key = __uint_as_float((unsigned)(ent >> 32));
+    const int s = (int)(ent & 0xffffffffull);
+    float lo[3], hi[3];
+    super_box(sbounds, S, s, lo, hi);
+
+    // lanes over rays: who enters the supercluster against its current t
+    unsigned long long entering = 0ull;
+    unsigned far = 0u;   // bits of the largest max(t, 0) of an active ray
+    bool some = false;
+#pragma unroll
+    for (int h = 0; h < kRays / 32; ++h) {
+      const int r = 32 * h + lane;
+      const bool act = is_active(sm, r);
+      const float t = bound_of(sm, r);
+      float tn;
+      const unsigned enter = __ballot_sync(
+          kFull, act && ray_box(lo, hi, sm.om[r], sm.im[r], t, tn));
+      entering |= (unsigned long long)enter << (32 * h);
+      if (act) far = max(far, __float_as_uint(fmaxf(t, 0.0f)));
+      some |= act;
+    }
+    // no ray left, or this entry and every later one beyond all of them
+    if (!__any_sync(kFull, some) ||
+        key > __uint_as_float(__reduce_max_sync(kFull, far)))
+      break;
+    if (!entering) continue;
+    n.add(kEntered);
+
+    // lanes over boxes: each member's list of rays
+    float mlo[kPer][3], mhi[kPer][3];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      member_box(members, s, m0 + 32 * j + lane, mlo[j], mhi[j]);
+    unsigned long long list_of[kPer];
+    unsigned near[kPer];   // the member's key: the least max(tn, 0)
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      list_of[j] = 0ull;
+      near[j] = kNone;
+    }
+    for (unsigned long long bits = entering; bits; bits &= bits - 1) {
+      const int r = __ffsll((long long)bits) - 1;
+      const float4 om = sm.om[r], im = sm.im[r];
+      const float t = bound_of(sm, r);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        float tn;
+        if (ray_box(mlo[j], mhi[j], om, im, t, tn)) {
+          list_of[j] |= 1ull << r;
+          near[j] = min(near[j], __float_as_uint(tn > 0.0f ? tn : 0.0f));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (s * kSuper + m0 + 32 * j + lane >= K) near[j] = kNone;
+
+    // lanes over triangles: each entered member's slab, read once, the
+    // nearest member first
+    for (;;) {
+      unsigned mine = near[0];
+#pragma unroll
+      for (int j = 1; j < kPer; ++j) mine = min(mine, near[j]);
+      const unsigned next = __reduce_min_sync(kFull, mine);
+      if (next == kNone) break;
+      const int owner = __ffs(__ballot_sync(kFull, mine == next)) - 1;
+      int j = 0;
+#pragma unroll
+      for (int c = kPer - 1; c > 0; --c) j = near[c] == next ? c : j;
+      j = near[0] == next ? 0 : j;
+      j = __shfl_sync(kFull, j, owner);
+      const unsigned long long rays =
+          __shfl_sync(kFull, pick(list_of, j), owner);
+      if (lane == owner) {
+#pragma unroll
+        for (int c = 0; c < kPer; ++c)
+          if (c == j) near[c] = kNone;
+      }
+      const int m = m0 + 32 * j + owner;
+      float blo[3], bhi[3];
+      member_box(members, s, m, blo, bhi);
+      sweep<kAnyHit>(sm, slabs, s * kSuper + m, W, rays, blo, bhi, n);
+    }
+  }
+  if constexpr (kCount) {
+    if (lane == 0)
+      for (int c = 0; c < 3; ++c)
+        atomicAdd(stats + c, (unsigned long long)n.c[c]);
+  }
+  __syncthreads();
+
+  // 4. results
+  for (int r = tid; r < kRays && base + r < n_rays; r += kThreads) {
+    const int i = base + r;
+    if constexpr (kAnyHit) {
+      occ_out[i] = ((sm.live[r >> 5] & ~sm.active[r >> 5]) >> (r & 31)) & 1u;
+    } else {
+      const unsigned long long b = sm.best[r];
+      const unsigned p = (unsigned)(b & 0xffffffffull);
+      float t = kF32Max, u = 0.0f, v = 0.0f;
+      if (p != kNone) {
+        const int k = (int)(p / (unsigned)W), slot = (int)(p % (unsigned)W);
+        const size_t row = 4 * (size_t)W;
+        const float* c = slabs + (size_t)k * 8 * row + slot;
+        float cd[6], cu[6], cv[6], ct[4];
+#pragma unroll
+        for (int f = 0; f < 6; ++f) {
+          cd[f] = __ldg(c + f * row);
+          cu[f] = __ldg(c + f * row + W);
+          cv[f] = __ldg(c + f * row + 2 * W);
+        }
+#pragma unroll
+        for (int f = 0; f < 4; ++f) ct[f] = __ldg(c + f * row + 3 * W);
+        const float4 om = sm.om[r], fa4 = sm.fa[r];
+        const float2 fb2 = sm.fb[r];
+        const float fa[6] = {fa4.x, fa4.y, fa4.z, fa4.w, fb2.x, fb2.y};
+        const float ro[3] = {om.x, om.y, om.z};
+        float t2;
+        mt_hit(cd, cu, cv, ct, fa, ro, om.w, sm.im[r].w, t2, u, v);
+        t = unord((unsigned)(b >> 32));
+      }
+      t_out[i] = t;
+      u_out[i] = u;
+      v_out[i] = v;
+      prim_out[i] = (int32_t)p;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// v2: one thread per ray, tiles staged in shared memory
+
 constexpr unsigned long long kNoEntry = ~0ull;
 
 struct Ray {
   float o[3], d[3], inv[3];
-  float fa[6];   // (o x d, d): v4's det | u | v features
   float mint, maxt;
 };
 
@@ -116,32 +654,17 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
     r.d[a] = d[3 * i + a];
     r.inv[a] = fabsf(r.d[a]) > 1e-12f ? __fdiv_rn(1.0f, r.d[a]) : 1e30f;
   }
-  r.fa[0] = __fsub_rn(__fmul_rn(r.o[1], r.d[2]), __fmul_rn(r.o[2], r.d[1]));
-  r.fa[1] = __fsub_rn(__fmul_rn(r.o[2], r.d[0]), __fmul_rn(r.o[0], r.d[2]));
-  r.fa[2] = __fsub_rn(__fmul_rn(r.o[0], r.d[1]), __fmul_rn(r.o[1], r.d[0]));
-  r.fa[3] = r.d[0];
-  r.fa[4] = r.d[1];
-  r.fa[5] = r.d[2];
   r.mint = mint[i];
   r.maxt = maxt[i];
   return r;
 }
 
-// The reference's ray/box test of box b = (min xyz, max xyz) against bound
-// t; tn is the entry distance.
+// box b = (min xyz, max xyz) against bound t
 __device__ __forceinline__ bool box_entry(const float* __restrict__ b,
                                           const Ray& r, float t, float& tn) {
-  float tf = 0.0f;
-  tn = 0.0f;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float t0 = __fmul_rn(__fsub_rn(__ldg(b + a), r.o[a]), r.inv[a]);
-    const float t1 = __fmul_rn(__fsub_rn(__ldg(b + 3 + a), r.o[a]), r.inv[a]);
-    const float lo = fminf(t0, t1), hi = fmaxf(t0, t1);
-    tn = a == 0 ? lo : fmaxf(tn, lo);
-    tf = a == 0 ? hi : fminf(tf, hi);
-  }
-  return (tn <= tf) & (tf >= r.mint) & (tn <= t) & (t >= r.mint);
+  const float lo[3] = {__ldg(b), __ldg(b + 1), __ldg(b + 2)};
+  const float hi[3] = {__ldg(b + 3), __ldg(b + 4), __ldg(b + 5)};
+  return box_test(lo, hi, r.o, r.inv, r.mint, t, tn);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -169,49 +692,6 @@ __device__ __forceinline__ void stage_rows(float* tile, SrcRow src_row) {
     cp_async16(tile + row * kTile + q, src_row(row) + q);
   }
 }
-
-// v4: divide-first linear MT over mt_slabs.  Tile rows 0-5 / 6-11 / 12-17
-// hold the det / u / v coefficients of slab rows 0-5, rows 18-21 the t
-// coefficients of slab rows 0-3.
-struct MtTest {
-  static constexpr int kRows = 22;
-
-  __device__ static void stage(float* tile, const float* __restrict__ table,
-                               int k, int W, int j0) {
-    const float* slab = table + (size_t)k * 8 * 4 * W + j0;
-    stage_rows<kRows>(tile, [&](int row) {
-      const int g = row < 18 ? row / 6 : 3;
-      const int r = row < 18 ? row % 6 : row - 18;
-      return slab + (size_t)r * 4 * W + (size_t)g * W;
-    });
-  }
-
-  __device__ static bool hit(const float* tile, int j, const Ray& r,
-                             float& t, float& u, float& v) {
-    const float* c = tile + j;
-    float det = __fmul_rn(r.fa[0], c[0]);
-#pragma unroll
-    for (int k = 1; k < 6; ++k) det = fmaf(r.fa[k], c[k * kTile], det);
-    if (det == 0.0f) return false;
-    float un = __fmul_rn(r.fa[0], c[6 * kTile]);
-    float vn = __fmul_rn(r.fa[0], c[12 * kTile]);
-#pragma unroll
-    for (int k = 1; k < 6; ++k) {
-      un = fmaf(r.fa[k], c[(6 + k) * kTile], un);
-      vn = fmaf(r.fa[k], c[(12 + k) * kTile], vn);
-    }
-    float tn = __fmul_rn(r.o[0], c[18 * kTile]);
-    tn = fmaf(r.o[1], c[19 * kTile], tn);
-    tn = fmaf(r.o[2], c[20 * kTile], tn);
-    tn = __fadd_rn(tn, c[21 * kTile]);
-    const float inv = __fdiv_rn(1.0f, det);
-    u = __fmul_rn(un, inv);
-    v = __fmul_rn(vn, inv);
-    t = __fmul_rn(tn, inv);
-    return (u >= 0.0f) & (v >= 0.0f) & (__fadd_rn(u, v) <= 1.0f) &
-           (t > r.mint) & (t < r.maxt);
-  }
-};
 
 __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
                                       float b1, float b2) {
@@ -461,19 +941,47 @@ block_kernel(const float* __restrict__ o, const float* __restrict__ d,
   }
 }
 
-template <class Test, bool kAnyHit>
-int launch(const float* o, const float* d, const float* mint,
-           const float* maxt, const float* table, const float* cbounds,
-           const float* sbounds, int n_rays, int K, int S, int W, float* t,
-           float* u, float* v, int32_t* prim, uint8_t* occ, void* stream) {
+// ---------------------------------------------------------------------
+// Host side
+
+template <bool kAnyHit, bool kCount>
+int launch_mt(const float* o, const float* d, const float* mint,
+              const float* maxt, const float* slabs, const float* sbounds,
+              const float* members, int n_rays, int K, int S, int W,
+              float* t, float* u, float* v, int32_t* prim, uint8_t* occ,
+              unsigned long long* stats, void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  if (S < 1 || S > kMaxSupers || K < 1 || K > S * kSuper || W < kTile ||
+      W % kTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 2 * (size_t)S * sizeof(unsigned long long);
+  auto kernel = mt_kernel<kAnyHit, kCount>;
+  if (smem + sizeof(BlockRays) > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<(n_rays + kRays - 1) / kRays, kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      o, d, mint, maxt, slabs, sbounds, members, n_rays, K, S, W, t, u, v,
+      prim, occ, stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kAnyHit>
+int launch_tri9(const float* o, const float* d, const float* mint,
+                const float* maxt, const float* table, const float* cbounds,
+                const float* sbounds, int n_rays, int K, int S, int W,
+                float* t, float* u, float* v, int32_t* prim, uint8_t* occ,
+                void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   if (S < 1 || S > kMaxSupers || K < 1 || W < kTile || W % kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   int P2 = 1;
   while (P2 < S) P2 <<= 1;
-  const size_t smem = 2 * Test::kRows * kTile * sizeof(float) +
+  const size_t smem = 2 * Tri9Test::kRows * kTile * sizeof(float) +
                       P2 * sizeof(unsigned long long);
-  auto kernel = block_kernel<Test, kAnyHit>;
+  auto kernel = block_kernel<Tri9Test, kAnyHit>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -492,24 +1000,46 @@ int launch(const float* o, const float* d, const float* mint,
 // synchronise, allocates nothing, and returns a CUDA error code
 // (cudaGetLastError() after the launch; cudaErrorInvalidValue for a
 // window, cluster or supercluster count the kernels do not take).
-#define GDMT_BLOCK_ENTRY(NAME, TEST)                                          \
-  extern "C" int NAME##_closest(                                              \
-      const float* o, const float* d, const float* mint, const float* maxt,   \
-      const float* table, const float* cbounds, const float* sbounds,         \
-      int n_rays, int K, int S, int W, float* t, float* u, float* v,          \
-      int32_t* prim, void* stream) {                                          \
-    return launch<TEST, false>(o, d, mint, maxt, table, cbounds, sbounds,     \
-                               n_rays, K, S, W, t, u, v, prim, nullptr,       \
-                               stream);                                       \
-  }                                                                           \
-  extern "C" int NAME##_occluded(                                             \
-      const float* o, const float* d, const float* mint, const float* maxt,   \
-      const float* table, const float* cbounds, const float* sbounds,         \
-      int n_rays, int K, int S, int W, uint8_t* occ, void* stream) {          \
-    return launch<TEST, true>(o, d, mint, maxt, table, cbounds, sbounds,      \
-                              n_rays, K, S, W, nullptr, nullptr, nullptr,     \
-                              nullptr, occ, stream);                          \
-  }
+// mt_*: sbounds [6, S] and members [S, 8, 128], the SoA box tables;
+// stats: null (the kernel without counters) or three uint64 counters the
+// kernel adds its visits to (Visits).  tri9_*: cbounds [K, 6] and sbounds
+// [S, 6].
+extern "C" int mt_closest(const float* o, const float* d, const float* mint,
+                          const float* maxt, const float* slabs,
+                          const float* sbounds, const float* members,
+                          int n_rays, int K, int S, int W, float* t, float* u,
+                          float* v, int32_t* prim, unsigned long long* stats,
+                          void* stream) {
+  return (stats ? launch_mt<false, true> : launch_mt<false, false>)(
+      o, d, mint, maxt, slabs, sbounds, members, n_rays, K, S, W, t, u, v,
+      prim, nullptr, stats, stream);
+}
 
-GDMT_BLOCK_ENTRY(mt, MtTest)
-GDMT_BLOCK_ENTRY(tri9, Tri9Test)
+extern "C" int mt_occluded(const float* o, const float* d, const float* mint,
+                           const float* maxt, const float* slabs,
+                           const float* sbounds, const float* members,
+                           int n_rays, int K, int S, int W, uint8_t* occ,
+                           unsigned long long* stats, void* stream) {
+  return (stats ? launch_mt<true, true> : launch_mt<true, false>)(
+      o, d, mint, maxt, slabs, sbounds, members, n_rays, K, S, W, nullptr,
+      nullptr, nullptr, nullptr, occ, stats, stream);
+}
+
+extern "C" int tri9_closest(const float* o, const float* d, const float* mint,
+                            const float* maxt, const float* table,
+                            const float* cbounds, const float* sbounds,
+                            int n_rays, int K, int S, int W, float* t,
+                            float* u, float* v, int32_t* prim, void* stream) {
+  return launch_tri9<false>(o, d, mint, maxt, table, cbounds, sbounds, n_rays,
+                            K, S, W, t, u, v, prim, nullptr, stream);
+}
+
+extern "C" int tri9_occluded(const float* o, const float* d,
+                             const float* mint, const float* maxt,
+                             const float* table, const float* cbounds,
+                             const float* sbounds, int n_rays, int K, int S,
+                             int W, uint8_t* occ, void* stream) {
+  return launch_tri9<true>(o, d, mint, maxt, table, cbounds, sbounds, n_rays,
+                           K, S, W, nullptr, nullptr, nullptr, nullptr, occ,
+                           stream);
+}

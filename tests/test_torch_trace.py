@@ -224,11 +224,11 @@ def test_plain_matches_whole_soup_sweep(window):
 
 
 def test_super_bounds_built_once_per_table():
-    """The block kernels' supercluster bounds are built once per cbounds
-    table and equal _super_bounds of it (K = 300 pads the last
+    """The v2 block kernels' supercluster bounds are built once per
+    cbounds table and equal _super_bounds of it (K = 300 pads the last
     supercluster)."""
     cb = torch.from_numpy(trace.random_cluster_soup(300, 128, 5, 8)[5])
-    k = trace.make_mt_intersector(128, 300)
+    k = trace.make_tri9_intersector(128, 300)
     sb = k.super_bounds(cb)
     assert k.super_bounds(cb) is sb
     assert sb.shape == (3, 6) and sb.is_contiguous()
@@ -238,6 +238,52 @@ def test_super_bounds_built_once_per_table():
                                rtol=0, atol=0)
     other = cb.clone()
     assert k.super_bounds(other) is not sb
+
+
+@pytest.mark.parametrize("make", [trace.make_pair_occluder,
+                                  trace.make_pair_intersector,
+                                  trace.make_mt_occluder,
+                                  trace.make_mt_intersector])
+def test_box_tables_shared_by_both_kernel_classes(make):
+    """The v7 and the v4 kernels read the same SoA box tables, from one
+    method of their common base: equal to _super_bounds (as rows) and
+    _member_slabs, built once per cbounds, and what _kernel_tables hands
+    the launch (with S)."""
+    cb = torch.from_numpy(trace.random_cluster_soup(300, 128, 5, 8)[5])
+    k = make(128, 300)
+    assert type(k).box_tables is trace.TraversalKernel.box_tables
+    sb, members = k.box_tables(cb)
+    assert k.box_tables(cb)[0] is sb and k.box_tables(cb)[1] is members
+    torch.testing.assert_close(sb, trace._super_bounds(cb).T.contiguous(),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(members, trace._member_slabs(cb), rtol=0,
+                               atol=0)
+    tables, S = k._kernel_tables(cb)
+    assert S == 3 and tables[0] is sb and tables[1] is members
+    assert k._kernel_tables(cb)[0][0] is sb
+    assert k.box_tables(cb.clone())[0] is not sb
+
+
+def test_block_kernel_tables_by_variant():
+    """v4 reads the SoA box tables, v2 cbounds itself and [S, 6]
+    supercluster bounds; building one kind does not evict the other, and
+    only v4 has visit counters (which come from the card)."""
+    cb = torch.from_numpy(trace.random_cluster_soup(300, 128, 5, 8)[5])
+    v2 = trace.make_tri9_occluder(128, 300)
+    (first, sb), S = v2._kernel_tables(cb)
+    assert S == 3 and first is cb and sb.shape == (3, 6)
+    soa = v2.box_tables(cb)[0]
+    assert v2.super_bounds(cb) is sb and v2.box_tables(cb)[0] is soa
+    v4 = trace.make_mt_intersector(128, 300)
+    assert (v4.n_stats, v2.n_stats) == (3, 0)
+    assert v4._extra(cb.device, None) == [None] and v2._extra(
+        cb.device, None) == []
+    rays = [torch.zeros((4, 3)), torch.ones((4, 3)), torch.zeros(4),
+            torch.ones(4)]
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        v4.count_visits(*rays, torch.zeros((303, 8, 512)), cb)
+    with pytest.raises(ValueError, match="counts no visits"):
+        v2.count_visits(*rays, torch.zeros((300, 16, 128)), cb)
 
 
 def test_pair_box_tables_built_once_per_table():
@@ -503,7 +549,9 @@ def test_block_wrappers_on_the_cpu_run_the_plain_versions():
         trace.make_tri9_intersector(200, 10)
     many = torch.zeros((trace.SUPER_FACTOR * trace.MAX_SUPERS + 1, 6))
     with pytest.raises(ValueError, match="superclusters"):
-        trace.make_mt_occluder(128, many.shape[0]).super_bounds(many)
+        trace.make_tri9_occluder(128, many.shape[0]).super_bounds(many)
+    with pytest.raises(ValueError, match="superclusters"):
+        trace.make_mt_occluder(128, many.shape[0]).box_tables(many)
 
 
 @pytest.mark.parametrize("setting", [None, "pairs", "v4"])

@@ -1,6 +1,7 @@
 """CUDA traversal kernels against their plain PyTorch versions, on the
 card: the pair kernels (csrc/trace.cu) and the v4 / v2 block kernels
-(csrc/trace_block.cu) against ops/trace.pair_plain and tri9_plain.
+(csrc/trace_block.cu) against ops/trace.pair_plain and tri9_plain, v4
+also against the pair kernels.
 Imports no jax, so the card's machine (which has none) runs it without
 the repo's conftest:
 
@@ -278,6 +279,150 @@ def test_mt_kernels_ray_sort_changes_nothing(cuda_device):
         for a, b in zip(*((x,) if isinstance(x, torch.Tensor) else x
                           for x in (plain_order, sorted_order))):
             assert torch.equal(a, b)
+
+
+def _mt_pair(window, K):
+    return (trace.make_mt_intersector(window, K, ray_sort=False),
+            trace.make_mt_occluder(window, K, ray_sort=False))
+
+
+@pytest.mark.cuda
+def test_mt_kernels_break_ties_by_lowest_prim(cuda_device):
+    """The tie soup through v4, several times: whichever warp merges
+    first, the lowest prim among equal minimal t wins, and the results
+    equal pair_plain and the v7 kernels bit for bit."""
+    o, d, mint, maxt, slabs, cb = _on(cuda_device, tie_soup())
+    rays = (o, d, mint, maxt)
+    v7, v7_occ = _assert_pair_matches_plain(rays, slabs, cb, 128)
+    for _ in range(5):
+        got, occ = _assert_block_matches_plain(*_mt_pair(128, 256), rays,
+                                               slabs, cb)
+        for a, b in zip(got, v7):
+            assert torch.equal(a, b)
+        assert torch.equal(occ, v7_occ)
+        assert (got.prim == TIE_LOW).float().mean() > 0.5
+        assert not bool((got.prim == TIE_HIGH).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, window", [(100, 128), (300, 128), (129, 256),
+                                       (40, trace.MAX_WINDOW)])
+@pytest.mark.parametrize("n", [1, 63, 65, 0, 4_099])
+def test_mt_kernels_block_edges(cuda_device, K, window, n):
+    """S = 1, a short last supercluster (K = 129, 300), W = 128, 256 and
+    MAX_WINDOW, and batches of 1, 63, 65 and 0 rays (a partial block, a
+    block and one ray, none): v4 equals pair_plain bit for bit."""
+    soup = _on(cuda_device,
+               trace.random_cluster_soup(K, window, K + n, max(n, 2)))
+    o, d, mint, maxt, slabs, cb, _, _ = soup
+    if n < 2:
+        o, d, mint, maxt = o[1:1 + n], d[1:1 + n], mint[1:1 + n], \
+            maxt[1:1 + n]      # ray 1 is live
+    ck, ok = _mt_pair(window, K)
+    if n == 0:
+        hit, occ = ck(o, d, mint, maxt, slabs, cb), ok(o, d, mint, maxt,
+                                                      slabs, cb)
+        torch.cuda.synchronize()
+        assert hit.t.shape == hit.prim.shape == occ.shape == (0,)
+        assert ck.launches == ok.launches == 1
+        return
+    got, occ = _assert_block_matches_plain(ck, ok, (o, d, mint, maxt),
+                                           slabs, cb)
+    dead = maxt <= mint
+    assert not got.valid[dead].any() and not occ[dead].any()
+
+
+@pytest.mark.cuda
+def test_mt_kernels_at_the_supercluster_cap(cuda_device):
+    """S = MAX_SUPERS with empty clusters spread wide (every block's
+    worklist holds thousands of entries): v4 equals pair_plain; one more
+    supercluster and the wrapper raises."""
+    soup = _on(cuda_device, trace.random_cluster_soup(300, 128, 5, 1_001))
+    K_total = trace.MAX_SUPERS * trace.SUPER_FACTOR
+    o, d, mint, maxt, slabs, cb, _, _ = _with_empty_clusters(
+        soup, K_total, 5, 300)
+    got, _ = _assert_block_matches_plain(*_mt_pair(128, K_total),
+                                         (o, d, mint, maxt), slabs, cb)
+    assert got.valid.float().mean() > 0.3
+    with pytest.raises(ValueError, match="superclusters"):
+        trace.make_mt_occluder(128, K_total + 1).box_tables(
+            torch.cat([cb, cb[:1]]))
+
+
+@pytest.mark.cuda
+def test_mt_kernels_dead_and_missing_blocks(cuda_device):
+    """Whole blocks of dead rays, whole blocks of rays that miss every
+    supercluster, and both mixed with live blocks: unhit with the miss
+    encoding, and the live rays unchanged."""
+    o, d, mint, maxt, slabs, cb, _, _ = _on(
+        cuda_device, trace.random_cluster_soup(200, 128, 3, 64 * 6))
+    maxt = maxt.clone()
+    maxt[64:128] = -1.0                       # a dead block
+    o, d = o.clone(), d.clone()
+    o[192:256] += 1000.0                      # a block that misses all
+    d[192:256] = torch.tensor([1.0, 0.0, 0.0], device=o.device)
+    rays = (o, d, mint, maxt)
+    got, occ = _assert_block_matches_plain(*_mt_pair(128, 200), rays, slabs,
+                                           cb)
+    gone = torch.zeros_like(occ)
+    gone[64:128] = gone[192:256] = True
+    assert not got.valid[gone].any() and not occ[gone].any()
+    assert bool((got.t[gone] == np.float32(3.0e38)).all())
+    assert bool((got.prim[gone] == -1).all())
+    assert bool((got.u[gone] == 0).all() and (got.v[gone] == 0).all())
+    assert got.valid[~gone].float().mean() > 0.3
+    for sl in (slice(64, 128), slice(192, 256)):      # such a block alone
+        part = tuple(x[sl].contiguous() for x in rays)
+        alone, alone_occ = _assert_block_matches_plain(
+            *_mt_pair(128, 200), part, slabs, cb)
+        assert not alone.valid.any() and not alone_occ.any()
+
+
+@pytest.mark.cuda
+def test_mt_kernels_negative_mint(cuda_device):
+    """Hits at negative t (mint = -5 from inside the cloud): the merged
+    (t, prim) words still order as the floats do."""
+    o, d, mint, maxt, slabs, cb, _, _ = _on(
+        cuda_device, trace.random_cluster_soup(200, 128, 8, 3_001))
+    mint = torch.full_like(mint, -5.0)
+    got, _ = _assert_block_matches_plain(*_mt_pair(128, 200),
+                                         (o, d, mint, maxt), slabs, cb)
+    assert bool((got.t[got.valid] < 0).any())
+
+
+@pytest.mark.cuda
+def test_mt_visit_counts(cuda_device):
+    """count_visits launches the counting instantiation: the same hits;
+    every (ray, cluster) pair the final t needs is swept and no more than
+    the pairs against maxt; a slab is read at most once per (block,
+    cluster) pair and at least once per cluster holding a hit."""
+    o, d, mint, maxt, slabs, cb, _, _ = _on(
+        cuda_device, trace.random_cluster_soup(300, 128, 2, 5_001))
+    ck, ok = _mt_pair(128, 300)
+    ref = ck(o, d, mint, maxt, slabs, cb)
+    got, sweeps, reads, entered = ck.count_visits(o, d, mint, maxt, slabs,
+                                                  cb)
+    occ, o_sweeps, o_reads, _ = ok.count_visits(o, d, mint, maxt, slabs, cb)
+    torch.cuda.synchronize()
+    assert ck.launches == 2 and ok.launches == 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, ref.valid)
+    scb, mb = trace._super_bounds(cb), trace._member_slabs(cb)
+    ray, k = trace._candidates(o, d, mint, maxt, scb, mb)
+    block_pairs = torch.unique(ray // 64 * 300 + k).shape[0]
+    need, _ = trace._candidates(o, d, mint,
+                                torch.where(ref.valid, ref.t, maxt), scb, mb)
+    assert need.shape[0] <= sweeps <= ray.shape[0]
+    assert torch.unique(ref.prim[ref.valid] // 128).shape[0] <= reads
+    assert reads <= block_pairs and reads <= sweeps
+    assert int(ref.valid.sum()) <= o_sweeps <= ray.shape[0]
+    assert 0 < o_reads <= block_pairs
+    n_blocks = -(-o.shape[0] // 64)
+    assert 0 < entered <= 3 * n_blocks
+    with pytest.raises(ValueError, match="counts no visits"):
+        trace.make_tri9_intersector(128, 300).count_visits(
+            o, d, mint, maxt, slabs, cb)
 
 
 def _with_empty_clusters(soup, K_total, seed, spread=10):
