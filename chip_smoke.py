@@ -9,14 +9,22 @@ its time):
      pair kernels (csrc/trace.cu) and the v4 / v2 block kernels
      (csrc/trace_block.cu), one nvcc each, all started together;
   2. sweep kernels vs plain: both sweep kernels against their plain
-     PyTorch versions on random soups (T = 3, 36, 130, 2048) and on the
-     cbox soup with its own camera and shadow rays (dead lanes, N not a
-     multiple of the block size), then both timed at 1,048,576 cbox rays
-     (CUDA events);
+     PyTorch versions on random soups (T = 3, 36, 130, and 2048, the
+     largest table, staged whole), on a windowed soup (300 triangles in
+     three 128-column windows), a soup with zero-area triangles and a
+     soup of duplicated triangles (equal t: the lowest column must win),
+     and on the cbox soup with its own camera and shadow rays (dead lanes,
+     N not a multiple of the block size); then both timed at 1,048,576
+     cbox rays and on the render's own calls (one pass of the cbox render
+     below captured, with the render's dead lanes: 262,144-lane closest
+     calls, 1,310,720-lane any-hit calls; CUDA events);
   3. slice 1: cbox 256x256, 64 spp, maxDepth 6, G-PT render + L1
      reconstruction through the package's entry points, timed after a
      warm-up, with the sweep kernels' launch counters reset just before
-     it;
+     it; then one more render under torch.profiler (device busy time,
+     idle share, the sweeps' own device time and share of the wall) with
+     each sweep launch bracketed by CUDA events (in this host-bound render
+     an event span also holds the launch's wait for the host);
   4. cbox kernel render vs plain render at 64x64, 4 spp, same seed;
   5. pair kernels vs plain: both pair kernels against their plain version
      on random multi-cluster soups (W = 128, 256) and on the full forest
@@ -61,7 +69,8 @@ its time):
      the three whole forest batches, launch counters reset just before.
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
-inputs: a sweep tests every (live ray, triangle) pair; a traversal needs
+inputs: a sweep tests every (live ray, packed record) pair and reads each
+80-byte record once; a traversal needs
 the triangles of every (ray, cluster) pair whose member box passes against
 the ray's final hit t (its maxt where it missed; an occluded any-hit ray
 needs one cluster), and reads each such cluster's slab once, beside 32
@@ -98,12 +107,17 @@ PAIR_VALID, PAIR_PRIM, PAIR_OCC = 0.998, 0.995, 0.998
 N_PAIR_CMP = 65_537
 # render agreement (tests/test_torch_gpt.py): rtol/atol on >= 99% of pixels
 IMG_RTOL, IMG_ATOL, IMG_FRAC = 1e-3, 1e-4, 0.99
+# cycles the card sleeps before a timed run while the host queues its
+# launches (about 10 ms)
+QUEUE_SLEEP_CYCLES = 20_000_000
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): f32
 # outside the tensor cores, HBM3 bandwidth
 F32_PEAK, HBM_PEAK = 67e12, 3.35e12
 # f32 flops of one (ray, triangle) test, counted from each kernel's code
-FLOPS_SWEEP_CLOSEST = 81   # 4 dots of 10 (1 mul + 9 fma), rcp, 3 mul, add
-FLOPS_SWEEP_ANY = 83       # 4 dots of 10, 4 sign muls, 2 mul, add
+FLOPS_SWEEP_CLOSEST = 38   # det, u, v chains of 3, 6, 6 terms and t's 3
+#                            terms + constant (18 mul, 15 add: 33), rcp,
+#                            3 mul, add
+FLOPS_SWEEP_ANY = 40       # the 4 chains (33), 4 sign muls, 2 mul, add
 FLOPS_LINEAR_MT = 44       # 3 dots of 6 (1 mul + 5 fma), t dot (1 mul +
 #                            2 fma + add), rcp, 3 mul, add
 FLOPS_PAIRWISE_MT = 46     # 2 crosses (6 mul + 3 sub), 4 dots (3 mul +
@@ -131,6 +145,17 @@ class Phase:
             log(f"--- phase {self.name}: {time.time() - self.t0:.3f} s")
 
 
+def sweep_soups():
+    """tools/sweep_soups.py (the sweep checks' random soups), loaded from
+    its path: tools/ is not a package."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "sweep_soups", os.path.join(ROOT, "tools", "sweep_soups.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def fail(msg):
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -151,12 +176,15 @@ def card_line():
 
 def cuda_ms(fn, iters=20, warmup=3):
     """Mean device time of fn() in ms over `iters` launches (CUDA
-    events, after warm-up)."""
+    events, after warm-up).  The card first sleeps while the host queues
+    the timed launches, so that the host's launch overhead does not show
+    between kernels shorter than it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -213,14 +241,17 @@ def bound_ms(flops, nbytes):
     return bytes_ms, "bytes"
 
 
-def sweep_bound(rays, n_tris, any_hit):
-    """A whole-soup sweep: every live ray against every triangle; rays in
-    and hits out once, the triangles' 40 coefficients once."""
+def sweep_bound(rays, n_rec, any_hit):
+    """A whole-soup sweep: every live ray against every packed record (a
+    triangle that can hit); rays in and hits out once, each 80-byte
+    record once."""
+    from gradientdomain_mitsuba_tpu_torch.ops import sweep
     n = rays[0].shape[0]
     live = int((rays[3] > rays[2]).sum())
-    flops = live * n_tris * (FLOPS_SWEEP_ANY if any_hit else
-                             FLOPS_SWEEP_CLOSEST)
-    return bound_ms(flops, n * (33 if any_hit else 48) + 160 * n_tris)
+    flops = live * n_rec * (FLOPS_SWEEP_ANY if any_hit else
+                            FLOPS_SWEEP_CLOSEST)
+    return bound_ms(flops, n * (33 if any_hit else 48) +
+                    4 * sweep.RECORD_FLOATS * n_rec)
 
 
 def traversal_bound(rays, hit, occ, cbounds, window, variant):
@@ -291,6 +322,30 @@ def cbox_rays(scene, settings, n, dev, seed=0):
     return (o, d, mint, maxt), (so, ds.d.contiguous(), mint, smaxt)
 
 
+def render_calls(scene, st):
+    """The sweep calls of one pass of the G-PT render of `scene` at `st`:
+    ([(any_hit, (o, d, mint, maxt))], inputs cloned; passes a render)."""
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    from gradientdomain_mitsuba_tpu_torch.ops import sweep
+    calls = []
+    launch = sweep.SweepKernel._launch
+
+    def capture(k, o, d, mint, maxt, recs):
+        calls.append((k.any_hit, tuple(x.clone() for x in (o, d, mint,
+                                                           maxt))))
+        return launch(k, o, d, mint, maxt, recs)
+
+    tracer = GPTracer(scene, st)
+    spb = tracer.samples_per_batch(st.spp)
+    sweep.SweepKernel._launch = capture
+    try:
+        tracer.render_chunk(scene, 0, 0, spb)
+        torch.cuda.synchronize()
+    finally:
+        sweep.SweepKernel._launch = launch
+    return calls, st.spp // spb
+
+
 def phase_kernels(dev, kernels_rec):
     from gradientdomain_mitsuba_tpu_torch.ops import intersect as isec
     from gradientdomain_mitsuba_tpu_torch.ops import sweep
@@ -312,12 +367,40 @@ def phase_kernels(dev, kernels_rec):
         maxt[::7] = -1.0   # dead lanes
         ks = (sweep.make_sweep_intersector(T), sweep.make_sweep_occluder(T))
         pf, ma, mr, of, _ = compare(ks, (o, d, mint, maxt, linC))
+        n_rec = ks[0].packed(linC).shape[0]
         log(f"random soup T={T}: prim agree {pf:.6f}, max |dt| {ma:.3e} "
-            f"(rel {mr:.3e}), occluded agree {of:.6f}")
+            f"(rel {mr:.3e}), occluded agree {of:.6f}; {n_rec} records, "
+            f"{n_rec * 4 * sweep.RECORD_FLOATS} bytes staged a block")
         check(pf >= PRIM_FRAC and mr <= T_RTOL and of >= OCC_FRAC,
               f"kernel vs plain disagree on random soup T={T}")
+    soups = sweep_soups()
+    for kind, T, n_rec in (("windowed", 300, 300), ("zero_area", 96, 64),
+                           ("ties", 64, 64)):
+        args = [torch.from_numpy(a).to(dev)
+                for a in soups.random_soup(T, 100_003, 17, kind)]
+        ks = (sweep.make_sweep_intersector(T), sweep.make_sweep_occluder(T))
+        pf, ma, mr, of, _ = compare(ks, args)
+        hit = ks[0](*args)
+        prims = hit.prim[hit.valid]
+        log(f"{kind} soup T={T} ({args[4].shape[1] // 4} columns): prim "
+            f"agree {pf:.6f}, max |dt| {ma:.3e} (rel {mr:.3e}), occluded "
+            f"agree {of:.6f}; {ks[0].packed(args[4]).shape[0]} records, "
+            f"hit {float(hit.valid.float().mean()):.4f}, highest prim hit "
+            f"{int(prims.max()) if prims.numel() else -1}")
+        check(pf >= PRIM_FRAC and mr <= T_RTOL and of >= OCC_FRAC,
+              f"kernel vs plain disagree on the {kind} soup")
+        check(ks[0].packed(args[4]).shape[0] == n_rec,
+              f"the {kind} soup packs to the wrong number of records")
+        check(kind != "windowed" or bool((prims >= 256).any()),
+              "no hit in the windowed soup's third window")
+        check(kind != "zero_area" or not bool((prims % 3 == 0).any()),
+              "a zero-area triangle was hit")
+        check(kind != "ties" or bool((prims < T // 2).all()),
+              "a tie went to the higher column")
 
-    scene_np, st = sc.load_scene(CBOX, {"width": "256", "height": "256"})
+    scene_np, st = sc.load_scene(CBOX, {
+        "width": "256", "height": "256", "spp": "64", "maxDepth": "6",
+        "integrator": "gpt"})
     scene = bridge.to_torch(scene_np, dev)
     n_tris = int(scene.geom.indices.shape[0])
     ks = (sweep.make_sweep_intersector(n_tris),
@@ -345,15 +428,39 @@ def phase_kernels(dev, kernels_rec):
          lambda: isec.intersect_matmul(*cam, linC)),
         (1, lambda: ks[1](*shadow, linC),
          lambda: isec.occluded_matmul(*shadow, linC)))
+    n_rec = ks[0].packed(linC).shape[0]
     for i, kern, plain in timings:
         kernels_rec[i]["ms"] = cuda_ms(kern)
         kernels_rec[i]["plain_ms"] = cuda_ms(plain, iters=5)
-        ms, by = sweep_bound(cam if i == 0 else shadow, n_tris, i == 1)
+        ms, by = sweep_bound(cam if i == 0 else shadow, n_rec, i == 1)
         kernels_rec[i].update(bound_ms=ms, bound_by=by)
         log(f"{kernels_rec[i]['name']} at {N_TIMED} rays: kernel "
             f"{kernels_rec[i]['ms']:.4f} ms, plain "
             f"{kernels_rec[i]['plain_ms']:.4f} ms, bound {ms:.4f} ms "
-            f"({by})")
+            f"({by}; {n_rec} records of {linC.shape[1] // 4} columns)")
+
+    # the render's own calls: one pass of the cbox render (4 of its 64
+    # spp, 256x256, five lockstep paths a lane), captured
+    calls, passes = render_calls(scene, st)
+    for i, k in enumerate(ks):
+        mine = [rays for any_hit, rays in calls if any_hit == k.any_hit]
+        check(len(mine) > 0, f"one render pass made no {k.name} call")
+        rays = mine[0]
+        pf, ma, mr, of, _ = compare(ks, (*rays, linC))
+        check(pf >= PRIM_FRAC and mr <= T_RTOL and of >= OCC_FRAC,
+              f"kernel vs plain disagree on a render call of {k.name}")
+        per = [cuda_ms(lambda: k(*r, linC), iters=5, warmup=1) for r in mine]
+        dead = sum(int((r[3] <= r[2]).sum()) for r in mine) / sum(
+            r[0].shape[0] for r in mine)
+        b_ms = sum(sweep_bound(r, n_rec, k.any_hit)[0] for r in mine)
+        lanes = [int(r[0].shape[0]) for r in mine]
+        kernels_rec[i].update(render_call_ms=per, render_call_lanes=lanes,
+                              render_dead_share=dead)
+        log(f"{k.name} on one render pass's {len(mine)} calls of "
+            f"{', '.join(map(str, lanes))} lanes ({dead:.4f} dead): "
+            f"{', '.join(f'{x:.4f}' for x in per)} ms, sum {sum(per):.4f} ms "
+            f"a pass (bound {b_ms:.4f} ms), x {passes} passes = "
+            f"{sum(per) * passes:.3f} ms a render")
 
 
 def render(scene, st, seed, spp, mode="L1", plain=False):
@@ -378,6 +485,7 @@ def render(scene, st, seed, spp, mode="L1", plain=False):
 
 
 def phase_slice(dev, kernels_rec):
+    from gradientdomain_mitsuba_tpu_torch.ops import sweep
     from gradientdomain_mitsuba_tpu_torch.scene import bridge
     from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
     from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
@@ -427,8 +535,51 @@ def phase_slice(dev, kernels_rec):
         f"{[round(c, 4) for c in right]}")
     check(left[0] > left[1], "left (red) wall is not redder than green")
     check(right[1] > right[0], "right (green) wall is not greener than red")
+
+    # one more render, under torch.profiler (the sweeps' own device time)
+    # with each sweep launch bracketed by CUDA events (spans that also hold
+    # each launch's wait for the host in this host-bound render)
+    spans = {}
+
+    def run():
+        _, spans["per"] = kernel_time_render(
+            sweep.SweepKernel,
+            lambda: tracer.render_final(scene, 2, spp, alpha=0.2, mode="L1"),
+            "sweep launches' CUDA-event spans (seed 2, profiled)")
+
+    prof = profiled_render(run, "sweep_")
+    log(f"  profiled render (seed 2): device busy {prof['busy_ms']:.3f} ms "
+        f"of {prof['wall_ms']:.3f} ms wall (idle "
+        f"{100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f}%), "
+        f"{prof['device_ops']} device ops; sweep kernels' device time "
+        f"{prof['kernel_ms']:.3f} ms over {prof['kernel_calls']} launches "
+        f"({100 * prof['kernel_ms'] / prof['wall_ms']:.2f}% of the wall)")
     return dict(wall_s=wall, rays=rays, mrays_per_s=rays / wall / 1e6,
-                final_mean=mean_abs)
+                final_mean=mean_abs, event_span_ms=spans["per"],
+                profiled=prof)
+
+
+def profiled_render(run, key):
+    """run() (one render) under torch.profiler (device activity only:
+    the host's ops would take a minute to gather): its wall, the device's
+    busy time (the sum of its kernels' times), the number of device ops,
+    and the device time and launches of the kernels whose name holds
+    `key`."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    mine = [e for e in rows if key in e.key]
+    return dict(wall_ms=wall * 1e3,
+                busy_ms=sum(e.self_device_time_total for e in rows) / 1e3,
+                device_ops=sum(e.count for e in rows),
+                kernel_ms=sum(e.self_device_time_total for e in mine) / 1e3,
+                kernel_calls=sum(e.count for e in mine))
 
 
 def _l1_energy(x, p, gx, gy, alpha=0.2):
@@ -858,44 +1009,53 @@ def phase_kernel_times(recs, forest, pair_out, tri9, v2_out):
         recs[f"{variant}_occluded"].update(plain_ms=o_ms, plain_n=N_TIMED)
 
 
-def kernel_time_render(tracer, scene, seed):
-    """One more forest render (16 spp) with every traversal launch
-    bracketed by CUDA events: returns (wall s, {kernel name: (device ms,
-    calls)}).  The events' own launches make the wall a little longer
-    than the timed render's."""
-    from gradientdomain_mitsuba_tpu_torch.ops import trace
+def kernel_time_render(wrapper, run, label):
+    """run() (one more render) with every launch of the kernel wrapper
+    class `wrapper` (its _launch) bracketed by CUDA events: returns (wall
+    s, {kernel name: (device ms, calls)}).  The events' own launches make
+    the wall a little longer than the timed render's."""
     marks = []
-    launch = trace.TraversalKernel._launch
+    launch = wrapper._launch
 
-    def timed_launch(k, *args):
+    def timed_launch(k, *args, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = launch(k, *args)
+        out = launch(k, *args, **kw)
         end.record()
         marks.append((k.name, start, end))
         return out
 
-    trace.TraversalKernel._launch = timed_launch
+    wrapper._launch = timed_launch
     try:
         torch.cuda.synchronize()
         t0 = time.time()
-        tracer.render(scene, seed=seed, spp=16, chunk=16)
+        run()
         torch.cuda.synchronize()
         wall = time.time() - t0
     finally:
-        trace.TraversalKernel._launch = launch
+        wrapper._launch = launch
     per = {}
     for name, start, end in marks:
         ms, n = per.get(name, (0.0, 0))
         per[name] = (ms + start.elapsed_time(end), n + 1)
     total = sum(ms for ms, _ in per.values())
-    log(f"  traversal kernels inside one more render (seed {seed}): "
+    log(f"  {label} inside one more render: "
         + ", ".join(f"{n} {ms:.3f} ms over {c} calls"
                     for n, (ms, c) in per.items())
         + f"; {total:.3f} ms of {wall * 1e3:.3f} ms wall "
           f"({100 * total / (wall * 1e3):.1f}%)")
     return wall, per
+
+
+def forest_kernel_time_render(tracer, scene, seed):
+    """kernel_time_render of one more forest render (16 spp) through the
+    traversal kernels."""
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    return kernel_time_render(
+        trace.TraversalKernel,
+        lambda: tracer.render(scene, seed=seed, spp=16, chunk=16),
+        f"traversal kernels (seed {seed})")
 
 
 def phase_forest_slice(dev, kernels_rec, forest):
@@ -934,7 +1094,7 @@ def phase_forest_slice(dev, kernels_rec, forest):
     mean = float(img.mean())
     log(f"forest image mean {mean:.5f}, lit pixels {lit:.4f}")
     check(mean > 0 and lit > 0.1, "forest image is black")
-    _, per = kernel_time_render(tracer, scene, 2)
+    _, per = forest_kernel_time_render(tracer, scene, 2)
     return dict(wall_s=wall, rays=rays, mrays_per_s=rays / wall / 1e6,
                 peak_bytes=peak, image_mean=mean, lit_frac=lit,
                 kernel_ms=per, **info), img
@@ -1068,7 +1228,7 @@ def phase_v4_slice(dev, recs, forest, v7_img, v7_rays, v7_gpt):
         f"{IMG_ATOL}")
     check(rays == v7_rays, "v4 and v7 forest renders traced different rays")
     check(frac >= IMG_FRAC, "v4 and v7 forest images differ")
-    _, per = kernel_time_render(tracer, scene, 2)
+    _, per = forest_kernel_time_render(tracer, scene, 2)
 
     t0 = time.time()
     gpt.count_rays = True

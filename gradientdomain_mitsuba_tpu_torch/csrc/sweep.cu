@@ -4,50 +4,66 @@
 // pallas_sweep.py: _sweep_kernel (closest hit) and _occl_kernel (any hit).
 // Plain versions: ops/intersect.py intersect_matmul / occluded_matmul.
 //
-// Input: the linear Moeller-Trumbore table linC [10, 4T] (row-major f32,
-// column groups det | u_num | v_num | t_num; ops/intersect.build_linear_mt)
-// and rays o [N,3], d [N,3], mint [N], maxt [N], all f32 and contiguous.
-// Per (ray, triangle) the four terms are dot products of the ray features
-// f = [o x d, d, o, 1] with the triangle's four 10-coefficient columns.
+// Input: the packed triangle table of ops/sweep.pack_linear_mt and rays
+// o [N,3], d [N,3], mint [N], maxt [N], all f32 and contiguous.  The table
+// holds one 80-byte record (5 float4s) for each column of the linear
+// Moeller-Trumbore table linC [10, 4T] (ops/intersect.build_linear_mt)
+// whose det coefficients are not all zero, in increasing column order:
+//   x[0]  det  rows 3 4 5 | u row 0
+//   x[1]  u    rows 1 2 3 4
+//   x[2]  u    row 5      | v rows 0 1 2
+//   x[3]  v    rows 3 4 5 | t row 6
+//   x[4]  t    rows 7 8 9 | the column index (prim) as int bits
+// These are the 19 coefficients build_linear_mt can make non-zero; the
+// other 21 are zero by construction (the pack raises otherwise), and a
+// column whose det coefficients are all zero (window padding, zero-area
+// triangles) gives det = 0 for every ray and can never hit.  Per (ray,
+// record) the four terms are dot products with the ray features
+// f = [o x d, d, o, 1].
 //
 // What bounds it on an H100: arithmetic.  Per ray it reads 32 B and writes
-// 16 B (closest) or 1 B (any hit), while it does 4 x 10 FMAs plus a
-// reciprocal and a few compares per triangle, so even a 36-triangle soup
-// is compute bound.  Design: one thread per ray, 256 threads a block; the
-// coefficients are staged tile by tile (256 triangles x 40 floats = 40 KB)
-// into shared memory, where every thread of a warp reads the same
-// triangle's column at once (a broadcast, no bank conflict).  Triangles
-// are visited in index order with a running best updated on a strict `<`,
-// which is exactly the reference's lowest-index tie-break among equal
-// minimal t.  The TPU layout (transposed [8, Np] rays, [n_chunks, 4Ct, 16]
-// coefficient chunks, 128-lane padding) is not carried over.
+// 16 B (closest) or 1 B (any hit), while per (ray, record) it does 19 FMAs,
+// a reciprocal and a few multiplies and compares.  Design: one thread a
+// ray; the block stages the whole table into shared memory once (at most
+// 2,048 records, 160 KB, coalesced float4 loads) and each thread then
+// sweeps it with broadcast 128-bit loads (every thread of a warp reads the
+// same record) and no barrier inside the loop.  Blocks are 256 threads
+// for every table (a 160 KB table leaves room for one such block an SM).
+// Records are visited in column order with a running best replaced on a strict
+// `<`: the reference's lowest index among equal minimal t.  The TPU layout
+// (transposed [8, Np] rays, [n_chunks, 4Ct, 16] coefficient chunks,
+// 128-lane padding, the trim to round_up(n_tris, 64) columns) is not
+// carried over.
 //
 // Semantics held exactly:
-//  - divide first: inv = 1/det (IEEE; built without --use_fast_math),
-//    u = u_num*inv, v = v_num*inv, t = t_num*inv;
-//    ok = u>=0 & v>=0 & u+v<=1 & t>mint & t<maxt;
+//  - divide first: inv = __frcp_rn(det) (the IEEE reciprocal; built
+//    without --use_fast_math), u = u_num*inv, v = v_num*inv,
+//    t = t_num*inv; ok = u>=0 & v>=0 & u+v<=1 & t>mint & t<maxt;
+//    det == 0 gives u, v of +-inf or NaN, so ok fails without a branch;
 //  - a miss leaves t = 3.0e38 (F32_MAX, not inf) and prim = -1;
-//  - det == 0 (parallel ray, all-zero padding column) can never hit under
-//    either test (u becomes NaN or +-inf), so it is skipped — a uniform
-//    branch across the warp for padding columns;
 //  - rays with maxt <= mint (dead lanes carry maxt = -1) cannot hit and
 //    skip the loop;
-//  - any hit: s = sign(det) with sign(0) = 0, su,sv >= 0, su+sv <= |det|,
-//    |det| > 0, mint*|det| < st < maxt*|det|.
+//  - any hit: s = sign(det) (det == 0 gives ad = -0, which fails), su,sv
+//    >= 0, su+sv <= |det|, |det| > 0, mint*|det| < st < maxt*|det|; a
+//    thread stops at its first hit.
 // Precision: the ray features use explicit _rn intrinsics, so nvcc cannot
-// contract o.y*d.z - o.z*d.y into an FMA; the four 10-term dot products
-// are fmaf chains in feature order.  The plain version's matmul sums in
-// cuBLAS's order, so t may differ by an ulp or so; agreement is checked
-// within tolerances (chip_smoke.py, tests/test_torch_sweep.py).
+// contract o.y*d.z - o.z*d.y into an FMA.  Each term is the chain of the
+// dense 10-term dot product in feature order with the zero terms left
+// out: __fmul_rn of the first structural term, then fmaf (t's constant
+// row as fmaf(c9, 1, s)).  A zero term adds a zero to the chain, so for
+// finite rays every value equals the dense chain's bit for bit, up to the
+// sign of a zero.  The plain version's matmul sums in cuBLAS's order, so t
+// may differ from it by an ulp or so; agreement is checked within
+// tolerances (chip_smoke.py, tests/test_torch_sweep_cuda.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlock = 256;   // threads (= rays) per block
-constexpr int kTile = 256;    // triangles staged per shared-memory tile
-constexpr int kCoef = 40;     // 4 column groups x 10 features
+constexpr int kBlock = 256;        // threads (= rays) a block
+constexpr int kRecord = 5;         // float4s per packed record
+constexpr int kSmallTable = 48 * 1024;   // bytes
 constexpr float kF32Max = 3.0e38f;
 
 struct Ray {
@@ -74,104 +90,89 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
   return r;
 }
 
-__device__ __forceinline__ float dot10(const float* __restrict__ c,
-                                       const float* f) {
-  float s = __fmul_rn(c[0], f[0]);
-#pragma unroll
-  for (int k = 1; k < 10; ++k) s = fmaf(c[k], f[k], s);
-  return s;
+// The four terms of one record for one ray, and its prim.
+struct Terms {
+  float det, u, v, t;
+  int prim;
+};
+
+__device__ __forceinline__ Terms terms(const float4* x, const float* f) {
+  const float4 a = x[0], b = x[1], c = x[2], e = x[3], g = x[4];
+  Terms r;
+  r.det = fmaf(a.z, f[5], fmaf(a.y, f[4], __fmul_rn(a.x, f[3])));
+  r.u = fmaf(c.x, f[5], fmaf(b.w, f[4], fmaf(b.z, f[3], fmaf(
+      b.y, f[2], fmaf(b.x, f[1], __fmul_rn(a.w, f[0]))))));
+  r.v = fmaf(e.z, f[5], fmaf(e.y, f[4], fmaf(e.x, f[3], fmaf(
+      c.w, f[2], fmaf(c.z, f[1], __fmul_rn(c.y, f[0]))))));
+  r.t = fmaf(g.z, 1.0f, fmaf(g.y, f[8], fmaf(g.x, f[7],
+                                             __fmul_rn(e.w, f[6]))));
+  r.prim = __float_as_int(g.w);
+  return r;
 }
 
-// Stage triangles [base, base + n) of linC into sh[j * 40 + g * 10 + k]
-// (triangle j, column group g, feature k).
-__device__ __forceinline__ void stage(float* sh, const float* __restrict__ linC,
-                                      int T, int base, int n) {
-  for (int idx = threadIdx.x; idx < kCoef * n; idx += blockDim.x) {
-    const int row = idx / n;          // row = k * 4 + g of the [10, 4T] table
-    const int j = idx - row * n;
-    const int k = row >> 2, g = row & 3;
-    sh[j * kCoef + g * 10 + k] = linC[(size_t)k * 4 * T + (size_t)g * T + base + j];
-  }
+// The whole table into shared memory, once per block.
+__device__ __forceinline__ void stage(float4* sh,
+                                      const float4* __restrict__ recs,
+                                      int n_rec) {
+  for (int q = threadIdx.x; q < n_rec * kRecord; q += blockDim.x)
+    sh[q] = __ldg(recs + q);
+  __syncthreads();
 }
 
 __global__ void __launch_bounds__(kBlock)
 sweep_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ mint,
                      const float* __restrict__ maxt,
-                     const float* __restrict__ linC, int n_rays, int T,
+                     const float4* __restrict__ recs, int n_rays, int n_rec,
                      float* __restrict__ t_out, float* __restrict__ u_out,
                      float* __restrict__ v_out, int32_t* __restrict__ prim_out) {
-  __shared__ float sh[kTile * kCoef];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = i < n_rays;
-  Ray r;
-  bool live = false;
-  if (in_range) {
-    r = load_ray(o, d, mint, maxt, i);
-    live = r.maxt > r.mint;
-  }
+  extern __shared__ float4 sh[];
+  stage(sh, recs, n_rec);
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n_rays) return;
+  const Ray r = load_ray(o, d, mint, maxt, i);
   float bt = kF32Max, bu = 0.0f, bv = 0.0f;
   int bj = -1;
-  for (int base = 0; base < T; base += kTile) {
-    const int n = min(kTile, T - base);
-    __syncthreads();
-    stage(sh, linC, T, base, n);
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < n; ++j) {
-      const float* c = sh + j * kCoef;
-      const float det = dot10(c, r.f);
-      if (det == 0.0f) continue;
-      const float inv = 1.0f / det;
-      const float u = __fmul_rn(dot10(c + 10, r.f), inv);
-      const float v = __fmul_rn(dot10(c + 20, r.f), inv);
-      const float t = __fmul_rn(dot10(c + 30, r.f), inv);
+  if (r.maxt > r.mint) {
+    for (int j = 0; j < n_rec; ++j) {
+      const Terms x = terms(sh + j * kRecord, r.f);
+      const float inv = __frcp_rn(x.det);
+      const float u = __fmul_rn(x.u, inv);
+      const float v = __fmul_rn(x.v, inv);
+      const float t = __fmul_rn(x.t, inv);
       const bool ok = (u >= 0.0f) & (v >= 0.0f) & (__fadd_rn(u, v) <= 1.0f) &
                       (t > r.mint) & (t < r.maxt);
       if (ok && t < bt) {
-        bt = t; bu = u; bv = v; bj = base + j;
+        bt = t; bu = u; bv = v; bj = x.prim;
       }
     }
   }
-  if (in_range) {
-    t_out[i] = bt;
-    u_out[i] = bu;
-    v_out[i] = bv;
-    prim_out[i] = bj;
-  }
+  t_out[i] = bt;
+  u_out[i] = bu;
+  v_out[i] = bv;
+  prim_out[i] = bj;
 }
 
 __global__ void __launch_bounds__(kBlock)
 sweep_occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
                       const float* __restrict__ mint,
                       const float* __restrict__ maxt,
-                      const float* __restrict__ linC, int n_rays, int T,
+                      const float4* __restrict__ recs, int n_rays, int n_rec,
                       uint8_t* __restrict__ occ_out) {
-  __shared__ float sh[kTile * kCoef];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = i < n_rays;
-  Ray r;
-  bool live = false;
-  if (in_range) {
-    r = load_ray(o, d, mint, maxt, i);
-    live = r.maxt > r.mint;
-  }
+  extern __shared__ float4 sh[];
+  stage(sh, recs, n_rec);
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n_rays) return;
+  const Ray r = load_ray(o, d, mint, maxt, i);
   bool hit = false;
-  for (int base = 0; base < T; base += kTile) {
-    const int n = min(kTile, T - base);
-    __syncthreads();
-    stage(sh, linC, T, base, n);
-    __syncthreads();
-    if (!live || hit) continue;
-    for (int j = 0; j < n; ++j) {
-      const float* c = sh + j * kCoef;
-      const float det = dot10(c, r.f);
-      if (det == 0.0f) continue;
-      const float s = det > 0.0f ? 1.0f : -1.0f;
-      const float ad = __fmul_rn(det, s);
-      const float su = __fmul_rn(dot10(c + 10, r.f), s);
-      const float sv = __fmul_rn(dot10(c + 20, r.f), s);
-      const float st = __fmul_rn(dot10(c + 30, r.f), s);
+  if (r.maxt > r.mint) {
+    for (int j = 0; j < n_rec; ++j) {
+      const Terms x = terms(sh + j * kRecord, r.f);
+      const float s = x.det > 0.0f ? 1.0f : -1.0f;
+      const float ad = __fmul_rn(x.det, s);
+      const float su = __fmul_rn(x.u, s);
+      const float sv = __fmul_rn(x.v, s);
+      const float st = __fmul_rn(x.t, s);
       if ((su >= 0.0f) & (sv >= 0.0f) & (__fadd_rn(su, sv) <= ad) &
           (ad > 0.0f) & (st > __fmul_rn(r.mint, ad)) &
           (st < __fmul_rn(r.maxt, ad))) {
@@ -180,34 +181,46 @@ sweep_occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
       }
     }
   }
-  if (in_range) occ_out[i] = hit ? 1 : 0;
+  occ_out[i] = hit ? 1 : 0;
 }
 
-inline int grid_for(int n_rays) { return (n_rays + kBlock - 1) / kBlock; }
+// One launch of `kernel` over n_rays, kBlock rays a block, with the
+// table's bytes of dynamic shared memory (opting in above 48 KB: the
+// attribute is the current device's, so it is set at every such launch).
+template <typename... P, typename... A>
+int launch(void (*kernel)(P...), int n_rec, int n_rays, void* stream,
+           A... args) {
+  const int smem = n_rec * kRecord * (int)sizeof(float4);
+  if (smem > kSmallTable) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n_rays > 0) {
+    kernel<<<(n_rays + kBlock - 1) / kBlock, kBlock, smem,
+             static_cast<cudaStream_t>(stream)>>>(args...);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
-// Plain C interface (bound with ctypes).  Launches on `stream`, does not
+// Plain C interface (bound with ctypes).  `recs` is the packed table
+// [n_rec, 20] (16-byte aligned).  Launches on `stream`, does not
 // synchronise, allocates nothing, and returns cudaGetLastError().
 extern "C" int sweep_closest(const float* o, const float* d, const float* mint,
-                             const float* maxt, const float* linC, int n_rays,
-                             int T, float* t, float* u, float* v,
+                             const float* maxt, const float* recs, int n_rays,
+                             int n_rec, float* t, float* u, float* v,
                              int32_t* prim, void* stream) {
-  if (n_rays > 0) {
-    sweep_closest_kernel<<<grid_for(n_rays), kBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        o, d, mint, maxt, linC, n_rays, T, t, u, v, prim);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch(sweep_closest_kernel, n_rec, n_rays, stream, o, d, mint, maxt,
+                reinterpret_cast<const float4*>(recs), n_rays, n_rec, t, u, v,
+                prim);
 }
 
 extern "C" int sweep_occluded(const float* o, const float* d, const float* mint,
-                              const float* maxt, const float* linC, int n_rays,
-                              int T, uint8_t* occ, void* stream) {
-  if (n_rays > 0) {
-    sweep_occluded_kernel<<<grid_for(n_rays), kBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        o, d, mint, maxt, linC, n_rays, T, occ);
-  }
-  return static_cast<int>(cudaGetLastError());
+                              const float* maxt, const float* recs, int n_rays,
+                              int n_rec, uint8_t* occ, void* stream) {
+  return launch(sweep_occluded_kernel, n_rec, n_rays, stream, o, d, mint,
+                maxt, reinterpret_cast<const float4*>(recs), n_rays, n_rec,
+                occ);
 }

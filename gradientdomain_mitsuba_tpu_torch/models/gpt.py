@@ -18,6 +18,7 @@ the ROADMAP item.  The half-vector shift is not ported yet.
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
@@ -37,8 +38,9 @@ OFFSETS = ((1.0, 0.0), (-1.0, 0.0), (0.0, 1.0), (0.0, -1.0))
 
 CONN_NONE, CONN_RECENT, CONN_DONE = 0, 1, 2
 
-# lanes per pass (each lane carries 5 lockstep paths); the reference's
-# default, so both packages assign the same sample indices per pass
+# lanes per pass (each lane carries 5 lockstep paths) unless GDMT_LANES
+# says otherwise: the reference's default, so both packages assign the
+# same sample indices per pass
 LANES = 1 << 18
 
 
@@ -638,10 +640,13 @@ class GPTracer:
 
     # ------------------------------------------------------------------
     def samples_per_batch(self, n_samples):
-        """Samples per pass: as many whole frames as fit LANES lanes,
-        rounded down to a divisor of n_samples (the reference's rule)."""
+        """Samples per pass: as many whole frames as fit the lane target
+        (GDMT_LANES, read at each call as the reference reads it; default
+        LANES), rounded down to a divisor of n_samples (the reference's
+        rule)."""
+        target = int(os.environ.get("GDMT_LANES", str(LANES)))
         N = self.settings.width * self.settings.height
-        spb = max(1, LANES // max(N, 1))
+        spb = max(1, target // max(N, 1))
         while n_samples % spb:
             spb -= 1
         return spb

@@ -21,6 +21,7 @@ NotImplementedError naming their ROADMAP item.
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
@@ -37,9 +38,9 @@ from ..ops import sensor as sensor_ops
 # paths long before it)
 MAX_BOUNCES_UNLIMITED = 40
 
-# lanes per pass: the reference's defaults (its GDMT_LANES unset), so both
-# packages assign the same sample indices per pass.  Large scenes take
-# 1M-lane passes: 256x256 at 16 spp is one pass.
+# lanes per pass unless GDMT_LANES says otherwise: the reference's
+# defaults, so both packages assign the same sample indices per pass.
+# Large scenes take 1M-lane passes: 256x256 at 16 spp is one pass.
 LANES_LARGE = 1 << 20
 LANES_SMALL = 1 << 16
 
@@ -248,10 +249,13 @@ class PathTracer:
     # -- full frame -----------------------------------------------------------
     def samples_per_batch(self, n_samples):
         """Samples per pass: as many whole frames as fit the lane target
-        (1M lanes for large scenes, 64k otherwise), rounded down to a
+        (GDMT_LANES, read at each call as the reference reads it; default
+        1M lanes for large scenes, 64k otherwise), rounded down to a
         divisor of n_samples (the reference's rule)."""
         N = self.settings.width * self.settings.height
-        target = LANES_LARGE if self.large_scene else LANES_SMALL
+        target = int(os.environ.get(
+            "GDMT_LANES",
+            str(LANES_LARGE if self.large_scene else LANES_SMALL)))
         spb = max(1, target // max(N, 1))
         while n_samples % spb:
             spb -= 1

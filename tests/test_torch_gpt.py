@@ -167,3 +167,43 @@ def test_unported_scenes_raise():
         os.path.join(ROOT, "data/scenes/cbox-mats/cbox-mats.xml"), VARS)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPTracer(bridge.to_torch(scene, "cpu"), st)
+
+
+@pytest.mark.parametrize("lanes", [None, "1", "256", "300", "4096",
+                                   "1000000"])
+def test_samples_per_batch_reads_gdmt_lanes(monkeypatch, lanes):
+    """GDMT_LANES sizes a pass as the reference's GPTracer reads it (the
+    reference's method called on a stand-in that carries `settings`)."""
+    from types import SimpleNamespace
+    if lanes is None:
+        monkeypatch.delenv("GDMT_LANES", raising=False)
+    else:
+        monkeypatch.setenv("GDMT_LANES", lanes)
+    for w, h in ((16, 16), (256, 256), (37, 5)):
+        tracer = SimpleNamespace(settings=SimpleNamespace(width=w, height=h))
+        for n in (1, 2, 6, 64, 97):
+            assert (GPTracer.samples_per_batch(tracer, n) ==
+                    ref_gpt.GPTracer.samples_per_batch(tracer, n)), (w, h, n)
+
+
+def test_gdmt_lanes_changes_only_summation_order(monkeypatch):
+    """16^2 at 2 spp: one pass by default, two under GDMT_LANES=256; the
+    same samples are drawn, so the buffers agree to summation order and
+    the measured rays are equal."""
+    scene, st = port_scene.load_scene(CBOX, VARS)
+    ts = bridge.to_torch(scene, "cpu")
+    out = []
+    for lanes in (None, "256"):
+        if lanes is None:
+            monkeypatch.delenv("GDMT_LANES", raising=False)
+        else:
+            monkeypatch.setenv("GDMT_LANES", lanes)
+        tracer = GPTracer(ts, st)
+        tracer.count_rays = True
+        assert tracer.samples_per_batch(SPP) == (SPP if lanes is None
+                                                 else 1)
+        out.append(tracer.render_chunk(ts, SEED, 0, SPP))
+    a, b = out
+    assert int(a["rays"]) == int(b["rays"]) > 0
+    for k in (*BUFS, "wsum"):
+        torch.testing.assert_close(a[k], b[k], rtol=1e-6, atol=1e-7)

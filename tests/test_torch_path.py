@@ -192,3 +192,24 @@ def test_unported_branches_raise(cbox16):
         {"width": "16", "height": "16"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PathTracer(bridge.to_torch(scene_np, "cpu"), st2)
+
+
+@pytest.mark.parametrize("lanes", [None, "1", "256", "65536", "3000000"])
+def test_samples_per_batch_reads_gdmt_lanes(monkeypatch, lanes):
+    """GDMT_LANES sizes a pass as the reference's PathTracer reads it,
+    with its defaults for large and small scenes (the reference's method
+    called on a stand-in that carries `settings` and `large_scene`)."""
+    from types import SimpleNamespace
+    if lanes is None:
+        monkeypatch.delenv("GDMT_LANES", raising=False)
+    else:
+        monkeypatch.setenv("GDMT_LANES", lanes)
+    for large in (False, True):
+        for w, h in ((16, 16), (256, 256), (37, 5)):
+            tracer = SimpleNamespace(
+                large_scene=large, settings=SimpleNamespace(width=w,
+                                                            height=h))
+            for n in (1, 2, 6, 16, 97):
+                assert (PathTracer.samples_per_batch(tracer, n) ==
+                        ref_path.PathTracer.samples_per_batch(tracer, n)), (
+                    large, w, h, n)

@@ -3,6 +3,8 @@ oracle of the CUDA kernels) against the reference's Pallas sweep kernels
 run in interpret mode, as tests/test_pallas.py runs them.  The CUDA
 kernels themselves are tested in test_torch_sweep_cuda.py."""
 import functools
+import importlib.util
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,21 +17,19 @@ from gradientdomain_mitsuba_tpu.ops import pallas_sweep as ps
 from gradientdomain_mitsuba_tpu_torch.ops import intersect as isec
 from gradientdomain_mitsuba_tpu_torch.ops import sweep
 
+_spec = importlib.util.spec_from_file_location(
+    "sweep_soups", os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "sweep_soups.py"))
+sweep_soups = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(sweep_soups)
+
 N = 300
 
 
-def _soup_and_rays(T, seed):
+def _soup_and_rays(T, seed, kind="random"):
     """Random soup [T] and N rays from a seed; every 5th lane is dead
     (maxt = -1), as the wavefront masks finished lanes."""
-    rs = np.random.RandomState(seed)
-    v0, e1, e2 = (np.float32(rs.normal(size=(T, 3))) for _ in range(3))
-    linC = isec.build_linear_mt(v0, e1, e2)
-    o = np.float32(rs.normal(size=(N, 3)) * 3)
-    d = np.float32(rs.normal(size=(N, 3)))
-    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
-    mint = np.full(N, 1e-4, np.float32)
-    maxt = np.full(N, 3e38, np.float32)
-    maxt[::5] = -1.0
+    o, d, mint, maxt, linC = sweep_soups.random_soup(T, N, seed, kind)
     return linC, o, d, mint, maxt
 
 
@@ -92,27 +92,14 @@ def test_cpu_call_counts_no_launch():
     assert k.launches == 0
 
 
-def _cluster_padded(linC, window=128, per=100):
-    """Re-lay a [10, 4T] table cluster-major, as the scene loader does for
-    64 < T <= 2048: clusters of `per` triangles, each padded with zero
-    columns to `window` slots, so real triangles sit past round_up(T, 64)."""
-    T = linC.shape[1] // 4
-    K = -(-T // per)
-    out = np.zeros((10, 4 * K * window), np.float32)
-    for g in range(4):
-        for k in range(K):
-            n = min(per, T - k * per)
-            dst = g * K * window + k * window
-            out[:, dst:dst + n] = linC[:, g * T + k * per:g * T + k * per + n]
-    return out
-
-
 def test_plain_sweep_sees_every_cluster():
     """Triangles in later cluster windows are hit: the port sweeps every
     column of linC (the reference's Pallas wrapper trims to
     round_up(n_tris, 64) columns, which drops them — ROADMAP Queue 3)."""
-    linC, o, d, mint, maxt = _soup_and_rays(300, seed=5)
-    padded = _cluster_padded(linC)
+    # cluster-major, as the scene loader lays out 64 < T <= 2048: windows
+    # of 128 columns holding 100 triangles, so triangles sit past
+    # round_up(T, 64)
+    padded, o, d, mint, maxt = _soup_and_rays(300, seed=5, kind="windowed")
     ref = ref_isec.intersect_matmul(*map(jnp.asarray,
                                          (o, d, mint, maxt, padded)))
     got = sweep.make_sweep_intersector(300)(
@@ -124,3 +111,83 @@ def test_plain_sweep_sees_every_cluster():
     got_o = sweep.make_sweep_occluder(300)(
         *map(torch.from_numpy, (o, d, mint, maxt, padded)))
     np.testing.assert_array_equal(got_o.numpy(), np.asarray(ref_o))
+
+
+def _dense_from_records(recs):
+    """A dense [10, 4n] linC rebuilt from packed records [n, 20] (the
+    structural rows filled, every other coefficient zero) and the column
+    ids the records carry."""
+    n = recs.shape[0]
+    dense = torch.zeros((10, 4, n))
+    at = 0
+    for g, rows in sweep.STRUCTURE:
+        dense[list(rows), g] = recs[:, at:at + len(rows)].t()
+        at += len(rows)
+    return dense.reshape(10, 4 * n), recs[:, 19].view(torch.int32)
+
+
+def test_pack_keeps_the_columns_that_can_hit():
+    """Exactly the non-degenerate columns, in order, with their ids:
+    cbox's 32 of 128, the windowed soup's 300 of 384, no zero-area one."""
+    from gradientdomain_mitsuba_tpu_torch.scene import bridge
+    from gradientdomain_mitsuba_tpu_torch.scene import scene as port_scene
+    import os
+    cbox = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "data/scenes/cbox/cbox.xml")
+    scene, _ = port_scene.load_scene(cbox, {"width": "8", "height": "8"})
+    linC = bridge.to_torch(scene, "cpu").geom.linC
+    assert linC.shape == (10, 512)
+    ids = sweep.pack_linear_mt(linC)[:, 19].view(torch.int32)
+    assert ids.tolist() == list(range(32))
+
+    linC = torch.from_numpy(sweep_soups.random_soup(300, 1, 0, "windowed")[4])
+    ids = sweep.pack_linear_mt(linC)[:, 19].view(torch.int32)
+    assert linC.shape[1] == 4 * 384
+    assert ids.tolist() == [k * 128 + j for k in range(3)
+                            for j in range(100)]
+
+    linC = torch.from_numpy(sweep_soups.random_soup(96, 1, 0, "zero_area")[4])
+    ids = sweep.pack_linear_mt(linC)[:, 19].view(torch.int32)
+    assert ids.tolist() == [j for j in range(96) if j % 3]
+
+
+@pytest.mark.parametrize("row,group", [(0, 0), (9, 0), (7, 1), (6, 2),
+                                       (2, 3), (5, 3)])
+def test_pack_raises_outside_the_structure(row, group):
+    linC = torch.from_numpy(sweep_soups.random_soup(36, 1, 1)[4])
+    sweep.pack_linear_mt(linC)
+    bad = linC.clone()
+    bad[row, group * 36 + 5] = 0.5
+    with pytest.raises(ValueError, match=f"row {row} of column group "
+                                         f"{group}"):
+        sweep.pack_linear_mt(bad)
+
+
+def test_pack_built_once_per_table():
+    k = sweep.make_sweep_intersector(36)
+    linC = torch.from_numpy(sweep_soups.random_soup(36, 1, 2)[4])
+    first = k.packed(linC)
+    assert k.packed(linC) is first
+    other = linC.clone()
+    assert k.packed(other) is not first
+    assert torch.equal(k.packed(other), first)
+
+
+@pytest.mark.parametrize("kind,T", [("random", 36), ("windowed", 300),
+                                    ("zero_area", 96), ("ties", 64)])
+def test_dense_from_records_matches_original(kind, T):
+    """The records hold the whole table: intersect_matmul on a dense
+    table rebuilt from them, with prims mapped back to column ids, equals
+    intersect_matmul on the original bit for bit (occluded_matmul too)."""
+    o, d, mint, maxt, linC = map(torch.from_numpy,
+                                 sweep_soups.random_soup(T, 4000, 9, kind))
+    dense, ids = _dense_from_records(sweep.pack_linear_mt(linC))
+    ref = isec.intersect_matmul(o, d, mint, maxt, linC)
+    got = isec.intersect_matmul(o, d, mint, maxt, dense)
+    prim = torch.where(got.valid, ids[got.prim.clamp_min(0).long()], -1)
+    assert torch.equal(prim, ref.prim)
+    for a, b in ((got.t, ref.t), (got.u, ref.u), (got.v, ref.v)):
+        assert torch.equal(a, b)
+    assert torch.equal(isec.occluded_matmul(o, d, mint, maxt, dense),
+                       isec.occluded_matmul(o, d, mint, maxt, linC))
+    assert bool(ref.valid.any())

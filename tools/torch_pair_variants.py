@@ -1,8 +1,9 @@
-"""A/B timings of design variants of the v7 pair kernels or of the v4 block
-kernels on one NVIDIA card.
+"""A/B timings of design variants of the v7 pair kernels, of the v4 block
+kernels or of the sweep kernels on one NVIDIA card.
 
-    python3 tools/torch_pair_variants.py [--kernel pair|mt] [--parent DIR]
-                                         [--variants A,B] [--json PATH]
+    python3 tools/torch_pair_variants.py [--kernel pair|mt|sweep]
+                                         [--parent DIR] [--variants A,B]
+                                         [--json PATH]
 
 --kernel pair (the default) builds the port's csrc/trace.cu as it is ("new")
 and variants made from it by text substitution, one nvcc each, all started
@@ -57,6 +58,33 @@ kernel's):
             none (no hit lowers a t, so more entries are entered)
 The step "lanes across triangles instead of one thread a ray" is undone
 by the parent: the kernel of the commit before the redesign.
+--kernel sweep builds csrc/sweep.cu (sweep_closest, sweep_occluded) and:
+  threads128, threads512, threads1024  blocks of 128 / 512 / 1,024 threads
+            (rays) instead of 256
+  persist   persistent blocks (at most 2,048 threads an SM, each block
+            striding over the batch) instead of one block per 256 rays
+  div       1/det by __fdiv_rn instead of __frcp_rn
+  branch    the dense design's `det == 0` branch put back
+  cull      closest hit: t first, u and v only where t could win
+  tma       the table staged by one cp.async.bulk (TMA) copy completed on
+            an mbarrier instead of float4 loads by every thread
+  unroll4   the record loop unrolled four times
+  lanes     lanes across records: a warp's rays in turn, lane l testing
+            records l, l+32, ... held in registers (at most 128 records;
+            larger tables are skipped), hits merged by a warp minimum of
+            (order-preserving t bits, prim)
+and the parent (with --parent) is the dense 40-coefficient design.  Each build is
+held against "new" bit for bit (t, u, v, prim, occluded; a zero may differ
+in its sign) and timed in turns (CUDA events, 10 launches after 2
+warm-ups) on 1,048,576 cbox camera and shadow rays (chip_smoke.cbox_rays),
+random soups of T = 36, 130 and 2,048 triangles at 1,048,576 rays, and
+the calls of one pass of the cbox render (chip_smoke.render_calls).  With
+--parent the cbox G-PT render 256x256, 64 spp, maxDepth 6 + L1 runs
+through the parent kernels and the new ones in turns (parent, new, new,
+parent, five times over: ten walls each), its buffers, final and rays at
+the same seed must be identical, and one more render of each runs under
+torch.profiler (device busy time against the wall, the sweeps' device
+time).
 With --parent DIR (an unpacked checkout of another commit, such as one
 from `git archive`) it also builds that checkout's source ("parent", with
 this interface or the older one that took cbounds and [S, 6] supercluster
@@ -99,6 +127,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from gradientdomain_mitsuba_tpu_torch import native  # noqa: E402
 from gradientdomain_mitsuba_tpu_torch.ops import intersect as isec  # noqa: E402
+from gradientdomain_mitsuba_tpu_torch.ops import sweep  # noqa: E402
 from gradientdomain_mitsuba_tpu_torch.ops import trace  # noqa: E402
 
 BUILD = os.path.join(native.BUILD_DIR, "variants")
@@ -113,6 +142,7 @@ MODES = {
     "mt": dict(src=trace._BLOCK_SRC, fns=("mt_closest", "mt_occluded"),
                marker="launch_mt", counts=("sweeps", "reads", "entered"),
                profile=("mt_kernel", "block_kernel"), env="v4"),
+    "sweep": dict(src=sweep._SRC, fns=("sweep_closest", "sweep_occluded")),
 }
 
 
@@ -335,6 +365,261 @@ def variants(src):
     }
 
 
+SWEEP_LOOP = """      const Terms x = terms(sh + j * kRecord, r.f);
+      const float inv = __frcp_rn(x.det);
+      const float u = __fmul_rn(x.u, inv);
+      const float v = __fmul_rn(x.v, inv);
+      const float t = __fmul_rn(x.t, inv);
+      const bool ok = (u >= 0.0f) & (v >= 0.0f) & (__fadd_rn(u, v) <= 1.0f) &
+                      (t > r.mint) & (t < r.maxt);
+      if (ok && t < bt) {
+"""
+
+SWEEP_CULL = """      const Terms x = terms(sh + j * kRecord, r.f);
+      const float inv = __frcp_rn(x.det);
+      const float t = __fmul_rn(x.t, inv);
+      if (!((t > r.mint) & (t < r.maxt) & (t < bt))) continue;
+      const float u = __fmul_rn(x.u, inv);
+      const float v = __fmul_rn(x.v, inv);
+      if ((u >= 0.0f) & (v >= 0.0f) & (__fadd_rn(u, v) <= 1.0f)) {
+"""
+
+SWEEP_TMA = """// (variant) the table staged by one bulk copy (TMA) completed on
+// an mbarrier
+__device__ __forceinline__ void stage(float4* sh,
+                                      const float4* __restrict__ recs,
+                                      int n_rec) {
+  __shared__ alignas(8) unsigned long long bar;
+  const unsigned bytes = (unsigned)n_rec * kRecord * 16u;
+  if (bytes == 0) return;
+  const unsigned b = (unsigned)__cvta_generic_to_shared(&bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(b));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(b), "r"(bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        :: "r"((unsigned)__cvta_generic_to_shared(sh)), "l"(recs),
+           "r"(bytes), "r"(b) : "memory");
+  }
+  asm volatile("{\\n.reg .pred P1;\\nLAB_WAIT:\\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\\n"
+               "@P1 bra DONE;\\nbra LAB_WAIT;\\nDONE:\\n}\\n"
+               :: "r"(b) : "memory");
+}
+"""
+
+SWEEP_LANES = """// (variant) lanes across records: a warp's rays in turn, lane l
+// testing records l, l + 32, ... held in registers; hits merged by a warp
+// minimum of ord(t) << 32 | prim (t canonicalised: -0 -> +0)
+constexpr int kHeld = 4;   // records a lane holds: at most 128 a table
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ unsigned ord(float x) {
+  const unsigned b = __float_as_uint(x);
+  return b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
+}
+
+__device__ __forceinline__ float unord(unsigned k) {
+  return __uint_as_float(k ^ ((k >> 31) ? 0x80000000u : 0xffffffffu));
+}
+
+__device__ __forceinline__ void hold(float4 (&x)[kHeld][kRecord],
+                                     const float4* __restrict__ recs,
+                                     int n_rec) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < kHeld; ++h) {
+    const int j = lane + 32 * h;
+#pragma unroll
+    for (int q = 0; q < kRecord; ++q)
+      x[h][q] = j < n_rec ? __ldg(recs + j * kRecord + q)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+__global__ void __launch_bounds__(kBlock)
+sweep_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                     const float* __restrict__ mint,
+                     const float* __restrict__ maxt,
+                     const float4* __restrict__ recs, int n_rays, int n_rec,
+                     float* __restrict__ t_out, float* __restrict__ u_out,
+                     float* __restrict__ v_out, int32_t* __restrict__ prim_out) {
+  float4 x[kHeld][kRecord];
+  hold(x, recs, n_rec);
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  Ray mine;
+  bool live = false;
+  if (i < n_rays) {
+    mine = load_ray(o, d, mint, maxt, i);
+    live = mine.maxt > mine.mint;
+  }
+  float bt = kF32Max, bu = 0.0f, bv = 0.0f;
+  int bj = -1;
+  for (unsigned todo = __ballot_sync(kFull, live); todo; todo &= todo - 1) {
+    const int src = __ffs(todo) - 1;
+    float f[10];
+#pragma unroll
+    for (int k = 0; k < 10; ++k) f[k] = __shfl_sync(kFull, mine.f[k], src);
+    const float mn = __shfl_sync(kFull, mine.mint, src);
+    const float mx = __shfl_sync(kFull, mine.maxt, src);
+    unsigned long long best = ~0ull;
+    float lu = 0.0f, lv = 0.0f;
+#pragma unroll
+    for (int h = 0; h < kHeld; ++h) {
+      if (32 * h >= n_rec) break;
+      const Terms y = terms(x[h], f);
+      const float inv = __frcp_rn(y.det);
+      const float u = __fmul_rn(y.u, inv);
+      const float v = __fmul_rn(y.v, inv);
+      const float t = __fmul_rn(y.t, inv);
+      const bool ok = (u >= 0.0f) & (v >= 0.0f) & (__fadd_rn(u, v) <= 1.0f) &
+                      (t > mn) & (t < mx);
+      const unsigned long long key =
+          ((unsigned long long)ord(t == 0.0f ? 0.0f : t) << 32) |
+          (unsigned)y.prim;
+      if (ok && key < best) {
+        best = key; lu = u; lv = v;
+      }
+    }
+    unsigned long long m = best;
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      const unsigned long long y = __shfl_xor_sync(kFull, m, off);
+      m = y < m ? y : m;
+    }
+    if (m != ~0ull) {
+      const int who = __ffs(__ballot_sync(kFull, best == m)) - 1;
+      const float wu = __shfl_sync(kFull, lu, who);
+      const float wv = __shfl_sync(kFull, lv, who);
+      if (lane == src) {
+        bt = unord((unsigned)(m >> 32));
+        bu = wu;
+        bv = wv;
+        bj = (int)(unsigned)m;
+      }
+    }
+  }
+  if (i < n_rays) {
+    t_out[i] = bt;
+    u_out[i] = bu;
+    v_out[i] = bv;
+    prim_out[i] = bj;
+  }
+}
+
+__global__ void __launch_bounds__(kBlock)
+sweep_occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                      const float* __restrict__ mint,
+                      const float* __restrict__ maxt,
+                      const float4* __restrict__ recs, int n_rays, int n_rec,
+                      uint8_t* __restrict__ occ_out) {
+  float4 x[kHeld][kRecord];
+  hold(x, recs, n_rec);
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  Ray mine;
+  bool live = false;
+  if (i < n_rays) {
+    mine = load_ray(o, d, mint, maxt, i);
+    live = mine.maxt > mine.mint;
+  }
+  bool hit = false;
+  for (unsigned todo = __ballot_sync(kFull, live); todo; todo &= todo - 1) {
+    const int src = __ffs(todo) - 1;
+    float f[10];
+#pragma unroll
+    for (int k = 0; k < 10; ++k) f[k] = __shfl_sync(kFull, mine.f[k], src);
+    const float mn = __shfl_sync(kFull, mine.mint, src);
+    const float mx = __shfl_sync(kFull, mine.maxt, src);
+    bool any = false;
+#pragma unroll
+    for (int h = 0; h < kHeld; ++h) {
+      if (32 * h >= n_rec) break;
+      const Terms y = terms(x[h], f);
+      const float s = y.det > 0.0f ? 1.0f : -1.0f;
+      const float ad = __fmul_rn(y.det, s);
+      const float su = __fmul_rn(y.u, s);
+      const float sv = __fmul_rn(y.v, s);
+      const float st = __fmul_rn(y.t, s);
+      any |= (su >= 0.0f) & (sv >= 0.0f) & (__fadd_rn(su, sv) <= ad) &
+             (ad > 0.0f) & (st > __fmul_rn(mn, ad)) &
+             (st < __fmul_rn(mx, ad));
+    }
+    const bool h = __any_sync(kFull, any);
+    if (lane == src) hit = h;
+  }
+  if (i < n_rays) occ_out[i] = hit ? 1 : 0;
+}
+
+"""
+
+
+def sweep_variants(src):
+    def const(s, name, old, new):
+        return sub(s, f"constexpr int {name} = {old};",
+                   f"constexpr int {name} = {new};")
+
+    def persist(s):
+        for end in ("  prim_out[i] = bj;\n}\n",
+                    "  occ_out[i] = hit ? 1 : 0;\n}\n"):
+            s = sub(s, end, end[:-2] + "  }\n}\n")
+        s = s.replace("  const int i = blockIdx.x * kBlock + threadIdx.x;\n"
+                      "  if (i >= n_rays) return;\n",
+                      "  for (int i = blockIdx.x * kBlock + threadIdx.x; "
+                      "i < n_rays; i += gridDim.x * kBlock) {\n")
+        return sub(s, "    kernel<<<(n_rays + kBlock - 1) / kBlock, "
+                      "kBlock, smem,\n",
+                   "    int sms = 0;\n"
+                   "    cudaDeviceGetAttribute(&sms, "
+                   "cudaDevAttrMultiProcessorCount, 0);\n"
+                   "    const int all = (n_rays + kBlock - 1) / kBlock;\n"
+                   "    const int most = 2048 / kBlock * sms;\n"
+                   "    kernel<<<all < most ? all : most, kBlock, smem,\n")
+
+    def replace_span(s, start, stop, text):
+        a, b = s.index(start), s.index(stop)
+        return s[:a] + text + s[b:]
+
+    kernels = ("__global__ void __launch_bounds__(kBlock)\n"
+               "sweep_closest_kernel")
+    stage = "// The whole table into shared memory, once per block."
+    launch = "// One launch of `kernel` over n_rays"
+
+    def lanes(s):
+        s = replace_span(s, stage, launch, SWEEP_LANES)
+        smem = "  const int smem = n_rec * kRecord * (int)sizeof(float4);\n"
+        return sub(s, smem, "  if (n_rec > 32 * kHeld) return 1;\n" + smem)
+
+    return {
+        "new": src,
+        "threads128": const(src, "kBlock", 256, 128),
+        "threads512": const(src, "kBlock", 256, 512),
+        "threads1024": const(src, "kBlock", 256, 1024),
+        "persist": persist(src),
+        "div": sub(src, "const float inv = __frcp_rn(x.det);",
+                   "const float inv = __fdiv_rn(1.0f, x.det);"),
+        "branch": sub(sub(src, SWEEP_LOOP, SWEEP_LOOP.replace(
+            "      const float inv", "      if (x.det == 0.0f) continue;\n"
+            "      const float inv")),
+            "      const float s = x.det > 0.0f",
+            "      if (x.det == 0.0f) continue;\n"
+            "      const float s = x.det > 0.0f"),
+        "cull": sub(src, SWEEP_LOOP, SWEEP_CULL),
+        "tma": replace_span(src, stage, kernels, SWEEP_TMA + "\n"),
+        "unroll4": src.replace("    for (int j = 0; j < n_rec; ++j) {\n",
+                               "#pragma unroll 4\n"
+                               "    for (int j = 0; j < n_rec; ++j) {\n"),
+        "lanes": lanes(src),
+    }
+
+
 def build(name, text):
     """nvcc with native.nvcc_command's flags plus -Xptxas=-v; returns
     (name, library path, ptxas register and spill lines, each after its
@@ -375,11 +660,208 @@ def load(path, mode, new_interface):
     return fns
 
 
+def sweep_load(path):
+    """ctypes bindings of a sweep build's closest and any-hit entry
+    points (either interface: packed records and their count, or the dense
+    kernels' linC and T)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = ctypes.CDLL(path)
+    fns = [lib.sweep_closest, lib.sweep_occluded]
+    fns[0].argtypes = [p] * 5 + [i, i] + [p] * 5
+    fns[1].argtypes = [p] * 5 + [i, i] + [p] * 2
+    fns[0].restype = fns[1].restype = ctypes.c_int
+    return fns
+
+
+def main_sweep(sources):
+    """--kernel sweep: every build held against "new" bit for bit and
+    timed in turns on the cbox, soup and render-pass batches; with a
+    parent, the cbox render through both."""
+    from gradientdomain_mitsuba_tpu_torch.scene import bridge
+    from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
+    log = cs.log
+    t0 = time.time()
+    built = []
+    with ThreadPoolExecutor(len(sources)) as pool:
+        futs = {name: pool.submit(build, name, text)
+                for name, text in sources.items()}
+        for name, fut in futs.items():
+            try:
+                built.append(fut.result())
+            except RuntimeError as e:
+                if name in ("new", "parent"):
+                    raise
+                log(f"variant {name} did not build, left out:\n{e}")
+    log(f"built {len(built)} libraries in {time.time() - t0:.1f} s")
+    libs, ptxas = {}, {}
+    for name, path, lines in built:
+        ptxas[name] = lines
+        for ln in lines:
+            log(f"  ptxas {name}: {ln}")
+        libs[name] = sweep_load(path)
+
+    dev = torch.device("cuda:0")
+    packed = {}
+
+    def call(name, any_hit, rays, linC):
+        """One launch of build `name`; None where the build does not take
+        this table (the lanes variant above 128 records)."""
+        N = rays[0].shape[0]
+        if name == "parent":
+            table, m = linC, linC.shape[1] // 4
+        else:
+            if id(linC) not in packed:
+                packed[id(linC)] = (linC, sweep.pack_linear_mt(linC))
+            table = packed[id(linC)][1]
+            m = table.shape[0]
+        if any_hit:
+            outs = [torch.empty(N, dtype=torch.bool, device=dev)]
+        else:
+            t = torch.empty(N, device=dev)
+            outs = [t, torch.empty_like(t), torch.empty_like(t),
+                    torch.empty(N, dtype=torch.int32, device=dev)]
+        err = libs[name][any_hit](
+            *(x.data_ptr() for x in (*rays, table)), N, m,
+            *(x.data_ptr() for x in outs),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            if name in ("new", "parent"):
+                raise RuntimeError(f"{name}: CUDA error {err}")
+            return None
+        return outs
+
+    scene_np, st = sc.load_scene(cs.CBOX, {
+        "width": "256", "height": "256", "spp": "64", "maxDepth": "6",
+        "integrator": "gpt"})
+    scene = bridge.to_torch(scene_np, dev)
+    linC = scene.geom.linC
+    cam, shadow = cs.cbox_rays(scene, st, cs.N_TIMED, dev)
+    calls, passes = cs.render_calls(scene, st)
+    both = (False, True)
+    batches = [("cbox camera", both, [(cam, linC)]),
+               ("cbox shadow", both, [(shadow, linC)])]
+    for T in (36, 130, 2048):
+        *rays, table = (torch.from_numpy(a).to(dev) for a in
+                        cs.sweep_soups().random_soup(T, cs.N_TIMED, T))
+        batches.append((f"soup T={T}", both, [(rays, table)]))
+    for any_hit in both:
+        batches.append((f"render pass {'any' if any_hit else 'closest'}",
+                        (any_hit,), [(r, linC) for a, r in calls
+                                     if a == any_hit]))
+    names = [n for n in libs if n != "parent"]
+    order = (["parent"] if "parent" in libs else []) + names + names[::-1] \
+        + (["parent"] if "parent" in libs else [])
+    res = {"card": cs.card_line(), "ptxas": ptxas, "kernels": {},
+           "render_passes": passes}
+    for batch, queries, lst in batches:
+        live = sum(int((r[3] > r[2]).sum()) for r, _ in lst)
+        lanes = sum(r[0].shape[0] for r, _ in lst)
+        for any_hit in queries:
+            query = "any" if any_hit else "closest"
+            refs = [call("new", any_hit, r, L) for r, L in lst]
+            skip = set()
+            for name in libs:
+                for (r, L), ref in zip(lst, refs):
+                    got = call(name, any_hit, r, L)
+                    if got is None:
+                        skip.add(name)
+                        break
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                        cs.fail(f"{name} differs from new on {batch} {query}")
+                res["kernels"][f"{batch}/{query}/{name}"] = dict(
+                    ms=[], lanes=lanes, live=live, skipped=name in skip)
+            for name in order:
+                if name in skip:
+                    continue
+                res["kernels"][f"{batch}/{query}/{name}"]["ms"].append(
+                    cs.cuda_ms(lambda: [call(name, any_hit, r, L)
+                                        for r, L in lst], iters=10,
+                               warmup=2))
+            for name in libs:
+                r = res["kernels"][f"{batch}/{query}/{name}"]
+                log(f"{batch} {query} {name}: " + (
+                    "skipped (table too large)" if r["skipped"] else
+                    f"ms {', '.join(f'{x:.4f}' for x in r['ms'])}") +
+                    f" ({len(lst)} calls, {lanes} lanes, {live} live)")
+    if "parent" in libs:
+        res["render"] = sweep_render(scene, st, call)
+    log(cs.card_line())
+    return res
+
+
+def sweep_render(scene, st, call):
+    """The cbox G-PT + L1 render through the parent sweep kernels and the
+    new ones, in turns: walls, identical buffers, final and rays, and one
+    profiled render of each (the sweeps' device ms inside it)."""
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    log = cs.log
+    real = sweep.SweepKernel.__call__
+
+    def parent_call(k, o, d, mint, maxt, linC):
+        k.launches += 1
+        out = call("parent", k.any_hit, (o, d, mint, maxt), linC)
+        return out[0] if k.any_hit else isec.Hit(*out, valid=out[3] >= 0)
+
+    impl = {"parent": parent_call, "new": real}
+    tracer = GPTracer(scene, st)
+    tracer.count_rays = True
+
+    def render(name):
+        sweep.SweepKernel.__call__ = impl[name]
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            final, bufs = tracer.render_final(scene, 1, st.spp, alpha=0.2,
+                                              mode="L1")
+            torch.cuda.synchronize()
+            return time.time() - t0, final, bufs
+        finally:
+            sweep.SweepKernel.__call__ = real
+
+    render("new")   # warm-up
+    walls = {"parent": [], "new": []}
+    outs = {}
+    for name in ("parent", "new", "new", "parent") * 5:
+        wall, final, bufs = render(name)
+        walls[name].append(wall)
+        outs[name] = (final, bufs)
+    diffs = {k: float((outs["parent"][1][k] - outs["new"][1][k]).abs().max())
+             for k in ("primal", "dx", "dy", "very_direct")}
+    diffs["final"] = float((outs["parent"][0] - outs["new"][0]).abs().max())
+    rays = [int(outs[n][1]["rays"]) for n in ("parent", "new")]
+    for name, w in walls.items():
+        log(f"cbox render 256x256 64spp maxDepth 6 + L1 through {name}: "
+            f"walls (s) {', '.join(f'{x:.4f}' for x in w)}; median "
+            f"{sorted(w)[len(w) // 2]:.4f}")
+    log(f"  rays {rays}; max |parent - new| {diffs}")
+    if rays[0] != rays[1] or any(diffs[k] != 0.0 for k in
+                                 ("primal", "dx", "dy", "very_direct")):
+        cs.fail("the parent and new renders differ")
+
+    profiled = {}
+    for name in ("parent", "new"):
+        sweep.SweepKernel.__call__ = impl[name]
+        try:
+            p = cs.profiled_render(lambda: tracer.render_final(
+                scene, 1, st.spp, alpha=0.2, mode="L1"), "sweep_")
+        finally:
+            sweep.SweepKernel.__call__ = real
+        profiled[name] = p
+        log(f"  profiled render through {name}: device busy "
+            f"{p['busy_ms']:.3f} ms of {p['wall_ms']:.3f} ms wall (idle "
+            f"{100 * (1 - p['busy_ms'] / p['wall_ms']):.1f}%), sweeps "
+            f"{p['kernel_ms']:.3f} ms over {p['kernel_calls']} launches, "
+            f"{p['device_ops']} device ops")
+    return dict(walls=walls, rays=rays, max_abs_diff=diffs,
+                profiled=profiled)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(MODES), default="pair",
-                    help="the kernels to vary: the v7 pair kernels or the "
-                    "v4 block kernels")
+                    help="the kernels to vary: the v7 pair kernels, the "
+                    "v4 block kernels or the sweep kernels")
     ap.add_argument("--parent", help="an unpacked checkout of another "
                     "commit whose kernels to time beside these")
     ap.add_argument("--variants", help="comma-separated names: build only "
@@ -394,8 +876,8 @@ def main():
     os.makedirs(BUILD, exist_ok=True)
     mode = MODES[args.kernel]
     with open(mode["src"]) as f:
-        sources = (variants if args.kernel == "pair" else mt_variants)(
-            f.read())
+        sources = {"pair": variants, "mt": mt_variants,
+                   "sweep": sweep_variants}[args.kernel](f.read())
     if args.variants is not None:
         keep = {"new", *filter(None, args.variants.split(","))}
         if keep - set(sources):
@@ -406,6 +888,9 @@ def main():
                                "torch", "csrc",
                                os.path.basename(mode["src"]))) as f:
             sources["parent"] = f.read()
+    if args.kernel == "sweep":
+        write_json(args.json, main_sweep(sources))
+        return
     new_iface = {name: mode["marker"] in src
                  for name, src in sources.items()}
     t0 = time.time()
@@ -521,10 +1006,13 @@ def main():
     if "parent" in libs:
         res["render"] = time_render(scene, st, call, mode)
     log(cs.card_line())
-    if args.json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.json)),
-                    exist_ok=True)
-        with open(args.json, "w") as f:
+    write_json(args.json, res)
+
+
+def write_json(path, res):
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
             json.dump(res, f, indent=1)
 
 
