@@ -46,19 +46,21 @@ its time):
      bracketed by CUDA events (the kernels' share of the render);
   7. forest kernel render vs plain render at 64x64, 2 spp, same seed, and
      a G-PT render_final (L2) of the forest at 64x64, 4 spp;
-  8. v4 and v2 block kernels vs plain: random soups (W = 128, 256; v4 bit
-     for bit); the forest batches of phase 5 (cut and whole), v4 bit for
-     bit against phase 5's plain results and against the v7 kernels'
-     outputs, with ray sorting off and on, v2 (on tri9 slabs built on the
-     card) against its plain version tri9_plain;
+  8. v4 and v2 block kernels vs plain: random soups (W = 128, 256; bit for
+     bit); the forest batches of phase 5 (cut and whole), v4 bit for bit
+     against phase 5's plain results and against the v7 kernels' outputs,
+     with ray sorting off and on, v2 (on tri9 slabs built on the card) bit
+     for bit against its plain version tri9_plain and, at the hit-set
+     thresholds, against the v7 kernels' outputs (another triangle test:
+     the same hits up to rounding);
   9. kernel times at 1,048,576 forest camera, shadow and bounce rays (CUDA
      events): v7, v4 and v2 side by side, each beside the batch's bound
      and the batch's block-union dilution (64 x (block, cluster) pairs
      over (ray, cluster) pairs: what one thread a ray pays), v7 beside its
-     swept clusters per ray from phase 5, v4 beside its own counts ((ray,
-     tile) sweeps, (block, cluster) slab reads and worklist entries
-     entered, per live ray, from its counting instantiation), and v4 with
-     ray sorting on;
+     swept clusters per ray from phase 5, v4 and v2 beside their own
+     counts ((ray, tile) sweeps, (block, cluster) slab reads and worklist
+     entries entered, per live ray, from their counting instantiation),
+     and v4 with ray sorting on;
  10. slice 3: GDMT_KERNEL=v4, forest 256x256, 16 spp, maxDepth 5,
      PathTracer.render through the v4 kernels, timed after a warm-up with
      their launch counters reset just before it, checked against the v7
@@ -892,8 +894,8 @@ def phase_block_kernels(dev, recs, forest, pair_out):
             res, _, ms = compare_pairs(ks, (o, d, mint, maxt), table, cb,
                                        label)
             check_pairs(label, res, ms)
-            check(res[-1] or variant != "mt",
-                  f"{label}: the v4 kernels differ from pair_plain")
+            check(res[-1], f"{label}: the {variant} kernels differ from "
+                  "their plain version")
 
     g = scene.geom
     K, W = g.cbounds.shape[0], st.cluster_window
@@ -928,6 +930,13 @@ def phase_block_kernels(dev, recs, forest, pair_out):
         label = f"tri9 forest {name} rays N={n}"
         res, outs, ms = compare_pairs(v2, batch, tri9, g.cbounds, label)
         check_pairs(label, res, ms)
+        check(res[-1], f"{label}: v2 differs from tri9_plain")
+        vf, pf, _, mr, of, _, _, _ = agreement(outs[0], outs[1], v7h, v7o,
+                                               batch, label)
+        log(f"{label} vs v7 kernels: valid agree {vf:.6f}, prim agree "
+            f"{pf:.6f} (max rel dt {mr:.3e}), occluded agree {of:.6f}")
+        check(vf >= PAIR_VALID and pf >= PAIR_PRIM and of >= PAIR_OCC,
+              f"{label}: v2 and v7 find different hits")
         v2_out[(name, n)] = (*outs, ms)
         err["tri9"] = [max(err["tri9"][0], res[2]),
                        max(err["tri9"][1], res[5])]
@@ -973,13 +982,13 @@ def phase_kernel_times(recs, forest, pair_out, tri9, v2_out):
                 swept = rec.get("swept_per_ray", {}).get(f"{name}_{N_TIMED}")
                 walk = "" if swept is None else (f"; swept {swept:.3f} "
                                                  f"clusters per live ray")
-                if variant == "mt":
+                if variant != "pair":
                     live = max(int((batch[3] > batch[2]).sum()), 1)
                     got, *counts = k.count_visits(*batch, table, g.cbounds)
-                    same = (torch.equal(got, ref_occ) if k.any_hit else
-                            all(torch.equal(a, b) for a, b in zip(got, ref)))
+                    same = (torch.equal(got, occ) if k.any_hit else
+                            all(torch.equal(a, b) for a, b in zip(got, hit)))
                     check(same, f"{k.name}: the counting launch differs from "
-                          f"pair_plain on {name} rays")
+                          f"its plain version on {name} rays")
                     sweeps, reads, entered = (c / live for c in counts)
                     rec.setdefault("walk_per_ray", {})[name] = dict(
                         sweeps=sweeps, slab_reads=reads, entered=entered)

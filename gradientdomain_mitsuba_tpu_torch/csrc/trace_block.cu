@@ -1,6 +1,7 @@
 // Block-cooperative closest-hit and any-hit traversal of the clustered
-// triangle soup: the v4 kernels (mt_closest, mt_occluded) and the v2
-// kernels (tri9_closest, tri9_occluded).
+// triangle soup: one block walk (walk_kernel) instantiated with two slab
+// policies, the v4 kernels (mt_closest, mt_occluded; MtSlab) and the v2
+// kernels (tri9_closest, tri9_occluded; Tri9Slab).
 //
 // Replaces two TPU kernels of gradientdomain_mitsuba_tpu/ops/pallas_trace.py,
 // each in its closest-hit and any-hit variant:
@@ -22,13 +23,13 @@
 //
 // What bounds both on an H100: reading triangle slabs, and the latency of
 // the walk.  A swept cluster costs its 22 x W linear-MT coefficients
-// (11 KB at W = 128; 9 x W, 4.5 KB, for v2) against ~44 flops per (ray,
-// triangle), and the forest's slab table is ten times the 50 MB L2.  The
-// warp-per-ray kernels of trace.cu read a cluster's slab once per ray that
-// enters it; here a slab is read once per block and reused by every ray
-// of the block that enters the cluster.
+// (11 KB at W = 128; 9 x W, 4.5 KB, for v2) against ~44-46 flops per
+// (ray, triangle), and the forest's slab table is ten times the 50 MB L2.
+// The warp-per-ray kernels of trace.cu read a cluster's slab once per ray
+// that enters it; here a slab is read once per block and reused by every
+// ray of the block that enters the cluster.
 //
-// v4 (mt_kernel): lanes across triangles, 2 warps a block of 64 rays.
+// The walk: lanes across triangles, 2 warps a block of 64 rays.
 // Box tables are the pair kernels' SoA tables (ops/trace.py box_tables):
 // sbounds [6, S] (rows min x, y, z, max x, y, z) and members [S, 8, 128]
 // (rows 1-3 min xyz, rows 4-6 max xyz of the supercluster's member
@@ -61,58 +62,40 @@
 //     member box (any hit: those not yet occluded); if none is left the
 //     slab is not read.  Else the warp loads the member's triangles 128 at
 //     a time into registers, lane l triangles 4l..4l+3 as one float4 per
-//     coefficient row (22 independent 16-byte loads, 88 registers), and
-//     loops over ALL those rays: four triangles a lane, every hit merged
-//     into the ray's word with a shared atomicMin.  That is the
-//     lexicographic (t, prim) minimum whatever the order in which warps
-//     merge, so results do not depend on scheduling; only the number of
-//     sweeps does.  A t read for culling may be older than another warp's
-//     merge: that only sweeps more, never less (t only falls, and culling
-//     keeps ties, tn <= t).  Any hit: a hit clears the ray's bit in the
-//     block's active mask, and a ray that is no longer active is dropped
-//     from every later list and loop.
+//     slab row (MtSlab: 22 independent 16-byte loads, 88 registers;
+//     Tri9Slab: 9, 36 registers), and loops over ALL those rays: four
+//     triangles a lane, every hit merged into the ray's word with a shared
+//     atomicMin.  That is the lexicographic (t, prim) minimum whatever the
+//     order in which warps merge, so results do not depend on scheduling;
+//     only the number of sweeps does.  A t read for culling may be older
+//     than another warp's merge: that only sweeps more, never less (t only
+//     falls, and culling keeps ties, tn <= t).  Any hit: a hit clears the
+//     ray's bit in the block's active mask, and a ray that is no longer
+//     active is dropped from every later list and loop.
 //  4. After the block's one closing barrier, a thread per ray writes the
 //     results: u and v come from one more test of the winning triangle
-//     through the same chain, so their bits are those of the sweep's.
+//     through the same arithmetic, so their bits are those of the sweep's.
 // A hit's t lies in (mint, maxt), of either sign: the order-preserving map
 // of its bits (sign bit flipped for t >= 0, all bits for t < 0; -0
 // canonicalised to +0) makes the unsigned order of the words the order of
 // (t, prim) for any mint.  No lane idles because another ray entered a
 // member, nothing is staged in shared memory, and shared memory per block
-// is 4.1 KB + 16 S bytes, so registers (128 a thread: eight blocks, 16
-// warps an SM) bound residency.  Narrow blocks measured faster than wide
-// ones (2 warps against 4 and 8): a block ends with its slowest warp, and
-// more blocks an SM overlap one block's set-up with another's sweeps.
-// Nothing of the TPU form is carried over: no worklist DMA chunks, SMEM
-// scalar walks, masked-iota lane extraction or ring of slab semaphores.
+// is 4.1 KB + 16 S bytes, so registers (at most 128 a thread: eight
+// blocks, 16 warps an SM; 80 and twelve for v2's any hit) bound
+// residency.  Narrow blocks measured faster than wide ones (2 warps
+// against 4 and 8): a block ends with its slowest warp, and more blocks an
+// SM overlap one block's set-up with another's sweeps.  Nothing of the TPU
+// form is carried over: no worklist DMA chunks, SMEM scalar walks,
+// masked-iota lane extraction or ring of slab semaphores, and v2 is no
+// longer one thread a ray over tiles staged for the block's union of
+// clusters.
+// A slab policy gives the walk the rows a lane loads for each 128-triangle
+// tile, its test of one ray against one triangle, and the re-test of the
+// winner at step 4; everything else is the one walk.
 // With `stats` non-null the counting instantiation adds to stats[0..2] the
 // (ray, 128-triangle tile) sweeps, the (block, member) slab reads and the
 // worklist entries some ray entered; the main path passes null and
 // launches the instantiation compiled without counters.
-//
-// v2 (block_kernel<Tri9Test>): one thread per ray, 64 threads a block,
-// over cbounds [K, 6] and sbounds [S, 6]:
-//  1. every ray tests the S supercluster boxes against its maxt; a block
-//     entry per supercluster holds (min over the rays that enter it of
-//     max(tn, 0), index), reduced with shared-memory atomicMin;
-//  2. the block sorts its S entries in shared memory (bitonic, next power
-//     of two of S, ascending (key, index); non-pending entries sort last);
-//  3. it walks the pending superclusters near to far with the same early
-//     exit.  For each supercluster each ray tests the 128 member boxes
-//     against its current t; the block ORs the per-ray member bits, and
-//     for each member some ray enters, in ascending member order, the
-//     block stages the member's tri9 rows 0-8 in shared-memory tiles of 128
-//     triangles (4.5 KB), double-buffered with cp.async.  Every thread
-//     whose ray enters the member (re-tested against its current t) sweeps
-//     its ray over the tile: all threads read the same triangle at once (a
-//     broadcast, no bank conflict).
-// Its cost is block-union dilution: a member some ray of the block enters
-// is staged for all 64, and threads whose ray does not enter it idle
-// through the sweep.  Every thread runs every loop of that walk: trip
-// counts come from shared memory and the early exit from __syncthreads_or,
-// so a block whose rays all died (or all missed) still meets every barrier
-// together.  The TPU culls v2 per cluster; supercluster -> member culling
-// keeps every cluster a ray enters.
 //
 // Semantics held exactly (the plain versions compute the same values):
 //  - boxes: inv = |d| > 1e-12 ? 1/d : 1e30 (IEEE division), per axis
@@ -127,7 +110,11 @@
 //    padding columns) cannot pass.  So v4's hits equal v7's bit for bit;
 //  - v2 triangles, ops/intersect._mt in one fixed order of _rn
 //    intrinsics: products rounded once, crosses a*b - c*d, three-term dots
-//    (x0 + x1) + x2, inv_det = 1/det where |det| > 1e-12;
+//    (x0 + x1) + x2, inv_det = __fdiv_rn(1.0f, det) (IEEE; measured
+//    1-5% faster here than __frcp_rn, the same float), and |det| > 1e-12
+//    ANDed into the hit, not a branch: zero padding slots (det = 0) and
+//    near-zero det never hit (their reciprocal is taken of 1: the slow
+//    path for 0 cost the v2 sweeps 7-25%);
 //  - a hit needs u >= 0 & v >= 0 & u+v <= 1 & t > mint & t < maxt; the
 //    result is the minimal t and, among equal minimal t, the lowest prim
 //    (lexicographic (t, prim) updates; the visit order does not matter).
@@ -137,6 +124,8 @@
 //  - lanes whose maxt <= mint (dead wavefront lanes carry maxt = -1) do no
 //    work and come back unhit: t = 3e38 (F32_MAX), u = v = 0, prim = -1 /
 //    not occluded;
+//  - members at or above K are dropped before any slab read, so a table
+//    of exactly K slabs (tri9) is never read past its end;
 //  - prim = k*W + slot, the row of tri_shade.
 // Precision: true fp32 throughout (the TPU's v4 runs its matmuls at
 // Precision.DEFAULT).
@@ -174,11 +163,10 @@ __device__ __forceinline__ bool box_test(const float (&lo)[3],
 }
 
 // ---------------------------------------------------------------------
-// v4: lanes across triangles, each slab read once per block
+// The walk: lanes across triangles, each slab read once per block
 
 constexpr int kWarps = 2;        // warps per block
 constexpr int kThreads = kWarps * 32;
-constexpr int kBlocksPerSm = 8;  // 128 registers a thread
 constexpr int kPer = 4;          // member boxes a lane holds per entry
 constexpr int kSplit = kSuper / (32 * kPer);   // worklist items per entry
 constexpr int kGroup = 64;       // rays a thread tests one supercluster on
@@ -294,6 +282,173 @@ __device__ __forceinline__ bool mt_hit(const float (&cd)[6],
          (t > mint) & (t < maxt);
 }
 
+__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
+                                      float b1, float b2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)),
+                   __fmul_rn(a2, b2));
+}
+
+__device__ __forceinline__ float cross_term(float a, float b, float c,
+                                            float e) {
+  return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, e));
+}
+
+// The pairwise Moeller-Trumbore test of one triangle from its tri9 rows
+// c = v0, e1, e2 xyz (ops/intersect._mt, each step one _rn intrinsic).
+__device__ __forceinline__ bool tri9_hit(const float (&c)[9],
+                                         const float (&o)[3],
+                                         const float (&d)[3], float mint,
+                                         float maxt, float& t, float& u,
+                                         float& v) {
+  const float px = cross_term(d[1], c[8], d[2], c[7]);
+  const float py = cross_term(d[2], c[6], d[0], c[8]);
+  const float pz = cross_term(d[0], c[7], d[1], c[6]);
+  const float det = dot3(c[3], c[4], c[5], px, py, pz);
+  // |det| <= 1e-12 never hits; 1 in its place keeps the division off
+  // its slow path for 0 (every padding slot) and subnormals
+  const bool big = fabsf(det) > 1e-12f;
+  const float inv_det = __fdiv_rn(1.0f, big ? det : 1.0f);
+  const float tx = __fsub_rn(o[0], c[0]);
+  const float ty = __fsub_rn(o[1], c[1]);
+  const float tz = __fsub_rn(o[2], c[2]);
+  u = __fmul_rn(dot3(tx, ty, tz, px, py, pz), inv_det);
+  const float qx = cross_term(ty, c[5], tz, c[4]);
+  const float qy = cross_term(tz, c[3], tx, c[5]);
+  const float qz = cross_term(tx, c[4], ty, c[3]);
+  v = __fmul_rn(dot3(d[0], d[1], d[2], qx, qy, qz), inv_det);
+  t = __fmul_rn(dot3(c[6], c[7], c[8], qx, qy, qz), inv_det);
+  return big & (u >= 0.0f) & (v >= 0.0f) & (__fadd_rn(u, v) <= 1.0f) &
+         (t > mint) & (t < maxt);
+}
+
+// Slab policies.  Each gives the walk: Tile, the registers of one lane's
+// four triangles 4l..4l+3 of a 128-triangle tile (one float4 a row); Ray,
+// what its test reads of a ray; lane(), the lane's first float of cluster
+// k; load(), the tile at c (lane pointer + tile offset); hit(), the test
+// of the lane's triangle q; retest(), the test of triangle `slot` of
+// cluster k read from device memory (step 4); kBlocksPerSm and
+// kAnyBlocksPerSm, the blocks an SM its closest-hit and any-hit
+// instantiations are bounded to (65,536 / (64 x blocks) registers a
+// thread).
+
+// v4: mt_slabs [K+3, 8, 4W]; row f of the 8 holds at 0, W, 2W, 3W the det,
+// u, v coefficients against fa = (o x d, d) (f < 6) and t's against (o, 1)
+// (f < 4).
+struct MtSlab {
+  static constexpr int kBlocksPerSm = 8, kAnyBlocksPerSm = 8;   // 128 regs
+  struct Tile {
+    float4 cd[6], cu[6], cv[6], ct[4];
+  };
+  struct Ray {
+    float fa[6], o[3];
+  };
+
+  __device__ static const float* lane(const float* slabs, int k, int W,
+                                      int l) {
+    return slabs + (size_t)k * 8 * (4 * (size_t)W) + 4 * l;
+  }
+
+  __device__ static void load(Tile& x, const float* c, int W) {
+    const size_t row = 4 * (size_t)W;
+#pragma unroll
+    for (int f = 0; f < 6; ++f) {
+      x.cd[f] = load4(c + f * row);
+      x.cu[f] = load4(c + f * row + W);
+      x.cv[f] = load4(c + f * row + 2 * W);
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) x.ct[f] = load4(c + f * row + 3 * W);
+  }
+
+  __device__ static Ray ray(const BlockRays& sm, int r, const float4& om) {
+    const float4 fa4 = sm.fa[r];
+    const float2 fb2 = sm.fb[r];
+    return Ray{{fa4.x, fa4.y, fa4.z, fa4.w, fb2.x, fb2.y},
+               {om.x, om.y, om.z}};
+  }
+
+  __device__ static bool hit(const Tile& x, int q, const Ray& r, float mint,
+                             float maxt, float& t, float& u, float& v) {
+    float d6[6], u6[6], v6[6], t4[4];
+#pragma unroll
+    for (int f = 0; f < 6; ++f) {
+      d6[f] = comp(x.cd[f], q);
+      u6[f] = comp(x.cu[f], q);
+      v6[f] = comp(x.cv[f], q);
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) t4[f] = comp(x.ct[f], q);
+    return mt_hit(d6, u6, v6, t4, r.fa, r.o, mint, maxt, t, u, v);
+  }
+
+  __device__ static void retest(const float* slabs, int k, int slot, int W,
+                                const Ray& r, float mint, float maxt,
+                                float& u, float& v) {
+    const size_t row = 4 * (size_t)W;
+    const float* c = slabs + (size_t)k * 8 * row + slot;
+    float cd[6], cu[6], cv[6], ct[4];
+#pragma unroll
+    for (int f = 0; f < 6; ++f) {
+      cd[f] = __ldg(c + f * row);
+      cu[f] = __ldg(c + f * row + W);
+      cv[f] = __ldg(c + f * row + 2 * W);
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) ct[f] = __ldg(c + f * row + 3 * W);
+    float t;
+    mt_hit(cd, cu, cv, ct, r.fa, r.o, mint, maxt, t, u, v);
+  }
+};
+
+// v2: tri9 [K', 16, W]; rows 0-8 = v0, e1, e2 xyz of the W slots (rows
+// 9-15 are not read).
+struct Tri9Slab {
+  // any hit: 80 registers (24 B of spills) and 12 blocks an SM measured
+  // 1-5% faster than 8 blocks; closest hits 1-6% slower at 10-16
+  static constexpr int kBlocksPerSm = 8, kAnyBlocksPerSm = 12;
+  struct Tile {
+    float4 c[9];
+  };
+  struct Ray {
+    float o[3], d[3];
+  };
+
+  __device__ static const float* lane(const float* tri9, int k, int W,
+                                      int l) {
+    return tri9 + (size_t)k * 16 * W + 4 * l;
+  }
+
+  __device__ static void load(Tile& x, const float* c, int W) {
+#pragma unroll
+    for (int f = 0; f < 9; ++f) x.c[f] = load4(c + f * (size_t)W);
+  }
+
+  __device__ static Ray ray(const BlockRays& sm, int r, const float4& om) {
+    const float dx = sm.fa[r].w;
+    const float2 fb2 = sm.fb[r];
+    return Ray{{om.x, om.y, om.z}, {dx, fb2.x, fb2.y}};
+  }
+
+  __device__ static bool hit(const Tile& x, int q, const Ray& r, float mint,
+                             float maxt, float& t, float& u, float& v) {
+    float c[9];
+#pragma unroll
+    for (int f = 0; f < 9; ++f) c[f] = comp(x.c[f], q);
+    return tri9_hit(c, r.o, r.d, mint, maxt, t, u, v);
+  }
+
+  __device__ static void retest(const float* tri9, int k, int slot, int W,
+                                const Ray& r, float mint, float maxt,
+                                float& u, float& v) {
+    const float* p = tri9 + (size_t)k * 16 * W + slot;
+    float c[9];
+#pragma unroll
+    for (int f = 0; f < 9; ++f) c[f] = __ldg(p + f * (size_t)W);
+    float t;
+    tri9_hit(c, r.o, r.d, mint, maxt, t, u, v);
+  }
+};
+
 // Per-warp counts of the optional `stats`; without kCount (the main path)
 // they compile away and hold no registers.
 enum { kSweeps, kReads, kEntered };
@@ -308,15 +463,14 @@ struct Visits {
 // Cluster k against every ray of `rays` (bit r = ray r of the block): its
 // triangles, 128 at a time, are read once and every listed ray still
 // active whose bound still reaches the member box (lo, hi) is tested.
-template <bool kAnyHit, typename Counts>
+template <class Slab, bool kAnyHit, typename Counts>
 __device__ __forceinline__ void sweep(BlockRays& sm,
-                                      const float* __restrict__ slabs,
+                                      const float* __restrict__ table,
                                       int k, int W, unsigned long long rays,
                                       const float (&lo)[3],
                                       const float (&hi)[3], Counts& n) {
   const int lane = threadIdx.x & 31;
-  const size_t row = 4 * (size_t)W;
-  const float* slab = slabs + (size_t)k * 8 * row + 4 * lane;
+  const float* slab = Slab::lane(table, k, W, lane);
   // The listed rays that still need the member; no read at all when none
   // is left.  Any hit: those not occluded since (their bound is maxt, as
   // when they were listed).  Closest hit, lanes over rays: those whose
@@ -339,40 +493,20 @@ __device__ __forceinline__ void sweep(BlockRays& sm,
   if (!left) return;
   n.add(kReads);
   for (int j0 = 0; j0 < W; j0 += kTile) {
-    const float* c = slab + j0;
-    float4 cd[6], cu[6], cv[6], ct[4];
-#pragma unroll
-    for (int f = 0; f < 6; ++f) {
-      cd[f] = load4(c + f * row);
-      cu[f] = load4(c + f * row + W);
-      cv[f] = load4(c + f * row + 2 * W);
-    }
-#pragma unroll
-    for (int f = 0; f < 4; ++f) ct[f] = load4(c + f * row + 3 * W);
+    typename Slab::Tile x;
+    Slab::load(x, slab + j0, W);
     for (unsigned long long bits = left; bits; bits &= bits - 1) {
       const int r = __ffsll((long long)bits) - 1;
       if (kAnyHit && !is_active(sm, r)) continue;
       const float4 om = sm.om[r];
       const float maxt = sm.im[r].w;
       n.add(kSweeps);
-      const float4 fa4 = sm.fa[r];
-      const float2 fb2 = sm.fb[r];
-      const float fa[6] = {fa4.x, fa4.y, fa4.z, fa4.w, fb2.x, fb2.y};
-      const float o[3] = {om.x, om.y, om.z};
+      const typename Slab::Ray ray = Slab::ray(sm, r, om);
       bool any = false;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        float d6[6], u6[6], v6[6], t4[4];
-#pragma unroll
-        for (int f = 0; f < 6; ++f) {
-          d6[f] = comp(cd[f], q);
-          u6[f] = comp(cu[f], q);
-          v6[f] = comp(cv[f], q);
-        }
-#pragma unroll
-        for (int f = 0; f < 4; ++f) t4[f] = comp(ct[f], q);
         float t, u, v;
-        if (mt_hit(d6, u6, v6, t4, fa, o, om.w, maxt, t, u, v)) {
+        if (Slab::hit(x, q, ray, om.w, maxt, t, u, v)) {
           if constexpr (kAnyHit) {
             any = true;
           } else {
@@ -397,17 +531,18 @@ __device__ __forceinline__ T pick(const T (&x)[kPer], int j) {
   return out;
 }
 
-template <bool kAnyHit, bool kCount>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-mt_kernel(const float* __restrict__ o, const float* __restrict__ d,
-          const float* __restrict__ mint, const float* __restrict__ maxt,
-          const float* __restrict__ slabs,
-          const float* __restrict__ sbounds,
-          const float* __restrict__ members, int n_rays, int K, int S,
-          int W, float* __restrict__ t_out, float* __restrict__ u_out,
-          float* __restrict__ v_out, int32_t* __restrict__ prim_out,
-          uint8_t* __restrict__ occ_out,
-          unsigned long long* __restrict__ stats) {
+template <class Slab, bool kAnyHit, bool kCount>
+__global__ void __launch_bounds__(kThreads, kAnyHit ? Slab::kAnyBlocksPerSm
+                                                    : Slab::kBlocksPerSm)
+walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
+            const float* __restrict__ mint, const float* __restrict__ maxt,
+            const float* __restrict__ table,
+            const float* __restrict__ sbounds,
+            const float* __restrict__ members, int n_rays, int K, int S,
+            int W, float* __restrict__ t_out, float* __restrict__ u_out,
+            float* __restrict__ v_out, int32_t* __restrict__ prim_out,
+            uint8_t* __restrict__ occ_out,
+            unsigned long long* __restrict__ stats) {
   // S sorted entries (key bits << 32 | index; first the S keys), then the
   // S compacted ones
   extern __shared__ __align__(16) unsigned char smem[];
@@ -584,7 +719,8 @@ mt_kernel(const float* __restrict__ o, const float* __restrict__ d,
       const int m = m0 + 32 * j + owner;
       float blo[3], bhi[3];
       member_box(members, s, m, blo, bhi);
-      sweep<kAnyHit>(sm, slabs, s * kSuper + m, W, rays, blo, bhi, n);
+      sweep<Slab, kAnyHit>(sm, table, s * kSuper + m, W, rays, blo,
+                           bhi, n);
     }
   }
   if constexpr (kCount) {
@@ -605,23 +741,9 @@ mt_kernel(const float* __restrict__ o, const float* __restrict__ d,
       float t = kF32Max, u = 0.0f, v = 0.0f;
       if (p != kNone) {
         const int k = (int)(p / (unsigned)W), slot = (int)(p % (unsigned)W);
-        const size_t row = 4 * (size_t)W;
-        const float* c = slabs + (size_t)k * 8 * row + slot;
-        float cd[6], cu[6], cv[6], ct[4];
-#pragma unroll
-        for (int f = 0; f < 6; ++f) {
-          cd[f] = __ldg(c + f * row);
-          cu[f] = __ldg(c + f * row + W);
-          cv[f] = __ldg(c + f * row + 2 * W);
-        }
-#pragma unroll
-        for (int f = 0; f < 4; ++f) ct[f] = __ldg(c + f * row + 3 * W);
-        const float4 om = sm.om[r], fa4 = sm.fa[r];
-        const float2 fb2 = sm.fb[r];
-        const float fa[6] = {fa4.x, fa4.y, fa4.z, fa4.w, fb2.x, fb2.y};
-        const float ro[3] = {om.x, om.y, om.z};
-        float t2;
-        mt_hit(cd, cu, cv, ct, fa, ro, om.w, sm.im[r].w, t2, u, v);
+        const float4 om = sm.om[r];
+        Slab::retest(table, k, slot, W, Slab::ray(sm, r, om), om.w,
+                     sm.im[r].w, u, v);
         t = unord((unsigned)(b >> 32));
       }
       t_out[i] = t;
@@ -633,329 +755,20 @@ mt_kernel(const float* __restrict__ o, const float* __restrict__ d,
 }
 
 // ---------------------------------------------------------------------
-// v2: one thread per ray, tiles staged in shared memory
-
-constexpr unsigned long long kNoEntry = ~0ull;
-
-struct Ray {
-  float o[3], d[3], inv[3];
-  float mint, maxt;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
-                                        const float* __restrict__ d,
-                                        const float* __restrict__ mint,
-                                        const float* __restrict__ maxt,
-                                        int i) {
-  Ray r;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    r.o[a] = o[3 * i + a];
-    r.d[a] = d[3 * i + a];
-    r.inv[a] = fabsf(r.d[a]) > 1e-12f ? __fdiv_rn(1.0f, r.d[a]) : 1e30f;
-  }
-  r.mint = mint[i];
-  r.maxt = maxt[i];
-  return r;
-}
-
-// box b = (min xyz, max xyz) against bound t
-__device__ __forceinline__ bool box_entry(const float* __restrict__ b,
-                                          const Ray& r, float t, float& tn) {
-  const float lo[3] = {__ldg(b), __ldg(b + 1), __ldg(b + 2)};
-  const float hi[3] = {__ldg(b + 3), __ldg(b + 4), __ldg(b + 5)};
-  return box_test(lo, hi, r.o, r.inv, r.mint, t, tn);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// waits until at most one committed group of this thread is in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Copies rows of 128 floats into a [kRows][kTile] tile, 16 bytes per
-// cp.async; src_row(row) is the row's first float in device memory.
-template <int kRows, typename SrcRow>
-__device__ __forceinline__ void stage_rows(float* tile, SrcRow src_row) {
-  for (int c = threadIdx.x; c < kRows * (kTile / 4); c += kRays) {
-    const int row = c / (kTile / 4);
-    const int q = (c % (kTile / 4)) * 4;
-    cp_async16(tile + row * kTile + q, src_row(row) + q);
-  }
-}
-
-__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
-                                      float b1, float b2) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)),
-                   __fmul_rn(a2, b2));
-}
-
-__device__ __forceinline__ float cross_term(float a, float b, float c,
-                                            float e) {
-  return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, e));
-}
-
-// v2: pairwise Moeller-Trumbore over tri9.  Tile rows 0-8 = v0, e1, e2 xyz.
-struct Tri9Test {
-  static constexpr int kRows = 9;
-
-  __device__ static void stage(float* tile, const float* __restrict__ table,
-                               int k, int W, int j0) {
-    const float* slab = table + (size_t)k * 16 * W + j0;
-    stage_rows<kRows>(tile, [&](int row) { return slab + (size_t)row * W; });
-  }
-
-  __device__ static bool hit(const float* tile, int j, const Ray& r,
-                             float& t, float& u, float& v) {
-    const float* c = tile + j;
-    const float v0x = c[0], v0y = c[kTile], v0z = c[2 * kTile];
-    const float e1x = c[3 * kTile], e1y = c[4 * kTile], e1z = c[5 * kTile];
-    const float e2x = c[6 * kTile], e2y = c[7 * kTile], e2z = c[8 * kTile];
-    const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
-    const float px = cross_term(dy, e2z, dz, e2y);
-    const float py = cross_term(dz, e2x, dx, e2z);
-    const float pz = cross_term(dx, e2y, dy, e2x);
-    const float det = dot3(e1x, e1y, e1z, px, py, pz);
-    if (!(fabsf(det) > 1e-12f)) return false;
-    const float inv_det = __fdiv_rn(1.0f, det);
-    const float tx = __fsub_rn(r.o[0], v0x);
-    const float ty = __fsub_rn(r.o[1], v0y);
-    const float tz = __fsub_rn(r.o[2], v0z);
-    u = __fmul_rn(dot3(tx, ty, tz, px, py, pz), inv_det);
-    const float qx = cross_term(ty, e1z, tz, e1y);
-    const float qy = cross_term(tz, e1x, tx, e1z);
-    const float qz = cross_term(tx, e1y, ty, e1x);
-    v = __fmul_rn(dot3(dx, dy, dz, qx, qy, qz), inv_det);
-    t = __fmul_rn(dot3(e2x, e2y, e2z, qx, qy, qz), inv_det);
-    return (u >= 0.0f) & (v >= 0.0f) & (__fadd_rn(u, v) <= 1.0f) &
-           (t > r.mint) & (t < r.maxt);
-  }
-};
-
-// first set bit of the 128-bit mask b at or after `from`, else kSuper
-__device__ __forceinline__ int next_bit(const unsigned (&b)[4], int from) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    unsigned w = b[q];
-    if (from >= 32 * q + 32) w = 0u;
-    else if (from > 32 * q) w &= ~0u << (from - 32 * q);
-    if (w) return 32 * q + __ffs(w) - 1;
-  }
-  return kSuper;
-}
-
-__device__ __forceinline__ bool has_bit(const unsigned (&b)[4], int m) {
-  unsigned w = 0u;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) w = (m >> 5) == q ? b[q] : w;
-  return (w >> (m & 31)) & 1u;
-}
-
-// (member, tile) jobs in ascending order: the next tile, else the first
-// tile of the next pending member
-__device__ __forceinline__ void advance(const unsigned (&b)[4], int& m,
-                                        int& tile, int n_tiles) {
-  if (++tile == n_tiles) {
-    tile = 0;
-    m = next_bit(b, m + 1);
-  }
-}
-
-template <class Test, bool kAnyHit>
-__global__ void __launch_bounds__(kRays)
-block_kernel(const float* __restrict__ o, const float* __restrict__ d,
-             const float* __restrict__ mint, const float* __restrict__ maxt,
-             const float* __restrict__ table,
-             const float* __restrict__ cbounds,
-             const float* __restrict__ sbounds, int n_rays, int K, int S,
-             int P2, int W, float* __restrict__ t_out,
-             float* __restrict__ u_out, float* __restrict__ v_out,
-             int32_t* __restrict__ prim_out, uint8_t* __restrict__ occ_out) {
-  constexpr int kTileFloats = Test::kRows * kTile;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* tiles = reinterpret_cast<float*>(smem);   // two tiles
-  unsigned long long* order = reinterpret_cast<unsigned long long*>(
-      smem + 2 * kTileFloats * sizeof(float));     // P2 entries
-  __shared__ unsigned mbits[2][4];   // member union, by supercluster parity
-  __shared__ int n_pending;
-
-  const int tid = threadIdx.x;
-  const int i = blockIdx.x * kRays + tid;
-  const Ray r = load_ray(o, d, mint, maxt, i < n_rays ? i : n_rays - 1);
-  const bool live = i < n_rays && r.maxt > r.mint;
-  float bt = kF32Max, bu = 0.0f, bv = 0.0f;
-  int bp = -1;
-  bool done = false;   // any hit: occluded
-
-  // 1. the block's supercluster entries (key bits << 32 | index); a key is
-  // a non-negative float, so its bits order as the floats do
-  for (int e = tid; e < P2; e += kRays)
-    order[e] = e < S ? (0xffffffffull << 32) | (unsigned)e : kNoEntry;
-  if (tid < 8) mbits[tid >> 2][tid & 3] = 0u;
-  if (tid == 0) n_pending = 0;
-  __syncthreads();
-  if (live) {
-    int s = tid % S;   // threads start at different entries
-    for (int c = 0; c < S; ++c) {
-      float tn;
-      if (box_entry(sbounds + 6 * (size_t)s, r, r.maxt, tn)) {
-        const float key = tn > 0.0f ? tn : 0.0f;
-        atomicMin(&order[s],
-                  ((unsigned long long)__float_as_uint(key) << 32) |
-                      (unsigned)s);
-      }
-      if (++s == S) s = 0;
-    }
-  }
-  __syncthreads();
-
-  // 2. bitonic sort, ascending; entries no ray enters sort last
-  for (int k = 2; k <= P2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int a = tid; a < P2; a += kRays) {
-        const int b = a ^ j;
-        if (b > a) {
-          const unsigned long long x = order[a], y = order[b];
-          if ((x > y) == ((a & k) == 0)) {
-            order[a] = y;
-            order[b] = x;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int a = tid; a < P2; a += kRays) {
-    const bool pa = (order[a] >> 32) != 0xffffffffull;
-    const bool pb = a + 1 < P2 && (order[a + 1] >> 32) != 0xffffffffull;
-    if (pa && !pb) n_pending = a + 1;
-  }
-  __syncthreads();
-  const int count = n_pending;
-  const int n_tiles = W / kTile;
-
-  // 3. the walk, near to far
-  for (int e = 0; e < count; ++e) {
-    const unsigned long long ent = order[e];
-    const float key = __uint_as_float((unsigned)(ent >> 32));
-    const int s = (int)(ent & 0xffffffffull);
-    const float cull = (!kAnyHit && bp >= 0) ? bt : r.maxt;
-    const bool active = live && !done;
-    if (!__syncthreads_or(active && key <= fmaxf(cull, 0.0f))) break;
-
-    // this ray's pending members, against its current t
-    unsigned my[4] = {0u, 0u, 0u, 0u};
-    float tn;
-    if (active && box_entry(sbounds + 6 * (size_t)s, r, cull, tn)) {
-      const int k0 = s * kSuper;
-      const int nm = min(kSuper, K - k0);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        unsigned w = 0u;
-        for (int b = 0; b < 32; ++b) {
-          const int m = 32 * q + b;
-          if (m < nm &&
-              box_entry(cbounds + 6 * (size_t)(k0 + m), r, cull, tn))
-            w |= 1u << b;
-        }
-        my[q] = w;
-      }
-    }
-    unsigned* mb = mbits[e & 1];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (my[q]) atomicOr(&mb[q], my[q]);
-    if (tid < 4) mbits[(e + 1) & 1][tid] = 0u;   // the next entry's union
-    __syncthreads();
-    unsigned bits[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) bits[q] = mb[q];
-
-    // stage (member, tile) jobs one ahead of the sweep
-    int lm = next_bit(bits, 0), lt = 0;
-    int cm = lm, ct = 0, buf = 0;
-    if (lm < kSuper) Test::stage(tiles, table, s * kSuper + lm, W, 0);
-    cp_async_commit();
-    advance(bits, lm, lt, n_tiles);
-    bool sweep = false;
-    while (cm < kSuper) {
-      if (lm < kSuper)
-        Test::stage(tiles + (buf ^ 1) * kTileFloats, table, s * kSuper + lm,
-                    W, lt * kTile);
-      cp_async_commit();
-      advance(bits, lm, lt, n_tiles);
-      cp_async_wait_one();
-      __syncthreads();
-      const int k = s * kSuper + cm;
-      if (ct == 0) {
-        const float c2 = (!kAnyHit && bp >= 0) ? bt : r.maxt;
-        sweep = live && !done && has_bit(my, cm) &&
-                box_entry(cbounds + 6 * (size_t)k, r, c2, tn);
-      }
-      if (sweep) {
-        const float* tile = tiles + buf * kTileFloats;
-        const int p0 = k * W + ct * kTile;
-        for (int j = 0; j < kTile; ++j) {
-          float t, u, v;
-          if (Test::hit(tile, j, r, t, u, v)) {
-            if (kAnyHit) {
-              done = true;
-              break;
-            }
-            const int p = p0 + j;
-            if (t < bt || (t == bt && (unsigned)p < (unsigned)bp)) {
-              bt = t;
-              bu = u;
-              bv = v;
-              bp = p;
-            }
-          }
-        }
-        if (done) sweep = false;
-      }
-      __syncthreads();   // the tile is free before it is staged again
-      buf ^= 1;
-      advance(bits, cm, ct, n_tiles);
-    }
-  }
-
-  if (i < n_rays) {
-    if (kAnyHit) {
-      occ_out[i] = done ? 1 : 0;
-    } else {
-      const bool hit = bp >= 0;
-      t_out[i] = hit ? bt : kF32Max;
-      u_out[i] = hit ? bu : 0.0f;
-      v_out[i] = hit ? bv : 0.0f;
-      prim_out[i] = hit ? bp : -1;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------
 // Host side
 
-template <bool kAnyHit, bool kCount>
-int launch_mt(const float* o, const float* d, const float* mint,
-              const float* maxt, const float* slabs, const float* sbounds,
-              const float* members, int n_rays, int K, int S, int W,
-              float* t, float* u, float* v, int32_t* prim, uint8_t* occ,
-              unsigned long long* stats, void* stream) {
+template <class Slab, bool kAnyHit, bool kCount>
+int launch(const float* o, const float* d, const float* mint,
+           const float* maxt, const float* table, const float* sbounds,
+           const float* members, int n_rays, int K, int S, int W, float* t,
+           float* u, float* v, int32_t* prim, uint8_t* occ,
+           unsigned long long* stats, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   if (S < 1 || S > kMaxSupers || K < 1 || K > S * kSuper || W < kTile ||
       W % kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * (size_t)S * sizeof(unsigned long long);
-  auto kernel = mt_kernel<kAnyHit, kCount>;
+  auto kernel = walk_kernel<Slab, kAnyHit, kCount>;
   if (smem + sizeof(BlockRays) > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -963,35 +776,30 @@ int launch_mt(const float* o, const float* d, const float* mint,
   }
   kernel<<<(n_rays + kRays - 1) / kRays, kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      o, d, mint, maxt, slabs, sbounds, members, n_rays, K, S, W, t, u, v,
+      o, d, mint, maxt, table, sbounds, members, n_rays, K, S, W, t, u, v,
       prim, occ, stats);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kAnyHit>
-int launch_tri9(const float* o, const float* d, const float* mint,
-                const float* maxt, const float* table, const float* cbounds,
-                const float* sbounds, int n_rays, int K, int S, int W,
-                float* t, float* u, float* v, int32_t* prim, uint8_t* occ,
-                void* stream) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  if (S < 1 || S > kMaxSupers || K < 1 || W < kTile || W % kTile)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int P2 = 1;
-  while (P2 < S) P2 <<= 1;
-  const size_t smem = 2 * Tri9Test::kRows * kTile * sizeof(float) +
-                      P2 * sizeof(unsigned long long);
-  auto kernel = block_kernel<Tri9Test, kAnyHit>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<(n_rays + kRays - 1) / kRays, kRays, smem,
-           static_cast<cudaStream_t>(stream)>>>(o, d, mint, maxt, table,
-                                                cbounds, sbounds, n_rays, K, S,
-                                                P2, W, t, u, v, prim, occ);
-  return static_cast<int>(cudaGetLastError());
+template <class Slab>
+int closest(const float* o, const float* d, const float* mint,
+            const float* maxt, const float* table, const float* sbounds,
+            const float* members, int n_rays, int K, int S, int W, float* t,
+            float* u, float* v, int32_t* prim, unsigned long long* stats,
+            void* stream) {
+  return (stats ? launch<Slab, false, true> : launch<Slab, false, false>)(
+      o, d, mint, maxt, table, sbounds, members, n_rays, K, S, W, t, u, v,
+      prim, nullptr, stats, stream);
+}
+
+template <class Slab>
+int occluded(const float* o, const float* d, const float* mint,
+             const float* maxt, const float* table, const float* sbounds,
+             const float* members, int n_rays, int K, int S, int W,
+             uint8_t* occ, unsigned long long* stats, void* stream) {
+  return (stats ? launch<Slab, true, true> : launch<Slab, true, false>)(
+      o, d, mint, maxt, table, sbounds, members, n_rays, K, S, W, nullptr,
+      nullptr, nullptr, nullptr, occ, stats, stream);
 }
 
 }  // namespace
@@ -1000,19 +808,18 @@ int launch_tri9(const float* o, const float* d, const float* mint,
 // synchronise, allocates nothing, and returns a CUDA error code
 // (cudaGetLastError() after the launch; cudaErrorInvalidValue for a
 // window, cluster or supercluster count the kernels do not take).
-// mt_*: sbounds [6, S] and members [S, 8, 128], the SoA box tables;
-// stats: null (the kernel without counters) or three uint64 counters the
-// kernel adds its visits to (Visits).  tri9_*: cbounds [K, 6] and sbounds
-// [S, 6].
+// table: mt_slabs (mt_*) or tri9 (tri9_*); sbounds [6, S] and members
+// [S, 8, 128], the SoA box tables; stats: null (the kernel without
+// counters) or three uint64 counters the kernel adds its visits to
+// (Visits).
 extern "C" int mt_closest(const float* o, const float* d, const float* mint,
                           const float* maxt, const float* slabs,
                           const float* sbounds, const float* members,
                           int n_rays, int K, int S, int W, float* t, float* u,
                           float* v, int32_t* prim, unsigned long long* stats,
                           void* stream) {
-  return (stats ? launch_mt<false, true> : launch_mt<false, false>)(
-      o, d, mint, maxt, slabs, sbounds, members, n_rays, K, S, W, t, u, v,
-      prim, nullptr, stats, stream);
+  return closest<MtSlab>(o, d, mint, maxt, slabs, sbounds, members, n_rays, K,
+                         S, W, t, u, v, prim, stats, stream);
 }
 
 extern "C" int mt_occluded(const float* o, const float* d, const float* mint,
@@ -1020,26 +827,26 @@ extern "C" int mt_occluded(const float* o, const float* d, const float* mint,
                            const float* sbounds, const float* members,
                            int n_rays, int K, int S, int W, uint8_t* occ,
                            unsigned long long* stats, void* stream) {
-  return (stats ? launch_mt<true, true> : launch_mt<true, false>)(
-      o, d, mint, maxt, slabs, sbounds, members, n_rays, K, S, W, nullptr,
-      nullptr, nullptr, nullptr, occ, stats, stream);
+  return occluded<MtSlab>(o, d, mint, maxt, slabs, sbounds, members, n_rays,
+                          K, S, W, occ, stats, stream);
 }
 
 extern "C" int tri9_closest(const float* o, const float* d, const float* mint,
-                            const float* maxt, const float* table,
-                            const float* cbounds, const float* sbounds,
+                            const float* maxt, const float* tri9,
+                            const float* sbounds, const float* members,
                             int n_rays, int K, int S, int W, float* t,
-                            float* u, float* v, int32_t* prim, void* stream) {
-  return launch_tri9<false>(o, d, mint, maxt, table, cbounds, sbounds, n_rays,
-                            K, S, W, t, u, v, prim, nullptr, stream);
+                            float* u, float* v, int32_t* prim,
+                            unsigned long long* stats, void* stream) {
+  return closest<Tri9Slab>(o, d, mint, maxt, tri9, sbounds, members, n_rays,
+                           K, S, W, t, u, v, prim, stats, stream);
 }
 
 extern "C" int tri9_occluded(const float* o, const float* d,
                              const float* mint, const float* maxt,
-                             const float* table, const float* cbounds,
-                             const float* sbounds, int n_rays, int K, int S,
-                             int W, uint8_t* occ, void* stream) {
-  return launch_tri9<true>(o, d, mint, maxt, table, cbounds, sbounds, n_rays,
-                           K, S, W, nullptr, nullptr, nullptr, nullptr, occ,
-                           stream);
+                             const float* tri9, const float* sbounds,
+                             const float* members, int n_rays, int K, int S,
+                             int W, uint8_t* occ, unsigned long long* stats,
+                             void* stream) {
+  return occluded<Tri9Slab>(o, d, mint, maxt, tri9, sbounds, members, n_rays,
+                            K, S, W, occ, stats, stream);
 }

@@ -7,7 +7,7 @@ three traversal kernels, each with its plain PyTorch version:
      rounds; the default large-scene kernel): csrc/trace.cu, persistent
      warps, each walking one ray's superclusters and then their members
      near to far with early exit, over SoA box tables built once per
-     cbounds (TraversalKernel.box_tables, which v4 reads too;
+     cbounds (TraversalKernel.box_tables, which v4 and v2 read too;
      make_pair_intersector / make_pair_occluder);
   v4 (`_mt_kernel` with `_super_worklists`; GDMT_KERNEL=v4): the same
      function over the same tables (slabs and SoA box tables),
@@ -19,8 +19,9 @@ three traversal kernels, each with its plain PyTorch version:
      GDMT_RAY_SORT);
   v2 (`_traverse_kernel`; the reference's make_pallas_intersector /
      make_pallas_occluder): pairwise Moeller-Trumbore over `tri9` slabs,
-     csrc/trace_block.cu, one thread a ray in blocks of 64 over staged
-     tiles (BlockKernel "tri9", make_tri9_intersector /
+     csrc/trace_block.cu: the same block walk over the same box tables,
+     with the tri9 rows and the pairwise test in place of the linear-MT
+     coefficients (BlockKernel "tri9", make_tri9_intersector /
      make_tri9_occluder).
 
 The scene loader lays triangles out cluster-major: cluster k owns prim
@@ -75,11 +76,10 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 _SRC = os.path.join(_CSRC, "trace.cu")
 _BLOCK_SRC = os.path.join(_CSRC, "trace_block.cu")
 # superclusters the CUDA kernels take: the block kernels sort a block's
-# pending superclusters in shared memory (v4: 16 bytes an entry, 64 KB at
-# 4096; v2: the next power of two of S entries of 8 bytes), the pair
-# kernels keep each warp's S keys there (4 bytes each: 128 KB a block of
-# 8 warps at 4096).  The wrappers raise above it; the plain versions take
-# any S.
+# pending superclusters in shared memory (16 bytes an entry, 64 KB at
+# 4096), the pair kernels keep each warp's S keys there (4 bytes each:
+# 128 KB a block of 8 warps at 4096).  The wrappers raise above it; the
+# plain versions take any S.
 MAX_SUPERS = 4096
 # the v4 wrappers' default ray sort: the reference's RAY_SORT, off unless
 # GDMT_RAY_SORT is set to something other than "0"
@@ -379,11 +379,11 @@ def load_block_library():
     """Build (first call only) and load the v4 / v2 block kernels'
     library (csrc/trace_block.cu)."""
     p, i = ctypes.c_void_p, ctypes.c_int
+    closest = [p] * 7 + [i] * 4 + [p] * 6      # ... t, u, v, prim, stats
+    occluded = [p] * 7 + [i] * 4 + [p] * 3     # ... occ, stats
     return native.load_cuda("trace_block", _BLOCK_SRC, {
-        "mt_closest": [p] * 7 + [i] * 4 + [p] * 6,      # + stats
-        "mt_occluded": [p] * 7 + [i] * 4 + [p] * 3,
-        "tri9_closest": [p] * 7 + [i] * 4 + [p] * 5,
-        "tri9_occluded": [p] * 7 + [i] * 4 + [p] * 2})
+        "mt_closest": closest, "mt_occluded": occluded,
+        "tri9_closest": closest, "tri9_occluded": occluded})
 
 
 def _check(o, d, mint, maxt, table, table_rows, table_cols, cbounds,
@@ -405,20 +405,11 @@ def _check(o, d, mint, maxt, table, table_rows, table_cols, cbounds,
         raise ValueError("prims or rays exceed the kernels' int32 range")
 
 
-def _check_supers(n_supers):
-    if n_supers > MAX_SUPERS:
-        raise ValueError(f"{n_supers} superclusters: the CUDA traversal "
-                         f"kernels take at most {MAX_SUPERS}")
-
-
-def _build_super_bounds(cbounds):
-    sb = _super_bounds(cbounds).contiguous()
-    _check_supers(sb.shape[0])
-    return sb
-
-
 def _build_box_tables(cbounds):
-    sb = _build_super_bounds(cbounds)
+    sb = _super_bounds(cbounds)
+    if sb.shape[0] > MAX_SUPERS:
+        raise ValueError(f"{sb.shape[0]} superclusters: the CUDA traversal "
+                         f"kernels take at most {MAX_SUPERS}")
     return sb.T.contiguous(), _member_slabs(cbounds)
 
 
@@ -426,13 +417,12 @@ class TraversalKernel:
     """What the traversal wrappers share: a closest-hit or any-hit
     kernel with its launch count, called as (o, d, mint, maxt, table,
     cbounds).  A CPU tensor runs the plain version and does not count; a
-    CUDA tensor launches the kernel or raises.  Subclasses give the
-    variant, the plain version, the library, the tables the kernel reads
-    besides the slab table (_kernel_tables), its trailing pointers
-    (_extra) and how many visit counters it has (n_stats)."""
+    CUDA tensor launches the kernel or raises.  Every kernel reads the
+    slab table and the SoA box tables (_kernel_tables).  Subclasses give
+    the variant, the plain version, the library, the kernel's trailing
+    pointers (_extra) and how many visit counters it has (n_stats)."""
 
     variant = ""
-    n_stats = 0
 
     def __init__(self, any_hit: bool, window: int, n_clusters: int):
         _check_pair_super_factor()
@@ -441,36 +431,35 @@ class TraversalKernel:
         self.window = int(window)
         self.n_clusters = int(n_clusters)
         self.launches = 0
-        self._tables = {}   # build -> (cbounds, the tables built from it)
+        self._boxes = (None, None)   # (cbounds, its box tables)
 
     @property
     def name(self):
         return f"{self.variant}_{'occluded' if self.any_hit else 'closest'}"
 
-    def _cached(self, cbounds, build):
-        """build(cbounds), built once per cluster-bounds table (a scene's
-        cbounds is never changed in place)."""
-        if self._tables.get(build, (None,))[0] is not cbounds:
-            self._tables[build] = (cbounds, build(cbounds))
-        return self._tables[build][1]
-
     def box_tables(self, cbounds):
-        """The SoA box tables of the v7 and v4 kernels: supercluster
+        """The SoA box tables of the v7, v4 and v2 kernels: supercluster
         bounds sbounds [6, S] (_super_bounds(cbounds) as rows min x, y, z,
         max x, y, z) and member bounds [S, 8, SUPER_FACTOR]
         (_member_slabs), so a warp reads each row as coalesced lines.
-        Built once per cbounds; raises above MAX_SUPERS superclusters."""
-        return self._cached(cbounds, _build_box_tables)
+        Built once per cbounds table (a scene's cbounds is never changed
+        in place); raises above MAX_SUPERS superclusters."""
+        if self._boxes[0] is not cbounds:
+            self._boxes = (cbounds, _build_box_tables(cbounds))
+        return self._boxes[1]
+
+    def _kernel_tables(self, cbounds):
+        """The box tables the launch passes after the slab table, and S."""
+        sb, members = self.box_tables(cbounds)
+        return (sb, members), sb.shape[1]
 
     def count_visits(self, o, d, mint, maxt, table, cbounds):
         """One launch of the counting instantiation on CUDA tensors: the
         same walk as the main path's kernel, also counting it.  Returns
         (result, *counts) summed over the rays.  v7: clusters swept,
-        superclusters whose members were tested; v4: (ray, 128-triangle
-        tile) sweeps, (block, cluster) slab reads, worklist entries some
-        ray of the block entered."""
-        if not self.n_stats:
-            raise ValueError(f"{self.name} counts no visits")
+        superclusters whose members were tested; v4 and v2: (ray,
+        128-triangle tile) sweeps, (block, cluster) slab reads, worklist
+        entries some ray of the block entered."""
         if o.device.type != "cuda":
             raise ValueError("visit counts come from the CUDA kernel")
         _check(o, d, mint, maxt, table, *self._table_shape(), cbounds,
@@ -538,10 +527,6 @@ class PairKernel(TraversalKernel):
     def _library(self):
         return load_library()
 
-    def _kernel_tables(self, cbounds):
-        sb, members = self.box_tables(cbounds)
-        return (sb, members), sb.shape[1]
-
     def _extra(self, dev, stats):
         """The zeroed ray counter of the persistent warps and the
         optional visit counters (None: a null pointer)."""
@@ -551,15 +536,17 @@ class PairKernel(TraversalKernel):
 class BlockKernel(TraversalKernel):
     """One block traversal of csrc/trace_block.cu with its launch count:
     variant "mt" (the reference's v4, over mt_slabs; plain version
-    pair_plain; lanes across triangles, each slab read once per block of
-    64 rays) or "tri9" (v2, over tri9 slabs; plain version tri9_plain;
-    one thread a ray over staged tiles).  Call signature (o, d, mint,
-    maxt, table, cbounds) with table = mt_slabs or tri9.  The two read
-    different box tables: "mt" the SoA box_tables the pair kernels read,
-    "tri9" cbounds itself and super_bounds [S, 6].  "mt" counts its walk
-    (count_visits).  With ray_sort (v4 only; default GDMT_RAY_SORT) the
-    rays are sorted by sort_rays before the launch and the results put
-    back in the callers' order; the results are the same either way."""
+    pair_plain) or "tri9" (v2, over tri9 slabs; plain version
+    tri9_plain), the one block walk (lanes across triangles, each slab
+    read once per block of 64 rays) with either slab's test.  Call
+    signature (o, d, mint, maxt, table, cbounds) with table = mt_slabs or
+    tri9.  Both read the SoA box_tables the pair kernels read, and both
+    count their walk (count_visits).  With ray_sort (v4 only; default
+    GDMT_RAY_SORT) the rays are sorted by sort_rays before the launch and
+    the results put back in the callers' order; the results are the same
+    either way."""
+
+    n_stats = 3
 
     def __init__(self, variant: str, any_hit: bool, window: int,
                  n_clusters: int, ray_sort: bool | None = None):
@@ -567,7 +554,6 @@ class BlockKernel(TraversalKernel):
             raise ValueError(f"unknown block traversal {variant!r}")
         super().__init__(any_hit, window, n_clusters)
         self.variant = variant
-        self.n_stats = 3 if variant == "mt" else 0
         if ray_sort is None:
             ray_sort = RAY_SORT and variant == "mt"
         self.ray_sort = bool(ray_sort)
@@ -585,23 +571,9 @@ class BlockKernel(TraversalKernel):
     def _library(self):
         return load_block_library()
 
-    def super_bounds(self, cbounds):
-        """_super_bounds(cbounds) [S, 6] (the v2 kernels' supercluster
-        table), built once per cbounds; raises above MAX_SUPERS
-        superclusters."""
-        return self._cached(cbounds, _build_super_bounds)
-
-    def _kernel_tables(self, cbounds):
-        if self.variant == "mt":
-            sb, members = self.box_tables(cbounds)
-            return (sb, members), sb.shape[1]
-        sb = self.super_bounds(cbounds)
-        return (cbounds, sb), sb.shape[0]
-
     def _extra(self, dev, stats):
-        """v4: the optional visit counters (None: a null pointer); v2
-        counts nothing."""
-        return [stats] if self.variant == "mt" else []
+        """The optional visit counters (None: a null pointer)."""
+        return [stats]
 
     def _launch(self, o, d, mint, maxt, table, cbounds, stats=None):
         if not self.ray_sort:

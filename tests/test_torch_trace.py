@@ -223,29 +223,14 @@ def test_plain_matches_whole_soup_sweep(window):
     assert (occ == ref.valid).float().mean() >= 0.998
 
 
-def test_super_bounds_built_once_per_table():
-    """The v2 block kernels' supercluster bounds are built once per
-    cbounds table and equal _super_bounds of it (K = 300 pads the last
-    supercluster)."""
-    cb = torch.from_numpy(trace.random_cluster_soup(300, 128, 5, 8)[5])
-    k = trace.make_tri9_intersector(128, 300)
-    sb = k.super_bounds(cb)
-    assert k.super_bounds(cb) is sb
-    assert sb.shape == (3, 6) and sb.is_contiguous()
-    torch.testing.assert_close(sb, trace._super_bounds(cb), rtol=0, atol=0)
-    torch.testing.assert_close(sb[2], torch.cat([cb[256:, :3].amin(0),
-                                                 cb[256:, 3:].amax(0)]),
-                               rtol=0, atol=0)
-    other = cb.clone()
-    assert k.super_bounds(other) is not sb
-
-
 @pytest.mark.parametrize("make", [trace.make_pair_occluder,
                                   trace.make_pair_intersector,
                                   trace.make_mt_occluder,
-                                  trace.make_mt_intersector])
+                                  trace.make_mt_intersector,
+                                  trace.make_tri9_occluder,
+                                  trace.make_tri9_intersector])
 def test_box_tables_shared_by_both_kernel_classes(make):
-    """The v7 and the v4 kernels read the same SoA box tables, from one
+    """The v7, v4 and v2 kernels read the same SoA box tables, from one
     method of their common base: equal to _super_bounds (as rows) and
     _member_slabs, built once per cbounds, and what _kernel_tables hands
     the launch (with S)."""
@@ -265,25 +250,24 @@ def test_box_tables_shared_by_both_kernel_classes(make):
 
 
 def test_block_kernel_tables_by_variant():
-    """v4 reads the SoA box tables, v2 cbounds itself and [S, 6]
-    supercluster bounds; building one kind does not evict the other, and
-    only v4 has visit counters (which come from the card)."""
+    """Both block variants read the SoA box tables through the base
+    class's _kernel_tables and count their walk (three counters, which
+    come from the card); neither has the pair kernels' ray counter."""
     cb = torch.from_numpy(trace.random_cluster_soup(300, 128, 5, 8)[5])
-    v2 = trace.make_tri9_occluder(128, 300)
-    (first, sb), S = v2._kernel_tables(cb)
-    assert S == 3 and first is cb and sb.shape == (3, 6)
-    soa = v2.box_tables(cb)[0]
-    assert v2.super_bounds(cb) is sb and v2.box_tables(cb)[0] is soa
-    v4 = trace.make_mt_intersector(128, 300)
-    assert (v4.n_stats, v2.n_stats) == (3, 0)
-    assert v4._extra(cb.device, None) == [None] and v2._extra(
-        cb.device, None) == []
     rays = [torch.zeros((4, 3)), torch.ones((4, 3)), torch.zeros(4),
             torch.ones(4)]
-    with pytest.raises(ValueError, match="CUDA kernel"):
-        v4.count_visits(*rays, torch.zeros((303, 8, 512)), cb)
-    with pytest.raises(ValueError, match="counts no visits"):
-        v2.count_visits(*rays, torch.zeros((300, 16, 128)), cb)
+    for k, table in ((trace.make_mt_intersector(128, 300),
+                      torch.zeros((303, 8, 512))),
+                     (trace.make_tri9_occluder(128, 300),
+                      torch.zeros((300, 16, 128)))):
+        assert type(k)._kernel_tables is trace.TraversalKernel._kernel_tables
+        (sb, members), S = k._kernel_tables(cb)
+        assert S == 3 and sb.shape == (6, 3)
+        assert members.shape == (3, 8, trace.SUPER_FACTOR)
+        assert k.n_stats == 3 and k._extra(cb.device, None) == [None]
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            k.count_visits(*rays, table, cb)
+    assert not trace.make_tri9_intersector(128, 300).ray_sort
 
 
 def test_pair_box_tables_built_once_per_table():
@@ -311,16 +295,20 @@ def test_pair_box_tables_built_once_per_table():
 def test_plain_breaks_ties_by_lowest_prim():
     """The tie soup (one triangle in two superclusters, the higher prim
     in the nearer one): the pair wrappers on the CPU take the lowest prim
-    among equal minimal t, as the kernels must."""
-    o, d, mint, maxt, slabs, cb = map(torch.from_numpy, tie_soup(601))
-    hit = trace.make_pair_intersector(128, 256)(o, d, mint, maxt, slabs, cb)
-    occ = trace.make_pair_occluder(128, 256)(o, d, mint, maxt, slabs, cb)
-    tie = hit.prim == TIE_LOW
-    assert tie.float().mean() > 0.5
-    assert not bool((hit.prim == TIE_HIGH).any())
-    assert bool(occ[tie].all()) and not bool(occ[::5].any())
-    torch.testing.assert_close(hit.t[tie], 20.0 / d[tie, 2], rtol=1e-5,
-                               atol=0)
+    among equal minimal t, as the kernels must; so do the v2 wrappers
+    over the soup's tri9 rows."""
+    o, d, mint, maxt, slabs, cb, tri9 = map(torch.from_numpy, tie_soup(601))
+    for make_c, make_o, table in (
+            (trace.make_pair_intersector, trace.make_pair_occluder, slabs),
+            (trace.make_tri9_intersector, trace.make_tri9_occluder, tri9)):
+        hit = make_c(128, 256)(o, d, mint, maxt, table, cb)
+        occ = make_o(128, 256)(o, d, mint, maxt, table, cb)
+        tie = hit.prim == TIE_LOW
+        assert tie.float().mean() > 0.5
+        assert not bool((hit.prim == TIE_HIGH).any())
+        assert bool(occ[tie].all()) and not bool(occ[::5].any())
+        torch.testing.assert_close(hit.t[tie], 20.0 / d[tie, 2], rtol=1e-5,
+                                   atol=0)
 
 
 def test_window_and_super_factor_checks(monkeypatch):
@@ -549,7 +537,7 @@ def test_block_wrappers_on_the_cpu_run_the_plain_versions():
         trace.make_tri9_intersector(200, 10)
     many = torch.zeros((trace.SUPER_FACTOR * trace.MAX_SUPERS + 1, 6))
     with pytest.raises(ValueError, match="superclusters"):
-        trace.make_tri9_occluder(128, many.shape[0]).super_bounds(many)
+        trace.make_tri9_occluder(128, many.shape[0]).box_tables(many)
     with pytest.raises(ValueError, match="superclusters"):
         trace.make_mt_occluder(128, many.shape[0]).box_tables(many)
 

@@ -1,7 +1,7 @@
 """CUDA traversal kernels against their plain PyTorch versions, on the
 card: the pair kernels (csrc/trace.cu) and the v4 / v2 block kernels
-(csrc/trace_block.cu) against ops/trace.pair_plain and tri9_plain, v4
-also against the pair kernels.
+(csrc/trace_block.cu, one block walk with two slab tests) against
+ops/trace.pair_plain and tri9_plain, v4 also against the pair kernels.
 Imports no jax, so the card's machine (which has none) runs it without
 the repo's conftest:
 
@@ -37,7 +37,8 @@ TIE_LOW, TIE_HIGH = 7 * 128 + 3, 140 * 128 + 3
 
 
 def tie_soup(n_rays=3001, seed=0):
-    """Numpy (o, d, mint, maxt, mt_slabs, cbounds) of K = 256 clusters of
+    """Numpy (o, d, mint, maxt, mt_slabs, cbounds, tri9) of K = 256
+    clusters of
     W = 128 (two superclusters) in which visit order would decide ties:
     one triangle T in the plane z = 20 sits in slot 3 of cluster 7 (prim
     TIE_LOW) and of cluster 140 (prim TIE_HIGH), so one lane sweeps both
@@ -72,6 +73,9 @@ def tie_soup(n_rays=3001, seed=0):
     hi = np.where(used[None, ..., None], pts, -np.inf).max((0, 2))
     cb = np.float32(np.concatenate([lo, hi], 1))
     slabs = isec.build_mt_slabs(isec.build_linear_mt(v0, e1, e2), W)
+    tri9 = trace.tri9_from_soup(isec.TriSoup(*map(torch.from_numpy,
+                                                  (v0, e1, e2)),
+                                             orig_id=None), W).numpy()
     rs = np.random.RandomState(seed)
     o = np.zeros((n_rays, 3), np.float32)
     o[:, :2] = rs.uniform(-40, -5, (n_rays, 2))
@@ -81,7 +85,7 @@ def tie_soup(n_rays=3001, seed=0):
     mint = np.zeros(n_rays, np.float32)
     maxt = np.full(n_rays, 3e38, np.float32)
     maxt[::5] = -1.0
-    return o, d, mint, maxt, slabs, cb
+    return o, d, mint, maxt, slabs, cb, tri9
 
 
 def _assert_pair_matches_plain(rays, slabs, cb, window):
@@ -127,7 +131,7 @@ def test_pair_kernels_match_plain(cuda_device, K, window, n):
 def test_pair_kernels_break_ties_by_lowest_prim(cuda_device):
     """On the tie soup the near-to-far walk meets the higher prim first;
     both kernels still equal pair_plain, which takes the lowest prim."""
-    o, d, mint, maxt, slabs, cb = _on(cuda_device, tie_soup())
+    o, d, mint, maxt, slabs, cb, _ = _on(cuda_device, tie_soup())
     got, occ = _assert_pair_matches_plain((o, d, mint, maxt), slabs, cb, 128)
     tie = got.prim == TIE_LOW
     assert tie.float().mean() > 0.5
@@ -281,89 +285,106 @@ def test_mt_kernels_ray_sort_changes_nothing(cuda_device):
             assert torch.equal(a, b)
 
 
-def _mt_pair(window, K):
-    return (trace.make_mt_intersector(window, K, ray_sort=False),
-            trace.make_mt_occluder(window, K, ray_sort=False))
+def _block_pair(variant, window, K):
+    if variant == "mt":
+        return (trace.make_mt_intersector(window, K, ray_sort=False),
+                trace.make_mt_occluder(window, K, ray_sort=False))
+    return (trace.make_tri9_intersector(window, K),
+            trace.make_tri9_occluder(window, K))
+
+
+VARIANTS = pytest.mark.parametrize("variant", ["mt", "tri9"])
 
 
 @pytest.mark.cuda
-def test_mt_kernels_break_ties_by_lowest_prim(cuda_device):
-    """The tie soup through v4, several times: whichever warp merges
-    first, the lowest prim among equal minimal t wins, and the results
-    equal pair_plain and the v7 kernels bit for bit."""
-    o, d, mint, maxt, slabs, cb = _on(cuda_device, tie_soup())
+@VARIANTS
+def test_mt_kernels_break_ties_by_lowest_prim(cuda_device, variant):
+    """The tie soup through v4 and v2, several times: whichever warp
+    merges first, the lowest prim among equal minimal t wins, and the
+    results equal the plain version bit for bit (v4: also the v7
+    kernels)."""
+    o, d, mint, maxt, slabs, cb, tri9 = _on(cuda_device, tie_soup())
     rays = (o, d, mint, maxt)
     v7, v7_occ = _assert_pair_matches_plain(rays, slabs, cb, 128)
+    table = slabs if variant == "mt" else tri9
     for _ in range(5):
-        got, occ = _assert_block_matches_plain(*_mt_pair(128, 256), rays,
-                                               slabs, cb)
-        for a, b in zip(got, v7):
-            assert torch.equal(a, b)
-        assert torch.equal(occ, v7_occ)
+        got, occ = _assert_block_matches_plain(
+            *_block_pair(variant, 128, 256), rays, table, cb)
+        if variant == "mt":
+            for a, b in zip(got, v7):
+                assert torch.equal(a, b)
+            assert torch.equal(occ, v7_occ)
         assert (got.prim == TIE_LOW).float().mean() > 0.5
         assert not bool((got.prim == TIE_HIGH).any())
 
 
 @pytest.mark.cuda
+@VARIANTS
 @pytest.mark.parametrize("K, window", [(100, 128), (300, 128), (129, 256),
                                        (40, trace.MAX_WINDOW)])
-@pytest.mark.parametrize("n", [1, 63, 65, 0, 4_099])
-def test_mt_kernels_block_edges(cuda_device, K, window, n):
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 257, 0, 4_099])
+def test_mt_kernels_block_edges(cuda_device, variant, K, window, n):
     """S = 1, a short last supercluster (K = 129, 300), W = 128, 256 and
-    MAX_WINDOW, and batches of 1, 63, 65 and 0 rays (a partial block, a
-    block and one ray, none): v4 equals pair_plain bit for bit."""
+    MAX_WINDOW, and batches of 1, 63, 64, 65, 257 and 0 rays (a partial
+    block, a block, a block and one ray, four blocks and one ray, none):
+    v4 and v2 equal their plain versions bit for bit."""
     soup = _on(cuda_device,
                trace.random_cluster_soup(K, window, K + n, max(n, 2)))
-    o, d, mint, maxt, slabs, cb, _, _ = soup
+    o, d, mint, maxt, _, cb, _, _ = soup
+    table = _table(variant, soup)
     if n < 2:
         o, d, mint, maxt = o[1:1 + n], d[1:1 + n], mint[1:1 + n], \
             maxt[1:1 + n]      # ray 1 is live
-    ck, ok = _mt_pair(window, K)
+    ck, ok = _block_pair(variant, window, K)
     if n == 0:
-        hit, occ = ck(o, d, mint, maxt, slabs, cb), ok(o, d, mint, maxt,
-                                                      slabs, cb)
+        hit, occ = ck(o, d, mint, maxt, table, cb), ok(o, d, mint, maxt,
+                                                      table, cb)
         torch.cuda.synchronize()
         assert hit.t.shape == hit.prim.shape == occ.shape == (0,)
         assert ck.launches == ok.launches == 1
         return
     got, occ = _assert_block_matches_plain(ck, ok, (o, d, mint, maxt),
-                                           slabs, cb)
+                                           table, cb)
     dead = maxt <= mint
     assert not got.valid[dead].any() and not occ[dead].any()
 
 
 @pytest.mark.cuda
-def test_mt_kernels_at_the_supercluster_cap(cuda_device):
+@VARIANTS
+def test_mt_kernels_at_the_supercluster_cap(cuda_device, variant):
     """S = MAX_SUPERS with empty clusters spread wide (every block's
-    worklist holds thousands of entries): v4 equals pair_plain; one more
-    supercluster and the wrapper raises."""
+    worklist holds thousands of entries): v4 and v2 equal their plain
+    versions; one more supercluster and the wrapper raises."""
     soup = _on(cuda_device, trace.random_cluster_soup(300, 128, 5, 1_001))
     K_total = trace.MAX_SUPERS * trace.SUPER_FACTOR
-    o, d, mint, maxt, slabs, cb, _, _ = _with_empty_clusters(
-        soup, K_total, 5, 300)
-    got, _ = _assert_block_matches_plain(*_mt_pair(128, K_total),
-                                         (o, d, mint, maxt), slabs, cb)
+    big = _with_empty_clusters(soup, K_total, 5, 300)
+    o, d, mint, maxt, _, cb, _, _ = big
+    got, _ = _assert_block_matches_plain(*_block_pair(variant, 128, K_total),
+                                         (o, d, mint, maxt),
+                                         _table(variant, big), cb)
     assert got.valid.float().mean() > 0.3
     with pytest.raises(ValueError, match="superclusters"):
-        trace.make_mt_occluder(128, K_total + 1).box_tables(
+        _block_pair(variant, 128, K_total + 1)[1].box_tables(
             torch.cat([cb, cb[:1]]))
 
 
 @pytest.mark.cuda
-def test_mt_kernels_dead_and_missing_blocks(cuda_device):
+@VARIANTS
+def test_mt_kernels_dead_and_missing_blocks(cuda_device, variant):
     """Whole blocks of dead rays, whole blocks of rays that miss every
     supercluster, and both mixed with live blocks: unhit with the miss
     encoding, and the live rays unchanged."""
-    o, d, mint, maxt, slabs, cb, _, _ = _on(
-        cuda_device, trace.random_cluster_soup(200, 128, 3, 64 * 6))
+    soup = _on(cuda_device, trace.random_cluster_soup(200, 128, 3, 64 * 6))
+    o, d, mint, maxt, _, cb, _, _ = soup
+    slabs = _table(variant, soup)
     maxt = maxt.clone()
     maxt[64:128] = -1.0                       # a dead block
     o, d = o.clone(), d.clone()
     o[192:256] += 1000.0                      # a block that misses all
     d[192:256] = torch.tensor([1.0, 0.0, 0.0], device=o.device)
     rays = (o, d, mint, maxt)
-    got, occ = _assert_block_matches_plain(*_mt_pair(128, 200), rays, slabs,
-                                           cb)
+    got, occ = _assert_block_matches_plain(*_block_pair(variant, 128, 200),
+                                           rays, slabs, cb)
     gone = torch.zeros_like(occ)
     gone[64:128] = gone[192:256] = True
     assert not got.valid[gone].any() and not occ[gone].any()
@@ -374,31 +395,36 @@ def test_mt_kernels_dead_and_missing_blocks(cuda_device):
     for sl in (slice(64, 128), slice(192, 256)):      # such a block alone
         part = tuple(x[sl].contiguous() for x in rays)
         alone, alone_occ = _assert_block_matches_plain(
-            *_mt_pair(128, 200), part, slabs, cb)
+            *_block_pair(variant, 128, 200), part, slabs, cb)
         assert not alone.valid.any() and not alone_occ.any()
 
 
 @pytest.mark.cuda
-def test_mt_kernels_negative_mint(cuda_device):
+@VARIANTS
+def test_mt_kernels_negative_mint(cuda_device, variant):
     """Hits at negative t (mint = -5 from inside the cloud): the merged
     (t, prim) words still order as the floats do."""
-    o, d, mint, maxt, slabs, cb, _, _ = _on(
-        cuda_device, trace.random_cluster_soup(200, 128, 8, 3_001))
+    soup = _on(cuda_device, trace.random_cluster_soup(200, 128, 8, 3_001))
+    o, d, mint, maxt, _, cb, _, _ = soup
     mint = torch.full_like(mint, -5.0)
-    got, _ = _assert_block_matches_plain(*_mt_pair(128, 200),
-                                         (o, d, mint, maxt), slabs, cb)
+    got, _ = _assert_block_matches_plain(*_block_pair(variant, 128, 200),
+                                         (o, d, mint, maxt),
+                                         _table(variant, soup), cb)
     assert bool((got.t[got.valid] < 0).any())
 
 
 @pytest.mark.cuda
-def test_mt_visit_counts(cuda_device):
-    """count_visits launches the counting instantiation: the same hits;
-    every (ray, cluster) pair the final t needs is swept and no more than
-    the pairs against maxt; a slab is read at most once per (block,
-    cluster) pair and at least once per cluster holding a hit."""
-    o, d, mint, maxt, slabs, cb, _, _ = _on(
-        cuda_device, trace.random_cluster_soup(300, 128, 2, 5_001))
-    ck, ok = _mt_pair(128, 300)
+@VARIANTS
+def test_mt_visit_counts(cuda_device, variant):
+    """count_visits launches the counting instantiation of v4 and of v2:
+    the same hits; every (ray, cluster) pair the final t needs is swept
+    and no more than the pairs against maxt; a slab is read at most once
+    per (block, cluster) pair and at least once per cluster holding a
+    hit."""
+    soup = _on(cuda_device, trace.random_cluster_soup(300, 128, 2, 5_001))
+    o, d, mint, maxt, _, cb, _, _ = soup
+    slabs = _table(variant, soup)
+    ck, ok = _block_pair(variant, 128, 300)
     ref = ck(o, d, mint, maxt, slabs, cb)
     got, sweeps, reads, entered = ck.count_visits(o, d, mint, maxt, slabs,
                                                   cb)
@@ -420,9 +446,6 @@ def test_mt_visit_counts(cuda_device):
     assert 0 < o_reads <= block_pairs
     n_blocks = -(-o.shape[0] // 64)
     assert 0 < entered <= 3 * n_blocks
-    with pytest.raises(ValueError, match="counts no visits"):
-        trace.make_tri9_intersector(128, 300).count_visits(
-            o, d, mint, maxt, slabs, cb)
 
 
 def _with_empty_clusters(soup, K_total, seed, spread=10):

@@ -1,7 +1,7 @@
-"""A/B timings of design variants of the v7 pair kernels, of the v4 block
-kernels or of the sweep kernels on one NVIDIA card.
+"""A/B timings of design variants of the v7 pair kernels, of the v4 or v2
+block kernels or of the sweep kernels on one NVIDIA card.
 
-    python3 tools/torch_pair_variants.py [--kernel pair|mt|sweep]
+    python3 tools/torch_pair_variants.py [--kernel pair|mt|tri9|sweep]
                                          [--parent DIR] [--variants A,B]
                                          [--json PATH]
 
@@ -45,6 +45,9 @@ and one probe, timed but not checked (its results are not the kernel's):
             striding over the batch) instead of one block per 64 rays
   idjobs    an item's members swept in ascending id instead of nearest
             first
+  guard     1/det taken of 1 where det == 0 (padding columns), with
+            det != 0 ANDed into the hit, instead of __frcp_rn's slow path
+            for 0
   rays32    blocks of 32 rays and 1 warp, sixteen an SM
   regs100   ten blocks an SM: at most 100 registers
   regs80    twelve blocks an SM: at most 80 registers (spills)
@@ -58,6 +61,28 @@ kernel's):
             none (no hit lowers a t, so more entries are entered)
 The step "lanes across triangles instead of one thread a ray" is undone
 by the parent: the kernel of the commit before the redesign.
+--kernel tri9 builds csrc/trace_block.cu ("new") and, of its v2 kernels
+(tri9_closest, tri9_occluded; the Tri9Slab instantiations of the walk):
+  noguard   the reciprocal taken of every det, 0 included (its slow path
+            on every padding slot), instead of 1 where |det| <= 1e-12
+  rcp       1/det by __frcp_rn instead of __fdiv_rn
+  branch    the test returns early where |det| <= 1e-12 (the PR 3 test's
+            branch) instead of ANDing the predicate into the hit
+  per8      8 triangles a lane: half-warp h takes every other ray of the
+            list, lane l of it triangles 8(l mod 16)..+7 of the tile (two
+            float4s a row, 72 registers) instead of 4 triangles a lane
+  any8      the v2 any-hit instantiations bounded to 8 blocks an SM (at
+            most 128 registers a thread), as the closest-hit ones are,
+            instead of 12 (80)
+  blocks10, blocks12, blocks16  both v2 queries bounded to 10 (12, 16)
+            blocks an SM, at most 96 (80, 64) registers a thread
+and the parent is the PR 3 walk (one thread a ray, tiles staged in shared
+memory for the block's union of clusters), which takes cbounds and [S, 6]
+supercluster bounds.  Its batches are the forest's (below, on tri9 slabs
+built on the card by ops/trace.tri9_from_soup) and random soups of K = 300
+clusters at W = 128 and 256 with 1,048,576 rays
+(ops/trace.random_cluster_soup); the render is not run (no render path
+launches v2).
 --kernel sweep builds csrc/sweep.cu (sweep_closest, sweep_occluded) and:
   threads128, threads512, threads1024  blocks of 128 / 512 / 1,024 threads
             (rays) instead of 256
@@ -140,8 +165,13 @@ MODES = {
                  marker="int* next_ray", counts=("swept", "supers"),
                  profile=("pair_",), env=None),
     "mt": dict(src=trace._BLOCK_SRC, fns=("mt_closest", "mt_occluded"),
-               marker="launch_mt", counts=("sweeps", "reads", "entered"),
-               profile=("mt_kernel", "block_kernel"), env="v4"),
+               marker="const float* members",
+               counts=("sweeps", "reads", "entered"),
+               profile=("walk_kernel", "mt_kernel", "block_kernel"),
+               env="v4"),
+    "tri9": dict(src=trace._BLOCK_SRC, fns=("tri9_closest", "tri9_occluded"),
+                 marker="Tri9Slab", counts=("sweeps", "reads", "entered"),
+                 profile=None, env=None),
     "sweep": dict(src=sweep._SRC, fns=("sweep_closest", "sweep_occluded")),
 }
 
@@ -221,8 +251,8 @@ def strided(src):
                "const int p = k * W + j0 + lane + 32 * q;")
 
 
-SWEEP_CALL = ("      sweep<kAnyHit>(sm, slabs, s * kSuper + m, W, rays, blo, "
-              "bhi, n);\n")
+SWEEP_CALL = ("      sweep<Slab, kAnyHit>(sm, table, s * kSuper + m, W, rays, "
+              "blo,\n                           bhi, n);\n")
 
 
 def no_reuse(src):
@@ -231,10 +261,10 @@ def no_reuse(src):
     return sub(src, SWEEP_CALL,
                "      for (unsigned long long one = rays; one; one &= one - 1) "
                "{\n"
-               "        const float* again = slabs;\n"
+               "        const float* again = table;\n"
                "        asm volatile(\"\" : \"+l\"(again));\n"
-               "        sweep<kAnyHit>(sm, again, s * kSuper + m, W, one & "
-               "(~one + 1), blo, bhi, n);\n"
+               "        sweep<Slab, kAnyHit>(sm, again, s * kSuper + m, W, "
+               "one & (~one + 1), blo, bhi, n);\n"
                "      }\n")
 
 
@@ -306,19 +336,27 @@ def persistent(src):
                "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, "
                "0);\n"
                "  const int all = (n_rays + kRays - 1) / kRays;\n"
-               "  kernel<<<all < sms * kBlocksPerSm ? all : sms * kBlocksPerSm, "
-               "kThreads, smem,\n")
+               "  kernel<<<all < sms * Slab::kBlocksPerSm ? all : sms * "
+               "Slab::kBlocksPerSm, kThreads, smem,\n")
+
+
+MT_BLOCKS = ("  static constexpr int kBlocksPerSm = 8, kAnyBlocksPerSm = 8;   "
+             "// 128 regs\n")
+TRI9_BLOCKS = ("  static constexpr int kBlocksPerSm = 8, kAnyBlocksPerSm = 12;"
+               "\n")
+
+
+def const(s, name, old, new):
+    return sub(s, f"constexpr int {name} = {old};",
+               f"constexpr int {name} = {new};")
 
 
 def mt_variants(src):
-    def const(s, name, old, new):
-        return sub(s, f"constexpr int {name} = {old};",
-                   f"constexpr int {name} = {new};")
-
     def blocks(s, warps, per_sm):
         """Blocks of `warps` warps, `per_sm` of them an SM (the registers
         a thread may hold follow: 65,536 / (32 * warps * per_sm))."""
-        return const(const(s, "kWarps", 2, warps), "kBlocksPerSm", 8, per_sm)
+        return sub(const(s, "kWarps", 2, warps), MT_BLOCKS,
+                   MT_BLOCKS.replace("= 8", f"= {per_sm}"))
     return {
         "new": src,
         "noreuse": no_reuse(src),
@@ -335,6 +373,14 @@ def mt_variants(src):
                       "          near[j] = (unsigned)(32 * j + lane);\n"),
         "rays32": const(const(blocks(src, 1, 16), "kRays", 64, 32), "kGroup",
                         64, 32),
+        "guard": sub(sub(src, "  const float inv = __frcp_rn(det);\n",
+                         "  const bool nz = det != 0.0f;\n"
+                         "  const float inv = __frcp_rn(nz ? det : 1.0f);\n"),
+                     "  return (u >= 0.0f) & (v >= 0.0f) & (__fadd_rn(u, v) "
+                     "<= 1.0f) &\n         (t > mint) & (t < maxt);\n",
+                     "  return nz & (u >= 0.0f) & (v >= 0.0f) & "
+                     "(__fadd_rn(u, v) <= 1.0f) &\n         (t > mint) & "
+                     "(t < maxt);\n"),
         "regs100": blocks(src, 2, 10),
         "regs80": blocks(src, 2, 12),
         "group8": const(src, "kGroup", 64, 8),
@@ -342,6 +388,111 @@ def mt_variants(src):
         "probe_sort": sub(src, "  const int n_items = n_entries * kSplit;\n",
                           "  const int n_items = 0;\n"),
         "probe_lists": sub(src, SWEEP_CALL, ""),
+    }
+
+
+PER8 = """// (variant) 8 triangles a lane: half-warp h tests every other listed
+// ray, lane l of it triangles 8(l mod 16)..8(l mod 16)+7 of the tile
+template <class Slab, bool kAnyHit, typename Counts>
+__device__ __forceinline__ void sweep8(BlockRays& sm,
+                                       const float* __restrict__ table,
+                                       int k, int W, unsigned long long rays,
+                                       const float (&lo)[3],
+                                       const float (&hi)[3], Counts& n) {
+  if constexpr (!std::is_same<Slab, Tri9Slab>::value) {
+    sweep<Slab, kAnyHit>(sm, table, k, W, rays, lo, hi, n);
+  } else {
+    const int lane = threadIdx.x & 31, half = lane >> 4, li = lane & 15;
+    unsigned long long left = 0ull;
+#pragma unroll
+    for (int h = 0; h < kRays / 32; ++h) {
+      unsigned stays;
+      if constexpr (kAnyHit) {
+        // one list for the whole warp: the halves pair its rays alike
+        stays = __shfl_sync(kFull, peek(&sm.active[h]), 0);
+      } else {
+        const int r = 32 * h + lane;
+        float tn;
+        stays = __ballot_sync(kFull, ray_box(lo, hi, sm.om[r], sm.im[r],
+                                             bound_of(sm, r), tn));
+      }
+      left |= (unsigned long long)stays << (32 * h);
+    }
+    left &= rays;
+    if (!left) return;
+    n.add(kReads);
+    const float* slab = table + (size_t)k * 16 * W + 8 * li;
+    for (int j0 = 0; j0 < W; j0 += kTile) {
+      float4 a[9], b[9];
+#pragma unroll
+      for (int f = 0; f < 9; ++f) {
+        a[f] = load4(slab + j0 + f * (size_t)W);
+        b[f] = load4(slab + j0 + f * (size_t)W + 4);
+      }
+      for (unsigned long long bits = left; bits;) {
+        const int r0 = __ffsll((long long)bits) - 1;
+        bits &= bits - 1;
+        int r1 = -1;
+        if (bits) {
+          r1 = __ffsll((long long)bits) - 1;
+          bits &= bits - 1;
+        }
+        const bool a0 = !kAnyHit || is_active(sm, r0);
+        const bool a1 = r1 >= 0 && (!kAnyHit || is_active(sm, r1));
+        if (a0) n.add(kSweeps);
+        if (a1) n.add(kSweeps);
+        const int r = half ? r1 : r0;
+        if (!(half ? a1 : a0)) continue;
+        const float4 om = sm.om[r];
+        const float maxt = sm.im[r].w;
+        const Tri9Slab::Ray ray = Tri9Slab::ray(sm, r, om);
+        bool any = false;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          float c[9];
+#pragma unroll
+          for (int f = 0; f < 9; ++f) c[f] = comp(q < 4 ? a[f] : b[f], q & 3);
+          float t, u, v;
+          if (tri9_hit(c, ray.o, ray.d, om.w, maxt, t, u, v)) {
+            if constexpr (kAnyHit) {
+              any = true;
+            } else {
+              const unsigned p = (unsigned)(k * W + j0 + 8 * li + q);
+              atomicMin(&sm.best[r],
+                        ((unsigned long long)ord(__fadd_rn(t, 0.0f)) << 32) |
+                            p);
+            }
+          }
+        }
+        if (kAnyHit && any) atomicAnd(&sm.active[r >> 5], ~(1u << (r & 31)));
+      }
+    }
+  }
+}
+
+"""
+
+
+def tri9_variants(src):
+    def blocks(s, closest, any_hit):
+        return sub(s, TRI9_BLOCKS, TRI9_BLOCKS.replace("= 8,", f"= {closest},")
+                   .replace("= 12;", f"= {any_hit};"))
+    inv = "  const float inv_det = __fdiv_rn(1.0f, big ? det : 1.0f);\n"
+    walk = "template <class Slab, bool kAnyHit, bool kCount>\n__global__"
+    per8 = sub(sub(sub(src, walk, PER8 + walk), SWEEP_CALL,
+                   SWEEP_CALL.replace("sweep<", "sweep8<")),
+               "#include <stdint.h>\n", "#include <stdint.h>\n\n"
+               "#include <type_traits>\n")
+    return {
+        "new": src,
+        "noguard": sub(src, inv, inv.replace("big ? det : 1.0f", "det")),
+        "rcp": sub(src, inv, inv.replace("__fdiv_rn(1.0f, ", "__frcp_rn(")),
+        "branch": sub(src, inv, "  if (!big) return false;\n" + inv),
+        "per8": per8,
+        "any8": blocks(src, 8, 8),
+        "blocks10": blocks(src, 10, 10),
+        "blocks12": blocks(src, 12, 12),
+        "blocks16": blocks(src, 16, 16),
     }
 
 
@@ -562,10 +713,6 @@ sweep_occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
 
 def sweep_variants(src):
-    def const(s, name, old, new):
-        return sub(s, f"constexpr int {name} = {old};",
-                   f"constexpr int {name} = {new};")
-
     def persist(s):
         for end in ("  prim_out[i] = bj;\n}\n",
                     "  occ_out[i] = hit ? 1 : 0;\n}\n"):
@@ -861,7 +1008,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(MODES), default="pair",
                     help="the kernels to vary: the v7 pair kernels, the "
-                    "v4 block kernels or the sweep kernels")
+                    "v4 or v2 block kernels or the sweep kernels")
     ap.add_argument("--parent", help="an unpacked checkout of another "
                     "commit whose kernels to time beside these")
     ap.add_argument("--variants", help="comma-separated names: build only "
@@ -877,6 +1024,7 @@ def main():
     mode = MODES[args.kernel]
     with open(mode["src"]) as f:
         sources = {"pair": variants, "mt": mt_variants,
+                   "tri9": tri9_variants,
                    "sweep": sweep_variants}[args.kernel](f.read())
     if args.variants is not None:
         keep = {"new", *filter(None, args.variants.split(","))}
@@ -908,18 +1056,14 @@ def main():
     dev = torch.device("cuda:0")
     scene, st, _ = cs.load_forest(dev)
     g = scene.geom
-    K, W = g.cbounds.shape[0], st.cluster_window
-    tables = trace.make_pair_intersector(W, K).box_tables(g.cbounds)
-    S = tables[0].shape[1]
-    # the older interface's tables: [S, 6] supercluster bounds and cbounds
-    # (padded to whole superclusters for the aos variant, which reads the
-    # padding members' boxes before it drops them)
-    aos_tables = (torch.cat([g.cbounds, g.cbounds.new_zeros(
-        (S * trace.SUPER_FACTOR - K, 6))]),
-        trace._super_bounds(g.cbounds).contiguous())
+    W = st.cluster_window
+    if args.kernel == "tri9":
+        forest = soup_tables(trace.tri9_from_soup(g.tris, W), g.cbounds, W)
+    else:
+        forest = soup_tables(g.mt_slabs, g.cbounds, W)
     n_counts = len(mode["counts"])
 
-    def call(name, any_hit, rays, stats=None):
+    def call(name, any_hit, rays, soup, stats=None):
         N = rays[0].shape[0]
         if any_hit:
             outs = [torch.empty(N, dtype=torch.bool, device=dev)]
@@ -930,39 +1074,47 @@ def main():
         fn = libs[name][any_hit]
         stream = torch.cuda.current_stream().cuda_stream
         if new_iface[name]:
-            tabs = aos_tables[::-1] if name == "aos" else tables
+            tabs = soup["aos"][::-1] if name == "aos" else soup["soa"]
             extra = [None if stats is None else stats.data_ptr()]
             if args.kernel == "pair":
                 extra.insert(0, torch.zeros(1, dtype=torch.int32,
                                             device=dev).data_ptr())
         else:
-            tabs, extra = aos_tables, []
-        err = fn(*(x.data_ptr() for x in (*rays, g.mt_slabs, *tabs)), N, K,
-                 S, W, *(x.data_ptr() for x in outs), *extra, stream)
+            tabs, extra = soup["aos"], []
+        err = fn(*(x.data_ptr() for x in (*rays, soup["table"], *tabs)),
+                 N, soup["K"], soup["S"], soup["W"],
+                 *(x.data_ptr() for x in outs), *extra, stream)
         if err:
             raise RuntimeError(f"{name}: CUDA error {err}")
         return outs
 
-    batches = dict(zip(("camera", "shadow", "bounce"),
-                       cs.forest_rays(scene, st, cs.N_TIMED, dev)))
-    batches.update(zip(("camera raster", "shadow raster", "bounce raster"),
-                       cs.forest_rays(scene, st, cs.N_TIMED, dev,
-                                      raster=True)))
+    names = ("camera", "shadow", "bounce")
+    batches = [(name, rays, forest) for name, rays in zip(
+        names, cs.forest_rays(scene, st, cs.N_TIMED, dev))]
+    batches += [(f"{name} raster", rays, forest) for name, rays in zip(
+        names, cs.forest_rays(scene, st, cs.N_TIMED, dev, raster=True))]
+    if args.kernel == "tri9":
+        for w in (128, 256):
+            o, d, mint, maxt, _, cb, _, tri9 = (
+                torch.from_numpy(a).to(dev)
+                for a in trace.random_cluster_soup(300, w, w, cs.N_TIMED))
+            batches.append((f"soup K=300 W={w}", (o, d, mint, maxt),
+                            soup_tables(tri9, cb, w)))
     names = [n for n in libs if n != "parent"]
     order = (["parent"] if "parent" in libs else []) + names + names[::-1] \
         + (["parent"] if "parent" in libs else [])
     res = {"card": cs.card_line(), "ptxas": ptxas, "kernels": {}}
-    for batch, rays in batches.items():
+    for batch, rays, soup in batches:
         live = int((rays[3] > rays[2]).sum())
         for any_hit in (False, True):
             query = "any" if any_hit else "closest"
-            ref = call("new", any_hit, rays)
+            ref = call("new", any_hit, rays, soup)
             for name in libs:
-                got = call(name, any_hit, rays)
+                got = call(name, any_hit, rays, soup)
                 stats = torch.zeros(n_counts, dtype=torch.int64, device=dev)
                 probe = name.startswith("probe_")
                 if new_iface[name] and not probe:
-                    call(name, any_hit, rays, stats)
+                    call(name, any_hit, rays, soup, stats)
                 torch.cuda.synchronize()
                 if not probe and not all(torch.equal(a, b)
                                          for a, b in zip(got, ref)):
@@ -972,14 +1124,14 @@ def main():
                     ms=[], sorted_ms=[])
             for name in order:
                 res["kernels"][f"{batch}/{query}/{name}"]["ms"].append(
-                    cs.cuda_ms(lambda: call(name, any_hit, rays), iters=5,
-                               warmup=1))
+                    cs.cuda_ms(lambda: call(name, any_hit, rays, soup),
+                               iters=5, warmup=1))
             if args.kernel == "mt":      # with the GDMT_RAY_SORT sort around
                 box = (g.cbounds[:, 0:3].amin(0), g.cbounds[:, 3:6].amax(0))
 
                 def sorted_run(name):
                     def fn(*srt):
-                        out = call(name, any_hit, srt)
+                        out = call(name, any_hit, srt, soup)
                         return out[0] if any_hit else isec.Hit(
                             *out, valid=out[3] >= 0)
                     return trace.sorted_call(fn, any_hit, *rays, *box)
@@ -1003,10 +1155,26 @@ def main():
                     + ("; ray sort on: ms " + ", ".join(
                         f"{x:.4f}" for x in r["sorted_ms"])
                        if r["sorted_ms"] else ""))
-    if "parent" in libs:
-        res["render"] = time_render(scene, st, call, mode)
+    if "parent" in libs and mode["env"]:
+        res["render"] = time_render(
+            scene, st, lambda name, any_hit, rays: call(name, any_hit, rays,
+                                                        forest), mode)
     log(cs.card_line())
     write_json(args.json, res)
+
+
+def soup_tables(table, cbounds, window):
+    """What a launch passes besides the rays: the slab table, the SoA box
+    tables, the older interface's [S, 6] supercluster bounds and cbounds
+    (padded to whole superclusters for the aos variant, which reads the
+    padding members' boxes before it drops them), K, S and W."""
+    K = cbounds.shape[0]
+    soa = trace.make_pair_intersector(window, K).box_tables(cbounds)
+    S = soa[0].shape[1]
+    aos = (torch.cat([cbounds, cbounds.new_zeros(
+        (S * trace.SUPER_FACTOR - K, 6))]),
+        trace._super_bounds(cbounds).contiguous())
+    return dict(table=table, soa=soa, aos=aos, K=K, S=S, W=window)
 
 
 def write_json(path, res):
