@@ -25,7 +25,10 @@ its time):
      idle share, the sweeps' own device time and share of the wall) with
      each sweep launch bracketed by CUDA events (in this host-bound render
      an event span also holds the launch's wait for the host);
-  4. cbox kernel render vs plain render at 64x64, 4 spp, same seed;
+  4. cbox kernel render vs plain render at 64x64, 4 spp, same seed, and
+     one profile of the kernel render read both ways (the raw device
+     events phases 3 and 12 sum, and key_averages' per-op tables): equal
+     device op counts and busy times within 0.1%;
   5. pair kernels vs plain: both pair kernels against their plain version
      on random multi-cluster soups (W = 128, 256) and on the full forest
      (3.08M triangles) with camera, shadow and cosine-sampled bounce rays,
@@ -68,7 +71,30 @@ its time):
      render; then phase 7's G-PT render_final under v4 against the same
      call under v7;
  11. the v2 path: the v2 wrappers (make_tri9_intersector / _occluder) on
-     the three whole forest batches, launch counters reset just before.
+     the three whole forest batches, launch counters reset just before;
+ 12. slice 8: cbox 256x256, 16 spp, maxDepth 6, BDPTracer.render and
+     GBDPTracer.render + L1 reconstruct, each timed after a 1-spp warm-up
+     with the sweep kernels' launch counters reset just before it (wall,
+     rays, Mrays/s, launches), then one more render of each under
+     torch.profiler (device busy time, device ops, the sweeps' share);
+     G-BDPT primal + very_direct against the BDPT image (rtol 2e-4, atol
+     2e-5) and the BDPT mean against a 16-spp PathTracer mean (3%);
+ 13. every sweep call of one 256x256 pass of BDPT and of G-BDPT (eye and
+     light walks, the batched t=1 camera shadow rays, G-BDPT's offset
+     primaries; dead lanes included) against the plain versions at phase
+     2's tolerances; BDPT and G-BDPT at 64x64, 4 spp through the kernels
+     and through the plain versions (phase 4's tolerances and L1
+     objective check), and a second kernel render of each, bit for bit
+     (the light image's deterministic scatter);
+ 14. G-BDPT gradients: E[dx] at 64x64, maxDepth 2, 48 spp against the
+     finite difference of a 256-spp primal (tests/test_bdpt.py's
+     thresholds: rms ratio < 0.55, correlation > 0.85);
+ 15. step B families through factory.make_integrator: direct, ao, field
+     (shNormal), multichannel (path + ao) at 256x256, 16 spp and adaptive
+     at 64x64, 4 spp (finite pixels, mean |I| > 1e-5, sweeps launched);
+     adaptive once more through the plain versions, same seed: the
+     sample maps equal and the images within phase 4's tolerance on >= 99%
+     of pixels, means within 1e-3.
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -324,10 +350,10 @@ def cbox_rays(scene, settings, n, dev, seed=0):
     return (o, d, mint, maxt), (so, ds.d.contiguous(), mint, smaxt)
 
 
-def render_calls(scene, st):
-    """The sweep calls of one pass of the G-PT render of `scene` at `st`:
-    ([(any_hit, (o, d, mint, maxt))], inputs cloned; passes a render)."""
-    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+def render_calls(tracer, scene, n_samples):
+    """The sweep calls of one render_chunk of `tracer` (n_samples samples
+    a pixel from sample 0, seed 0): [(any_hit, (o, d, mint, maxt))],
+    inputs cloned, dead lanes included."""
     from gradientdomain_mitsuba_tpu_torch.ops import sweep
     calls = []
     launch = sweep.SweepKernel._launch
@@ -337,18 +363,49 @@ def render_calls(scene, st):
                                                            maxt))))
         return launch(k, o, d, mint, maxt, recs)
 
-    tracer = GPTracer(scene, st)
-    spb = tracer.samples_per_batch(st.spp)
     sweep.SweepKernel._launch = capture
     try:
-        tracer.render_chunk(scene, 0, 0, spb)
+        tracer.render_chunk(scene, 0, 0, n_samples)
         torch.cuda.synchronize()
     finally:
         sweep.SweepKernel._launch = launch
-    return calls, st.spp // spb
+    return calls
+
+
+def check_render_calls(label, calls, linC):
+    """Hold every captured sweep call against the plain versions (both
+    sweeps on each call's rays, phase 2's tolerances); prints the calls'
+    lane counts and how many agree bit for bit."""
+    from gradientdomain_mitsuba_tpu_torch.ops import sweep
+    n_tris = linC.shape[1] // 4
+    ks = (sweep.make_sweep_intersector(n_tris),
+          sweep.make_sweep_occluder(n_tris))
+    exact, worst = 0, (1.0, 0.0, 1.0)
+    for any_hit, rays in calls:
+        pf, _, mr, of, _ = compare(ks, (*rays, linC))
+        check(pf >= PRIM_FRAC and mr <= T_RTOL and of >= OCC_FRAC,
+              f"{label}: kernel vs plain disagree on a "
+              f"{rays[0].shape[0]}-lane {'any-hit' if any_hit else 'closest'}"
+              f" call")
+        exact += pf == 1.0 and mr == 0.0 and of == 1.0
+        worst = (min(worst[0], pf), max(worst[1], mr), min(worst[2], of))
+    for any_hit in (False, True):
+        lanes = [int(r[0].shape[0]) for a, r in calls if a == any_hit]
+        dead = sum(int((r[3] <= r[2]).sum()) for a, r in calls
+                   if a == any_hit) / max(sum(lanes), 1)
+        sizes = ", ".join(f"{lanes.count(n)} x {n}"
+                          for n in sorted(set(lanes)))
+        log(f"  {label} {'any-hit' if any_hit else 'closest'} calls of one "
+            f"pass: {sizes} lanes ({dead:.4f} dead)")
+    log(f"  {label}: {len(calls)} calls held against plain, {exact} bit "
+        f"for bit; worst prim agree {worst[0]:.6f}, t rel {worst[1]:.3e}, "
+        f"occluded agree {worst[2]:.6f}")
+    check(all(any(a == h for a, _ in calls) for h in (False, True)),
+          f"{label}: one pass made no call of a sweep")
 
 
 def phase_kernels(dev, kernels_rec):
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
     from gradientdomain_mitsuba_tpu_torch.ops import intersect as isec
     from gradientdomain_mitsuba_tpu_torch.ops import sweep
     from gradientdomain_mitsuba_tpu_torch.scene import bridge
@@ -443,7 +500,10 @@ def phase_kernels(dev, kernels_rec):
 
     # the render's own calls: one pass of the cbox render (4 of its 64
     # spp, 256x256, five lockstep paths a lane), captured
-    calls, passes = render_calls(scene, st)
+    tracer = GPTracer(scene, st)
+    spb = tracer.samples_per_batch(st.spp)
+    calls = render_calls(tracer, scene, spb)
+    passes = st.spp // spb
     for i, k in enumerate(ks):
         mine = [rays for any_hit, rays in calls if any_hit == k.any_hit]
         check(len(mine) > 0, f"one render pass made no {k.name} call")
@@ -465,22 +525,27 @@ def phase_kernels(dev, kernels_rec):
             f"{sum(per) * passes:.3f} ms a render")
 
 
+def use_plain(tracer):
+    """Swap a tracer's intersectors for the sweep kernels' plain versions
+    (for the kernel-vs-plain comparisons only)."""
+    from gradientdomain_mitsuba_tpu_torch.ops import common
+    from gradientdomain_mitsuba_tpu_torch.ops import intersect as isec
+    tracer.closest, tracer.occluded = common.instrument_intersectors(
+        tracer,
+        lambda o, d, mn, mx, g: isec.intersect_matmul(o, d, mn, mx, g.linC),
+        lambda o, d, mn, mx, g: isec.occluded_matmul(o, d, mn, mx, g.linC))
+    return tracer
+
+
 def render(scene, st, seed, spp, mode="L1", plain=False):
     """One render_final through the package's entry points.  plain=True
     swaps the tracer's intersectors for the plain versions (for the
     kernel-vs-plain comparison only)."""
     from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
-    from gradientdomain_mitsuba_tpu_torch.ops import common
-    from gradientdomain_mitsuba_tpu_torch.ops import intersect as isec
     tracer = GPTracer(scene, st)
     tracer.count_rays = True
     if plain:
-        tracer.closest, tracer.occluded = common.instrument_intersectors(
-            tracer,
-            lambda o, d, mn, mx, g: isec.intersect_matmul(o, d, mn, mx,
-                                                          g.linC),
-            lambda o, d, mn, mx, g: isec.occluded_matmul(o, d, mn, mx,
-                                                         g.linC))
+        use_plain(tracer)
     final, bufs = tracer.render_final(scene, seed, spp, alpha=0.2,
                                       mode=mode)
     return tracer, final, bufs
@@ -561,12 +626,15 @@ def phase_slice(dev, kernels_rec):
                 profiled=prof)
 
 
-def profiled_render(run, key):
-    """run() (one render) under torch.profiler (device activity only:
-    the host's ops would take a minute to gather): its wall, the device's
-    busy time (the sum of its kernels' times), the number of device ops,
-    and the device time and launches of the kernels whose name holds
-    `key`."""
+def profiled_render(run, key, both_readers=False):
+    """run() (one render) under torch.profiler (device activity only):
+    its wall, the device's busy time (the sum of its kernels' times), the
+    number of device ops, and the device time and launches of the kernels
+    whose name holds `key`.  It sums the profiler's raw device events:
+    building its per-op tables (key_averages) takes about a minute for a
+    render of 400,000 device ops.  both_readers=True also sums the same
+    profile's key_averages() rows, as busy_ms_table and
+    device_ops_table, so the two readers can be compared."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -574,14 +642,25 @@ def profiled_render(run, key):
         run()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    mine = [e for e in rows if key in e.key]
-    return dict(wall_ms=wall * 1e3,
-                busy_ms=sum(e.self_device_time_total for e in rows) / 1e3,
-                device_ops=sum(e.count for e in rows),
-                kernel_ms=sum(e.self_device_time_total for e in mine) / 1e3,
-                kernel_calls=sum(e.count for e in mine))
+    t0 = time.time()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    mine = [e for e in events if key in e.name()]
+    out = dict(wall_ms=wall * 1e3,
+               busy_ms=sum(e.duration_ns() for e in events) / 1e6,
+               device_ops=len(events),
+               kernel_ms=sum(e.duration_ns() for e in mine) / 1e6,
+               kernel_calls=len(mine))
+    log(f"  (profile read in {time.time() - t0:.3f} s)")
+    if both_readers:
+        t0 = time.time()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        out.update(
+            busy_ms_table=sum(e.self_device_time_total for e in rows) / 1e3,
+            device_ops_table=sum(e.count for e in rows))
+        log(f"  (key_averages read in {time.time() - t0:.3f} s)")
+    return out
 
 
 def _l1_energy(x, p, gx, gy, alpha=0.2):
@@ -605,6 +684,18 @@ def phase_render_vs_plain(dev):
     scene = bridge.to_torch(scene_np, dev)
     _, fk, bk = render(scene, st, 5, 4)
     _, fp, bp = render(scene, st, 5, 4, plain=True)
+    # one profile of the kernel render read both ways: the raw device
+    # events (phases 3 and 12) and the per-op tables
+    prof = profiled_render(lambda: render(scene, st, 5, 4), "sweep_",
+                           both_readers=True)
+    log(f"  profiled 64x64 render, raw events vs key_averages: busy "
+        f"{prof['busy_ms']:.6f} vs {prof['busy_ms_table']:.6f} ms, device "
+        f"ops {prof['device_ops']} vs {prof['device_ops_table']}; wall "
+        f"{prof['wall_ms']:.3f} ms")
+    check(prof["device_ops"] == prof["device_ops_table"] and
+          abs(prof["busy_ms"] - prof["busy_ms_table"]) <=
+          1e-3 * prof["busy_ms_table"],
+          "the two profile readers disagree")
     torch.cuda.synchronize()
     rk, rp = int(bk["rays"]), int(bp["rays"])
     log(f"64x64 4spp kernel vs plain: rays {rk} vs {rp}")
@@ -1283,6 +1374,270 @@ def phase_v2_path(recs, forest, pair_out, tri9):
     check(ck.launches == 2 and ok.launches == 1, "v2 path launch counts")
 
 
+# ---------------------------------------------------------------------------
+# slice 8: the bidirectional family (BDPT, G-BDPT + reconstruction) and the
+# step-B integrators (direct, ao, field, multichannel, adaptive) on cbox
+
+def load_cbox(dev, size, spp, depth, integrator):
+    from gradientdomain_mitsuba_tpu_torch.scene import bridge
+    from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
+    scene_np, st = sc.load_scene(CBOX, {
+        "width": str(size), "height": str(size), "spp": str(spp),
+        "maxDepth": str(depth), "integrator": integrator})
+    return bridge.to_torch(scene_np, dev), st
+
+
+def bidir_render(tracer, scene, seed, spp):
+    """BDPT: the image.  G-BDPT: (L1 final via poisson.reconstruct, the
+    buffers render returns)."""
+    from gradientdomain_mitsuba_tpu_torch.models import poisson
+    out = tracer.render(scene, seed=seed, spp=spp)
+    if isinstance(out, dict):
+        return poisson.reconstruct(out, mode="L1"), out
+    return out
+
+
+def phase_bidir_slice(dev):
+    """BDPT and G-BDPT (+ L1) on cbox 256^2, 16 spp, maxDepth 6."""
+    from gradientdomain_mitsuba_tpu_torch.models.bdpt import BDPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    size, spp, depth = 256, 16, 6
+    t0 = time.time()
+    scene, st = load_cbox(dev, size, spp, depth, "bdpt")
+    torch.cuda.synchronize()
+    log(f"cbox {size}x{size} {spp}spp maxDepth {depth}; scene load + upload "
+        f"{time.time() - t0:.3f} s")
+    summary, images = {}, {}
+    for name, cls in (("bdpt", BDPTracer), ("gbdpt", GBDPTracer)):
+        tracer = cls(scene, st)
+        tracer.count_rays = True
+        t0 = time.time()
+        bidir_render(tracer, scene, 0, 1)
+        torch.cuda.synchronize()
+        log(f"{name}: warm-up render (1 spp) {time.time() - t0:.3f} s")
+        for k in tracer.kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = bidir_render(tracer, scene, 1, spp)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = [k.launches for k in tracer.kernels]
+        rays = tracer.last_ray_count
+        img = out[0] if name == "gbdpt" else out
+        images[name] = out
+        mean = float(img.abs().mean())
+        log(f"{name} timed render{' + L1' if name == 'gbdpt' else ''}: wall "
+            f"{wall:.4f} s, measured rays {rays}, "
+            f"{rays / wall / 1e6:.3f} Mrays/s, kernel launches closest "
+            f"{launches[0]} occluded {launches[1]}, mean |I| {mean:.5f}")
+        check(all(n > 0 for n in launches),
+              f"{name}: a sweep kernel was not launched: {launches}")
+        check(tuple(img.shape) == (size, size, 3), f"{name} image shape")
+        check(bool(torch.isfinite(img).all()), f"{name} image not finite")
+        check(mean > 0, f"{name} image is black")
+
+        def run(tracer=tracer):
+            bidir_render(tracer, scene, 2, spp)
+
+        prof = profiled_render(run, "sweep_")
+        log(f"  profiled {name} render (seed 2): device busy "
+            f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall "
+            f"(idle {100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f}%), "
+            f"{prof['device_ops']} device ops; sweep kernels' device time "
+            f"{prof['kernel_ms']:.3f} ms over {prof['kernel_calls']} "
+            f"launches")
+        summary[name] = dict(wall_s=wall, rays=rays,
+                             mrays_per_s=rays / wall / 1e6,
+                             launches=launches, mean=mean, profiled=prof)
+
+    # the reference's identity: G-BDPT primal + very_direct == BDPT
+    bufs = images["gbdpt"][1]
+    comb = bufs["primal"] + bufs["very_direct"]
+    close = torch.isclose(comb, images["bdpt"], rtol=2e-4, atol=2e-5)
+    err = float((comb - images["bdpt"]).abs().max())
+    log(f"G-BDPT primal + very_direct vs BDPT (seed 1): "
+        f"{float(close.float().mean()):.6f} of values within rtol 2e-4 "
+        f"atol 2e-5, max abs diff {err:.3e}")
+    check(bool(close.all()), "G-BDPT primal + very_direct != BDPT")
+
+    # BDPT and the path tracer estimate the same integral
+    pt = PathTracer(scene, st)
+    t0 = time.time()
+    ref = pt.render(scene, seed=9, spp=spp)
+    torch.cuda.synchronize()
+    ratio = float(images["bdpt"].mean()) / float(ref.mean())
+    log(f"BDPT mean / PathTracer mean ({spp} spp, {time.time() - t0:.3f} "
+        f"s): {ratio:.5f}")
+    check(abs(ratio - 1) < 0.03, f"BDPT mean off the path tracer's: {ratio}")
+    summary["bdpt_over_path_mean"] = ratio
+    return summary
+
+
+def _buffers_agree(label, a, b):
+    frac = float(torch.isclose(a, b, rtol=IMG_RTOL, atol=IMG_ATOL)
+                 .all(-1).float().mean())
+    rel = abs(float(a.mean()) - float(b.mean())) / max(
+        abs(float(b.mean())), 1e-12)
+    log(f"  {label}: {frac:.5f} of pixels within rtol {IMG_RTOL} atol "
+        f"{IMG_ATOL}; mean rel diff {rel:.2e}")
+    check(frac >= IMG_FRAC, f"{label} differs between kernel and plain")
+    check(rel < 1e-4 or abs(float(a.mean()) - float(b.mean())) < 1e-6,
+          f"{label} mean differs")
+
+
+def phase_bidir_vs_plain(dev):
+    """Every sweep call of one 256^2 pass of BDPT and of G-BDPT against
+    the plain versions; BDPT and G-BDPT at 64^2, 4 spp through the
+    kernels and through the plain versions (same seed), and two kernel
+    renders bit for bit."""
+    from gradientdomain_mitsuba_tpu_torch.models import poisson
+    from gradientdomain_mitsuba_tpu_torch.models.bdpt import BDPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
+    # every sweep call of one pass at the main path's shape (256^2), dead
+    # lanes included, against the plain versions
+    scene, st = load_cbox(dev, 256, 16, 6, "gbdpt")
+    for name, cls in (("bdpt", BDPTracer), ("gbdpt", GBDPTracer)):
+        check_render_calls(f"{name} 256x256", render_calls(
+            cls(scene, st), scene, 1), scene.geom.linC)
+    scene, st = load_cbox(dev, 64, 4, 6, "gbdpt")
+    for name, cls in (("bdpt", BDPTracer), ("gbdpt", GBDPTracer)):
+        outs = {}
+        for mode in ("kernel", "plain", "kernel again"):
+            tracer = cls(scene, st)
+            if mode == "plain":
+                use_plain(tracer)
+            tracer.count_rays = True
+            outs[mode] = (tracer.render(scene, seed=5, spp=4),
+                          tracer.last_ray_count)
+        (ok, rk), (op, rp), (oa, _) = (outs[m] for m in
+                                       ("kernel", "plain", "kernel again"))
+        log(f"{name} 64x64 4spp kernel vs plain: rays {rk} vs {rp}")
+        check(abs(rk - rp) <= 1e-3 * rp, f"{name} ray counts differ")
+        if name == "bdpt":
+            _buffers_agree("bdpt image", ok, op)
+            same = torch.equal(ok, oa)
+        else:
+            for k in ("primal", "very_direct", "dx", "dy"):
+                _buffers_agree(f"gbdpt {k}", ok[k], op[k])
+            l2k = poisson.reconstruct(ok, mode="L2")
+            l2p = poisson.reconstruct(op, mode="L2")
+            _buffers_agree("gbdpt L2 final", l2k, l2p)
+            fk = poisson.reconstruct(ok, mode="L1")
+            fp = poisson.reconstruct(op, mode="L1")
+            ek = _l1_energy(fk - ok["very_direct"], op["primal"], op["dx"],
+                            op["dy"])
+            ep = _l1_energy(fp - op["very_direct"], op["primal"], op["dx"],
+                            op["dy"])
+            rel = abs(float(fk.mean()) - float(fp.mean())) / abs(
+                float(fp.mean()))
+            log(f"  gbdpt L1 final: objective {ek:.4f} vs {ep:.4f}; mean "
+                f"rel diff {rel:.2e}")
+            check(abs(ek - ep) <= 0.01 * ep and rel < 5e-3,
+                  "G-BDPT L1 final differs")
+            check(bool(torch.isfinite(fk).all()), "G-BDPT L1 not finite")
+            same = all(torch.equal(ok[k], oa[k]) for k in ok)
+        log(f"  {name}: two kernel renders bit-identical: {same}")
+        check(same, f"{name}: two kernel renders differ")
+
+
+def phase_gbdpt_gradients(dev):
+    """E[dx] of G-BDPT against the finite difference of a high-spp primal
+    (tests/test_bdpt.py's consistency check) at 64^2, maxDepth 2."""
+    from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
+    scene, st = load_cbox(dev, 64, 8, 2, "gbdpt")
+    g = GBDPTracer(scene, st)
+    t0 = time.time()
+    out = g.render(scene, seed=0, spp=48)
+    ref = g.render(scene, seed=555, spp=256)
+    torch.cuda.synchronize()
+    fd_x = ref["primal"][:, 1:] - ref["primal"][:, :-1]
+    dx = out["dx"][:, :-1]
+    vd = out["very_direct"].sum(-1)
+    mx = (vd[:, 1:] + vd[:, :-1]) == 0  # mask light-edge pixels
+    a, b = dx[mx].flatten(), fd_x[mx].flatten()
+    rms_fd = float(torch.sqrt((b ** 2).mean()))
+    rms_err = float(torch.sqrt(((a - b) ** 2).mean()))
+    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    log(f"G-BDPT 64x64 maxDepth 2, 48 vs 256 spp ({time.time() - t0:.3f} s): "
+        f"rms(dx - fd) / rms(fd) {rms_err / rms_fd:.4f} (< 0.55), "
+        f"corr {corr:.4f} (> 0.85)")
+    check(rms_err / rms_fd < 0.55, "G-BDPT E[dx] off the finite difference")
+    check(corr > 0.85, "G-BDPT dx uncorrelated with the finite difference")
+    return dict(rms_ratio=rms_err / rms_fd, corr=corr)
+
+
+def phase_step_b(dev):
+    """direct, ao, field (shNormal), multichannel (path + ao) at 256^2,
+    16 spp and adaptive at 64^2, 4 spp, through factory.make_integrator
+    (tools/tpu_zoo.py's check: finite pixels, mean |I| > 1e-5); adaptive
+    also against its render through the plain versions (sample map and
+    image)."""
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    summary = {}
+    for name, size, spp, props in (
+            ("direct", 256, 16, {}), ("ao", 256, 16, {}),
+            ("field", 256, 16, {"field": "shNormal"}),
+            ("multichannel", 256, 16, {}), ("adaptive", 64, 4, {})):
+        scene, st = load_cbox(dev, size, spp, 5, name)
+        st.integrator_props.update(props)
+        if name == "multichannel":
+            st.integrator_children = [("path", {}), ("ao", {})]
+        tracer = factory.make_integrator(scene, st)
+        kernels = ([k for _, c in tracer.children for k in c.kernels]
+                   if name == "multichannel" else list(tracer.kernels))
+        if name != "adaptive":
+            # adaptive's first rounds warm the path tracer's ops; a
+            # warm-up render would cost its host-paced rounds twice
+            tracer.render(scene, seed=0, spp=1)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = tracer.render(scene, seed=1, spp=spp)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        imgs = out if isinstance(out, dict) else {name: out}
+        for ch, img in imgs.items():
+            finite = bool(torch.isfinite(img).all())
+            mean = float(img.abs().mean())
+            log(f"{ch:14s} {size}x{size} {spp}spp: wall {wall:.4f} s, "
+                f"finite {finite}, mean |I| {mean:.5f}, sweep launches "
+                f"{[k.launches for k in kernels]}")
+            check(finite and mean > 1e-5, f"{ch}: not finite or black")
+            summary[ch] = dict(wall_s=wall, mean=mean)
+        # field traces camera rays only: no any-hit query
+        need = kernels[:1] if name == "field" else kernels
+        check(all(k.launches > 0 for k in need),
+              f"{name}: a sweep kernel was not launched")
+        if name == "adaptive":
+            smap = tracer.last_sample_map
+            log(f"  adaptive samples per pixel: min {int(smap.min())} max "
+                f"{int(smap.max())} mean {float(smap.mean()):.2f}; "
+                f"{int(smap.sum()) - spp * size * size} refine lanes over "
+                f"its rounds")
+            # the same render through the plain versions: the sample map
+            # and the image
+            plain = factory.make_integrator(scene, st)
+            use_plain(plain.inner)
+            t0 = time.time()
+            img_p = plain.render(scene, seed=1, spp=spp)
+            torch.cuda.synchronize()
+            same = float((plain.last_sample_map == smap).float().mean())
+            frac = float(torch.isclose(out, img_p, rtol=IMG_RTOL,
+                                       atol=IMG_ATOL).all(-1).float().mean())
+            rel = abs(float(out.mean()) - float(img_p.mean())) / float(
+                img_p.mean())
+            log(f"  adaptive kernel vs plain ({time.time() - t0:.3f} s): "
+                f"sample map equal on {same:.5f} of pixels, image "
+                f"{frac:.5f} within rtol {IMG_RTOL} atol {IMG_ATOL}, mean "
+                f"rel diff {rel:.2e}")
+            check(same >= IMG_FRAC and frac >= IMG_FRAC and rel < 1e-3,
+                  "adaptive: kernel and plain renders differ")
+    return summary
+
+
 def build_kernels():
     """Build the three kernel libraries, one nvcc each, all started
     together; prints how much the overlap saves against building them
@@ -1363,8 +1718,17 @@ def main():
                                     forest_summary["rays"], v7_gpt)
     with Phase("v2 path"):
         phase_v2_path(recs, forest, pair_out, tri9)
+    with Phase("slice 8: cbox BDPT and G-BDPT"):
+        bidir_summary = phase_bidir_slice(dev)
+    with Phase("bidirectional kernel render vs plain render"):
+        phase_bidir_vs_plain(dev)
+    with Phase("G-BDPT gradients"):
+        grad_summary = phase_gbdpt_gradients(dev)
+    with Phase("step B families"):
+        step_b = phase_step_b(dev)
     log(json.dumps({"slice": summary, "forest": forest_summary,
-                    "forest_v4": v4_summary}))
+                    "forest_v4": v4_summary, "bidir": bidir_summary,
+                    "gbdpt_gradients": grad_summary, "step_b": step_b}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

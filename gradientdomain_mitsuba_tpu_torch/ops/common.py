@@ -123,6 +123,14 @@ def instrument_intersectors(tracer, closest, occluded):
     return closest_w, occluded_w
 
 
+def fast_row_gather(table, idx):
+    """table[idx] for a [T, C] table and integer idx [...].  The
+    reference routes small tables through a one-hot matmul on the TPU,
+    where row gathers are latency-bound; on the GPU a gather is the
+    fast path, so this is plain indexing."""
+    return table[idx.long()]
+
+
 def fill_intersection(scene, o, d, hit) -> Intersection:
     """Shading data for Hit records via ONE packed-row gather of the
     BVH-ordered tri_shade table (see scene.Geometry)."""

@@ -1,12 +1,19 @@
-"""Film accumulation on the pixel grid: dense slice adds, no scatter.
+"""Film accumulation: dense grid adds and a deterministic scatter.
 
 Counterpart of gradientdomain_mitsuba_tpu/ops/film.py (ImageBlock::put +
-Film::put, src/librender/imageblock.cpp, src/rfilters/*.cpp) for the
-grid-aligned paths G-PT uses.  Every sample belongs to a known pixel (the
-wavefront renders one sample per pixel in row-major order), so filtering
-is a small set of dense shifted adds.  There is no index_add_/atomics,
-so results are deterministic on the GPU.  Gradient buffers use unfiltered
-lattice adds (gpt_wr.cpp semantics).
+Film::put, src/librender/imageblock.cpp, src/rfilters/*.cpp).
+
+Where every sample belongs to a known pixel (the wavefront renders one
+sample per pixel in row-major order), filtering is a small set of dense
+shifted adds (splat_grid, add_grid_shifted): the eye images of every
+integrator and G-PT's / G-BDPT's eye gradients.  Samples at arbitrary
+positions (BDPT's light image and G-BDPT's image-space gradient pairs) go
+through splat_unfiltered, a scatter written as a stable sort by flat
+pixel index followed by a segment sum.  The reference's filtered scatter
+(splat) has no caller in the port and is not ported.  Neither path uses
+index_add_ or atomics, so every film is bit-identical from run to run on
+the GPU.  Gradient buffers use unfiltered lattice adds (gpt_wr.cpp
+semantics).
 """
 from __future__ import annotations
 
@@ -47,6 +54,48 @@ def filter_weight(kind: int, x):
                                torch.sin(v) / torch.clamp_min(v, 1e-5))
         return torch.where(ax < 3.0, sinc(ax) * sinc(ax / 3.0), 0.0)
     raise ValueError(kind)
+
+
+def scatter_add(fb, py, px, value):
+    """fb[py, px] += value for every sample, deterministically.
+
+    fb: [H, W, C]; py, px: [N] integer pixel coordinates inside the film;
+    value: [N, C].  The samples are stably sorted by flat pixel index and
+    each pixel's run is summed by torch.segment_reduce (a fixed order per
+    pixel); the sums are then added at distinct pixels.  The same
+    function as an atomic scatter-add, up to summation order, and the
+    same bits on every run.  Returns a new fb."""
+    H, W, C = fb.shape
+    flat = (py.to(torch.int64) * W + px.to(torch.int64)).reshape(-1)
+    value = value.reshape(-1, C)
+    if flat.shape[0] == 0:
+        return fb.clone()
+    key, order = torch.sort(flat, stable=True)
+    pix, counts = torch.unique_consecutive(key, return_counts=True)
+    sums = torch.segment_reduce(value[order], "sum", lengths=counts,
+                                axis=0)
+    out = fb.reshape(H * W, C).clone()
+    out[pix] += sums
+    return out.reshape(H, W, C)
+
+
+def splat_unfiltered(fb, pos, value):
+    """Raw box splat WITHOUT weight tracking (gradient / light-image
+    buffers, where each sample belongs to one lattice cell and
+    normalization is by sample count).  The reference's edge rules: the
+    position is truncated to int32 and clipped to the film, and samples
+    outside the film add value * 0 at the clipped pixel."""
+    H, W = fb.shape[0], fb.shape[1]
+    px = torch.clamp(pos[..., 0].to(torch.int32), 0, W - 1)
+    py = torch.clamp(pos[..., 1].to(torch.int32), 0, H - 1)
+    inside = ((pos[..., 0] >= 0) & (pos[..., 0] < W) &
+              (pos[..., 1] >= 0) & (pos[..., 1] < H))
+    return scatter_add(fb, py, px, value * inside[..., None])
+
+
+def develop(fb, wb):
+    """Normalize by accumulated filter weights (Film::develop)."""
+    return fb / torch.clamp_min(wb, 1e-12)[..., None]
 
 
 def _tap_radius(filter_kind: int) -> int:
