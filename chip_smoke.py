@@ -94,7 +94,22 @@ its time):
      at 64x64, 4 spp (finite pixels, mean |I| > 1e-5, sweeps launched);
      adaptive once more through the plain versions, same seed: the
      sample maps equal and the images within phase 4's tolerance on >= 99%
-     of pixels, means within 1e-3.
+     of pixels, means within 1e-3;
+ 16. step D families through factory.make_integrator: volpath, vpl
+     (vplCount 1024, vplChunk 256), irrcache (resolution 4, gatherSamples
+     64) and sppm (photonCount 65,536) on cbox 256x256, 16 spp, maxDepth
+     5, and volpath on the HG slab and its heterogeneous twin of
+     tools/media_scenes.py, each after a 1-spp warm-up with the sweeps'
+     launch counters reset just before it (wall, rays from the
+     intersectors' device tallies, Mrays/s, launches, finite pixels,
+     mean |I| > 1e-5); volpath against path on cbox at unlimited depth
+     (64x64, 4 spp: rtol 5e-3 on >= 99.9% of pixels; the maxDepth-5
+     comparison with phase 15's path render printed);
+     one profiled render of vpl and of the heterogeneous slab; VPL's
+     first 16,777,216-lane any-hit call against the plain version at
+     phase 2's tolerance, timed beside its bound; all six at 64x64, 4 spp
+     through the kernels and the plain versions (phase 4's tolerance),
+     sppm and vpl twice bit for bit.
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -173,12 +188,13 @@ class Phase:
             log(f"--- phase {self.name}: {time.time() - self.t0:.3f} s")
 
 
-def sweep_soups():
-    """tools/sweep_soups.py (the sweep checks' random soups), loaded from
-    its path: tools/ is not a package."""
+def load_tool(name):
+    """tools/<name>.py (sweep_soups: the sweep checks' random soups;
+    media_scenes: the volumetric slab scenes), loaded from its path:
+    tools/ is not a package."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "sweep_soups", os.path.join(ROOT, "tools", "sweep_soups.py"))
+        name, os.path.join(ROOT, "tools", name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -432,7 +448,7 @@ def phase_kernels(dev, kernels_rec):
             f"{n_rec * 4 * sweep.RECORD_FLOATS} bytes staged a block")
         check(pf >= PRIM_FRAC and mr <= T_RTOL and of >= OCC_FRAC,
               f"kernel vs plain disagree on random soup T={T}")
-    soups = sweep_soups()
+    soups = load_tool("sweep_soups")
     for kind, T, n_rec in (("windowed", 300, 300), ("zero_area", 96, 64),
                            ("ties", 64, 64)):
         args = [torch.from_numpy(a).to(dev)
@@ -1378,15 +1394,6 @@ def phase_v2_path(recs, forest, pair_out, tri9):
 # slice 8: the bidirectional family (BDPT, G-BDPT + reconstruction) and the
 # step-B integrators (direct, ao, field, multichannel, adaptive) on cbox
 
-def load_cbox(dev, size, spp, depth, integrator):
-    from gradientdomain_mitsuba_tpu_torch.scene import bridge
-    from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
-    scene_np, st = sc.load_scene(CBOX, {
-        "width": str(size), "height": str(size), "spp": str(spp),
-        "maxDepth": str(depth), "integrator": integrator})
-    return bridge.to_torch(scene_np, dev), st
-
-
 def bidir_render(tracer, scene, seed, spp):
     """BDPT: the image.  G-BDPT: (L1 final via poisson.reconstruct, the
     buffers render returns)."""
@@ -1404,7 +1411,7 @@ def phase_bidir_slice(dev):
     from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
     size, spp, depth = 256, 16, 6
     t0 = time.time()
-    scene, st = load_cbox(dev, size, spp, depth, "bdpt")
+    scene, st = load_scene_at(CBOX, dev, size, spp, depth, "bdpt")
     torch.cuda.synchronize()
     log(f"cbox {size}x{size} {spp}spp maxDepth {depth}; scene load + upload "
         f"{time.time() - t0:.3f} s")
@@ -1497,11 +1504,11 @@ def phase_bidir_vs_plain(dev):
     from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
     # every sweep call of one pass at the main path's shape (256^2), dead
     # lanes included, against the plain versions
-    scene, st = load_cbox(dev, 256, 16, 6, "gbdpt")
+    scene, st = load_scene_at(CBOX, dev, 256, 16, 6, "gbdpt")
     for name, cls in (("bdpt", BDPTracer), ("gbdpt", GBDPTracer)):
         check_render_calls(f"{name} 256x256", render_calls(
             cls(scene, st), scene, 1), scene.geom.linC)
-    scene, st = load_cbox(dev, 64, 4, 6, "gbdpt")
+    scene, st = load_scene_at(CBOX, dev, 64, 4, 6, "gbdpt")
     for name, cls in (("bdpt", BDPTracer), ("gbdpt", GBDPTracer)):
         outs = {}
         for mode in ("kernel", "plain", "kernel again"):
@@ -1546,7 +1553,7 @@ def phase_gbdpt_gradients(dev):
     """E[dx] of G-BDPT against the finite difference of a high-spp primal
     (tests/test_bdpt.py's consistency check) at 64^2, maxDepth 2."""
     from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
-    scene, st = load_cbox(dev, 64, 8, 2, "gbdpt")
+    scene, st = load_scene_at(CBOX, dev, 64, 8, 2, "gbdpt")
     g = GBDPTracer(scene, st)
     t0 = time.time()
     out = g.render(scene, seed=0, spp=48)
@@ -1575,12 +1582,12 @@ def phase_step_b(dev):
     also against its render through the plain versions (sample map and
     image)."""
     from gradientdomain_mitsuba_tpu_torch.models import factory
-    summary = {}
+    summary, images = {}, {}
     for name, size, spp, props in (
             ("direct", 256, 16, {}), ("ao", 256, 16, {}),
             ("field", 256, 16, {"field": "shNormal"}),
             ("multichannel", 256, 16, {}), ("adaptive", 64, 4, {})):
-        scene, st = load_cbox(dev, size, spp, 5, name)
+        scene, st = load_scene_at(CBOX, dev, size, spp, 5, name)
         st.integrator_props.update(props)
         if name == "multichannel":
             st.integrator_children = [("path", {}), ("ao", {})]
@@ -1607,6 +1614,7 @@ def phase_step_b(dev):
                 f"{[k.launches for k in kernels]}")
             check(finite and mean > 1e-5, f"{ch}: not finite or black")
             summary[ch] = dict(wall_s=wall, mean=mean)
+            images[ch] = img
         # field traces camera rays only: no any-hit query
         need = kernels[:1] if name == "field" else kernels
         check(all(k.launches > 0 for k in need),
@@ -1635,6 +1643,278 @@ def phase_step_b(dev):
                 f"rel diff {rel:.2e}")
             check(same >= IMG_FRAC and frac >= IMG_FRAC and rel < 1e-3,
                   "adaptive: kernel and plain renders differ")
+    return summary, images
+
+
+# ---------------------------------------------------------------------------
+# slice 9: ROADMAP step D (volpath with ops/medium, vpl, irrcache, sppm)
+# through factory.make_integrator, on cbox and two media scenes
+
+STEP_D = ("volpath", "vpl", "irrcache", "sppm")
+# the photon-mapping walks' defaults, spelled out (vplCount, vplChunk 256)
+STEP_D_PROPS = {"sppm": {"photonCount": 65536}}
+
+
+def load_scene_at(path, dev, size, spp, depth, integrator, props=None):
+    """A scene loaded with the loader's variables (cbox.xml takes its
+    integrator type from $integrator) and moved to the card; the
+    settings' integrator type and properties set as given."""
+    from gradientdomain_mitsuba_tpu_torch.scene import bridge
+    from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
+    scene_np, st = sc.load_scene(path, {
+        "width": str(size), "height": str(size), "spp": str(spp),
+        "maxDepth": str(depth), "integrator": integrator})
+    st.integrator = integrator
+    st.integrator_props.update(props or {})
+    return bridge.to_torch(scene_np, dev), st
+
+
+def tracers_of(tracer):
+    """The tracer and the tracers it drives (an irradiance cache's
+    direct-light path tracer)."""
+    inner = getattr(tracer, "_direct", None)
+    return [tracer] + ([inner] if inner is not None else [])
+
+
+def counted_render(tracer, scene, seed, spp):
+    """One render with the intersectors' device ray counters on:
+    (image, rays).  The volumetric path tracer counts through
+    count_rays (its render_chunk resets the tally each pass); the
+    photon-mapping and cache tracers leave ray_tally alone, so it is set
+    on each tracer that traces and read once at the end."""
+    from gradientdomain_mitsuba_tpu_torch.models.volpath import VolPathTracer
+    if isinstance(tracer, VolPathTracer):
+        tracer.count_rays = True
+        return tracer.render(scene, seed=seed, spp=spp), \
+            tracer.last_ray_count
+    ts = tracers_of(tracer)
+    for t in ts:
+        t.ray_tally = torch.zeros((), dtype=torch.int64, device=t.device)
+    try:
+        img = tracer.render(scene, seed=seed, spp=spp)
+        rays = sum(int(t.ray_tally) for t in ts)
+    finally:
+        for t in ts:
+            t.ray_tally = None
+    return img, rays
+
+
+def step_d_render(label, scene, st):
+    """A 1-spp warm-up, then one render timed with the sweeps' launch
+    counters reset just before it: wall, rays, Mrays/s, launches, finite
+    pixels and mean |I| > 1e-5."""
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    size, spp = st.width, st.spp
+    tracer = factory.make_integrator(scene, st)
+    t0 = time.time()
+    tracer.render(scene, seed=0, spp=1)
+    torch.cuda.synchronize()
+    log(f"{label}: warm-up render (1 spp) {time.time() - t0:.3f} s")
+    kernels = [t.kernels for t in tracers_of(tracer)]
+    for k in (k for ks in kernels for k in ks):
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    img, rays = counted_render(tracer, scene, 1, spp)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = [sum(ks[i].launches for ks in kernels) for i in (0, 1)]
+    finite = bool(torch.isfinite(img).all())
+    mean = float(img.abs().mean())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{label:9s} {size}x{size} {spp}spp: wall {wall:.4f} s, rays "
+        f"{rays}, {rays / wall / 1e6:.3f} Mrays/s, sweep launches "
+        f"closest {launches[0]} occluded {launches[1]}, finite {finite}, "
+        f"mean |I| {mean:.5f}, peak device memory {peak:.2f} GiB")
+    check(tuple(img.shape) == (size, size, 3), f"{label}: image shape")
+    check(finite and mean > 1e-5, f"{label}: not finite or black")
+    # sppm's gather tests no visibility, and volpath's shadow rays in a
+    # scene with media walk their null crossings by closest hits: no
+    # any-hit query
+    need = (launches[:1] if st.integrator == "sppm" or st.has_media
+            else launches)
+    check(all(n > 0 for n in need),
+          f"{label}: a sweep kernel was not launched: {launches}")
+    return tracer, img, dict(wall_s=wall, rays=rays,
+                             mrays_per_s=rays / wall / 1e6,
+                             launches=launches, mean=mean, peak_gib=peak)
+
+
+def first_call(tracer, scene, any_hit, lanes):
+    """Inputs of the first sweep call of `lanes` lanes (any hit or
+    closest) of a 1-spp render of `tracer`, cloned."""
+    from gradientdomain_mitsuba_tpu_torch.ops import sweep
+    got = []
+    launch = sweep.SweepKernel._launch
+
+    def capture(k, o, d, mint, maxt, recs):
+        if not got and k.any_hit == any_hit and o.shape[0] == lanes:
+            got.append(tuple(x.clone() for x in (o, d, mint, maxt)))
+        return launch(k, o, d, mint, maxt, recs)
+
+    sweep.SweepKernel._launch = capture
+    try:
+        tracer.render(scene, seed=0, spp=1)
+        torch.cuda.synchronize()
+    finally:
+        sweep.SweepKernel._launch = launch
+    check(bool(got), f"no {lanes}-lane sweep call was made")
+    return got[0]
+
+
+def check_big_shadow_call(rays, linC, rec):
+    """VPL's N*K-lane any-hit call against the plain version (in 2^21-ray
+    slices, which the plain version treats row by row): occluded flags
+    equal on >= OCC_FRAC of lanes (phase 2's tolerance); the kernel timed
+    on the whole call beside its bound."""
+    from gradientdomain_mitsuba_tpu_torch.ops import intersect as isec
+    from gradientdomain_mitsuba_tpu_torch.ops import sweep
+    n = rays[0].shape[0]
+    k = sweep.make_sweep_occluder(linC.shape[1] // 4)
+    occ = k(*rays, linC)
+    step = 1 << 21
+    t0 = time.time()
+    ref = torch.cat([isec.occluded_matmul(*(x[i:i + step] for x in rays),
+                                          linC) for i in range(0, n, step)])
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    agree = float((occ == ref).float().mean())
+    n_rec = k.packed(linC).shape[0]
+    ms = cuda_ms(lambda: k(*rays, linC), iters=5, warmup=1)
+    b_ms, by = sweep_bound(rays, n_rec, True)
+    dead = float((rays[3] <= rays[2]).float().mean())
+    log(f"vpl shadow call of {n} lanes ({dead:.4f} dead, "
+        f"{float(occ.float().mean()):.4f} occluded): kernel vs plain "
+        f"occluded agree {agree:.7f} ({int((occ != ref).sum())} lanes "
+        f"differ); kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({by}), plain "
+        f"{plain_s * 1e3:.1f} ms in {-(-n // step)} slices")
+    check(agree >= OCC_FRAC, "vpl shadow call: kernel vs plain disagree")
+    rec["vpl_shadow_call"] = dict(lanes=n, ms=ms, bound_ms=b_ms,
+                                  bound_by=by, agree=agree,
+                                  plain_ms=plain_s * 1e3)
+    return agree
+
+
+def _close_frac(a, b, rtol, atol):
+    return float(torch.isclose(a, b, rtol=rtol, atol=atol).all(-1)
+                 .float().mean())
+
+
+def volpath_vs_path(dev, vol_img, path_img):
+    """volpath on cbox (no medium) against the path tracer.  At maxDepth
+    5 (phase 15's path render, same seed and size) the two differ as the
+    reference's do: volpath still samples an emitter at the vertex where
+    maxDepth ends the path, path does not, so it is printed only.  At
+    unlimited depth both estimate the same paths with the same numbers:
+    at 64x64, 4 spp (one pass; at 256x256, 16 spp the two host-paced
+    44- and 40-bounce loops take ~19 s) within tests/test_volpath.py's
+    rtol 5e-3 / atol 5e-4 on >= 99.9% of pixels (the loops' bounce caps
+    may end a rare path differently)."""
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    frac = _close_frac(vol_img, path_img, 5e-3, 5e-4)
+    ratio = float(vol_img.mean()) / float(path_img.mean())
+    log(f"  volpath vs phase 15's path render (maxDepth 5, seed 1): "
+        f"{frac:.5f} of pixels within rtol 5e-3 atol 5e-4, mean ratio "
+        f"{ratio:.5f} (volpath adds emitter samples at depth 5)")
+    imgs = {}
+    t0 = time.time()
+    for integrator in ("path", "volpath"):
+        scene, st = load_scene_at(CBOX, dev, 64, 4, -1, integrator)
+        imgs[integrator] = factory.make_integrator(scene, st).render(
+            scene, seed=1, spp=4)
+    frac_u = _close_frac(imgs["volpath"], imgs["path"], 5e-3, 5e-4)
+    rel = abs(float(imgs["volpath"].mean()) / float(imgs["path"].mean())
+              - 1)
+    log(f"  volpath vs path at maxDepth -1, 64x64 4spp (seed 1; "
+        f"{time.time() - t0:.3f} s): {frac_u:.5f} of pixels within rtol "
+        f"5e-3 atol 5e-4, mean rel diff {rel:.2e}")
+    check(frac_u >= 0.999 and rel < 1e-3,
+          "volpath differs from path on cbox at unlimited depth")
+    return dict(depth5_close=frac, depth5_mean_ratio=ratio,
+                unlimited_close=frac_u, unlimited_mean_rel=rel)
+
+
+def phase_step_d(dev, recs, path_img):
+    """volpath, vpl, irrcache and sppm on cbox 256^2, 16 spp, maxDepth 5,
+    and volpath on the HG slab and on its heterogeneous twin, through
+    factory.make_integrator (tools/tpu_zoo.py's check: finite pixels,
+    mean |I| > 1e-5); volpath on cbox against path (volpath_vs_path);
+    one profiled render of vpl and of the heterogeneous slab; VPL's
+    2^24-lane shadow call against the plain version; every scene at
+    64^2, 4 spp through the kernels and through the plain versions, and
+    sppm and vpl rendered twice bit for bit."""
+    import tempfile
+
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    size, spp, depth = 256, 16, 5
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        slabs = load_tool("media_scenes").write_slab_scenes(tmp)
+        cases = [(name, CBOX, name) for name in STEP_D] + [
+            (f"volpath {k}", path, "volpath") for k, path in slabs.items()]
+        tracers = {}
+        for label, path, integrator in cases:
+            scene, st = load_scene_at(path, dev, size, spp, depth,
+                                      integrator,
+                                      STEP_D_PROPS.get(integrator))
+            tracer, img, summary[label] = step_d_render(label, scene, st)
+            tracers[label] = (tracer, scene)
+            if label == "volpath":
+                summary[label]["vs_path"] = volpath_vs_path(dev, img,
+                                                            path_img)
+
+        # the device's share of two renders (raw device events); the
+        # heterogeneous slab's at 4 of its 16 spp: four passes of the
+        # same 65,536 lanes, each pass the same work (1.7M device events
+        # at 16 spp take ~45 s to record and ~25 s to read)
+        for label, prof_spp in (("vpl", spp), ("volpath het_slab", 4)):
+            tracer, scene = tracers[label]
+            prof = profiled_render(lambda: tracer.render(
+                scene, seed=2, spp=prof_spp), "sweep_")
+            log(f"  profiled {label} render ({prof_spp} spp, seed 2): "
+                f"device busy "
+                f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall "
+                f"(idle {100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f}"
+                f"%), {prof['device_ops']} device ops; sweeps "
+                f"{prof['kernel_ms']:.3f} ms over {prof['kernel_calls']} "
+                f"launches")
+            summary[label]["profiled"] = prof
+
+        # VPL's shadow batch: N*K = 65,536 x 256 lanes in one any-hit call
+        tracer, scene = tracers["vpl"]
+        st = tracer.settings
+        n_big = st.width * st.height * tracer.vpl_chunk
+        t0 = time.time()
+        check_big_shadow_call(first_call(tracer, scene, True, n_big),
+                              scene.geom.linC, summary["vpl"])
+        log(f"  (shadow call capture and check {time.time() - t0:.3f} s)")
+        del tracers
+
+        # kernels vs plain at 64^2, 4 spp (same seed); sppm and vpl twice
+        for label, path, integrator in cases:
+            scene, st = load_scene_at(path, dev, 64, 4, depth, integrator,
+                                      STEP_D_PROPS.get(integrator))
+            t0 = time.time()
+            outs = {}
+            modes = (("kernel", "plain", "kernel again")
+                     if integrator in ("sppm", "vpl") else
+                     ("kernel", "plain"))
+            for mode in modes:
+                tracer = factory.make_integrator(scene, st)
+                if mode == "plain":
+                    for t in tracers_of(tracer):
+                        use_plain(t)
+                outs[mode] = counted_render(tracer, scene, 5, 4)
+            (ok, rk), (op, rp) = outs["kernel"], outs["plain"]
+            log(f"{label} 64x64 4spp kernel vs plain ({len(outs)} renders, "
+                f"{time.time() - t0:.3f} s): rays {rk} vs {rp}")
+            check(abs(rk - rp) <= 1e-3 * rp, f"{label}: ray counts differ")
+            _buffers_agree(f"{label} image", ok, op)
+            if "kernel again" in outs:
+                same = torch.equal(ok, outs["kernel again"][0])
+                log(f"  {label}: two kernel renders bit-identical: {same}")
+                check(same, f"{label}: two kernel renders differ")
     return summary
 
 
@@ -1725,10 +2005,13 @@ def main():
     with Phase("G-BDPT gradients"):
         grad_summary = phase_gbdpt_gradients(dev)
     with Phase("step B families"):
-        step_b = phase_step_b(dev)
+        step_b, step_b_images = phase_step_b(dev)
+    with Phase("step D families"):
+        step_d = phase_step_d(dev, recs, step_b_images["path"])
     log(json.dumps({"slice": summary, "forest": forest_summary,
                     "forest_v4": v4_summary, "bidir": bidir_summary,
-                    "gbdpt_gradients": grad_summary, "step_b": step_b}))
+                    "gbdpt_gradients": grad_summary, "step_b": step_b,
+                    "step_d": step_d}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

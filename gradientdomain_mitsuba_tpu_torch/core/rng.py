@@ -44,9 +44,14 @@ def _mix(x):
     return x
 
 
+def _combine_mixed(a, mixed_b):
+    """hash_combine(a, b) given mixed_b = _mix(b)."""
+    return _mix(a ^ ((mixed_b + (_GOLDEN + (a << 6) + (a >> 2))) & MASK))
+
+
 def hash_combine(a, b):
     """Combine two uint32 streams (order-sensitive)."""
-    return _mix(a ^ ((_mix(b) + _GOLDEN + (a << 6) + (a >> 2)) & MASK))
+    return _combine_mixed(a, _mix(b))
 
 
 def random_bits(seed, pixel_id, sample_idx, dim):
@@ -57,6 +62,25 @@ def random_bits(seed, pixel_id, sample_idx, dim):
     h = hash_combine(h, _u32(pixel_id))
     h = hash_combine(h, _u32(seed))
     return h
+
+
+def lane_uniform_2d(seed, pixel_id, sample_idx):
+    """dim -> uniform_2d(seed, pixel_id, sample_idx, dim), the same bits,
+    with the lanes' counter hashes mixed once: for loops that draw many
+    dims from the same lanes (the media tracking steps)."""
+    m_sample, m_pixel, m_seed = (_mix(_u32(c))
+                                 for c in (sample_idx, pixel_id, seed))
+
+    def u(dim):
+        # both dims through the sample combine, then together
+        h = torch.stack([_combine_mixed(_mix((_u32(d) + _GOLDEN) & MASK),
+                                        m_sample) for d in (dim, dim + 1)],
+                        dim=-1)
+        h = _combine_mixed(_combine_mixed(h, m_pixel[..., None]),
+                           m_seed if isinstance(m_seed, int)
+                           else m_seed[..., None])
+        return h.to(torch.float32) * _INV_2_32
+    return u
 
 
 def uniform_float(seed, pixel_id, sample_idx, dim):

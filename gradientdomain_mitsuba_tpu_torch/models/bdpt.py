@@ -172,7 +172,7 @@ def check_scene(scene, settings):
         raise NotImplementedError(
             "woven-cloth (irawan) vertex payload: ROADMAP Queue 1 item 12")
     kinds = bsdf_ops.scene_kinds(scene)
-    if not kinds <= bsdf_ops.PORTED_KINDS:
+    if not kinds <= bsdf_ops.DIFFUSE_ONLY:
         raise NotImplementedError(
             f"material kinds {sorted(kinds)}: only diffuse is ported "
             "(delta vertices: item 12a; ROADMAP Queue 1 item 12)")

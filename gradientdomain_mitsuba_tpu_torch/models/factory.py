@@ -20,15 +20,11 @@ KNOWN = ("path", "direct", "ao", "bdpt", "field", "volpath",
          "gbdpt")
 
 PORTED = ("path", "gpt", "bdpt", "gbdpt", "direct", "ao", "field",
-          "multichannel", "adaptive")
+          "multichannel", "adaptive", "volpath", "volpath_simple",
+          "irrcache", "vpl", "sppm", "ppm", "photonmapper")
 
 # the ROADMAP Queue 1 item of every type of KNOWN the port does not render
-UNPORTED = {
-    "volpath": "17b", "volpath_simple": "17b",
-    "irrcache": "18a", "vpl": "18a",
-    "sppm": "18b", "ppm": "18b", "photonmapper": "18b",
-    "pssmlt": "19", "mlt": "19", "erpt": "19",
-}
+UNPORTED = {"pssmlt": "19", "mlt": "19", "erpt": "19"}
 
 
 def make_integrator(scene, settings):
@@ -45,6 +41,18 @@ def make_integrator(scene, settings):
     if t == "bdpt":
         from .bdpt import BDPTracer
         return BDPTracer(scene, settings)
+    if t in ("volpath", "volpath_simple"):
+        from .volpath import VolPathTracer
+        return VolPathTracer(scene, settings)
+    if t == "irrcache":
+        from .irrcache import IrrCacheTracer
+        return IrrCacheTracer(scene, settings)
+    if t in ("sppm", "ppm", "photonmapper"):
+        from .sppm import SPPMTracer
+        return SPPMTracer(scene, settings)
+    if t == "vpl":
+        from .vpl import VPLTracer
+        return VPLTracer(scene, settings)
     if t == "adaptive":
         from .adaptive import AdaptiveTracer
         return AdaptiveTracer(scene, settings)

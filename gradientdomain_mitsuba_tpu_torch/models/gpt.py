@@ -58,7 +58,7 @@ class GPTracer:
     def __init__(self, scene, settings):
         configure()
         self.kinds = bsdf_ops.scene_kinds(scene)
-        if not self.kinds <= bsdf_ops.PORTED_KINDS:
+        if not self.kinds <= bsdf_ops.DIFFUSE_ONLY:
             raise NotImplementedError(
                 f"material kinds {sorted(self.kinds)}: only diffuse is "
                 "ported (ROADMAP Queue 1 item 12)")

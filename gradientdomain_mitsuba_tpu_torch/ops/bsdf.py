@@ -7,8 +7,10 @@ f(wi,wo)*|cos(theta_o)|; pdf() is the solid-angle density of sample();
 sample() returns (wo, weight = f*cos/pdf, pdf, is_delta, eta, valid).
 
 `kinds` is the static set of material kinds in the scene (scene_kinds),
-as in the reference.  Only the DIFFUSE lobe (src/bsdfs/diffuse.cpp) is
-ported; any other kind raises (ROADMAP Queue 1 item 12).
+as in the reference.  Ported: the DIFFUSE lobe (src/bsdfs/diffuse.cpp)
+and the NULL kind (src/bsdfs/null.cpp: an index-matched medium boundary,
+a delta pass-through wo = -wi that eval and pdf mask out); any other
+kind raises (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -20,15 +22,19 @@ import torch
 from ..core import warp
 from ..core.spectrum import luminance
 from ..scene.materials import (BLEND, COATING, CONDUCTOR, DIELECTRIC,
-                               DIFFUSE, FLAG_TWOSIDED, ROUGH_CONDUCTOR,
-                               ROUGH_DIELECTRIC, ROUGH_PLASTIC,
-                               THIN_DIELECTRIC, WARD)
+                               DIFFUSE, FLAG_TWOSIDED, NULL_BSDF,
+                               ROUGH_CONDUCTOR, ROUGH_DIELECTRIC,
+                               ROUGH_PLASTIC, THIN_DIELECTRIC, WARD)
 
 INV_PI = warp.INV_PI
 OPACITY = -2             # pseudo-kind: some row has a mask opacity
 ROUGH_COAT = -3          # pseudo-kind: some COATING row has a rough layer
 _ROUGH_LAYER_MIN = 1e-5  # coat_alpha above this = microfacet layer lobe
-PORTED_KINDS = frozenset({DIFFUSE})
+PORTED_KINDS = frozenset({DIFFUSE, NULL_BSDF})
+# the kinds the gradient-domain and bidirectional tracers take: a null
+# boundary is a delta vertex to them, and their delta vertices are
+# ROADMAP Queue 1 item 12a
+DIFFUSE_ONLY = frozenset({DIFFUSE})
 
 
 class MatParams(NamedTuple):
@@ -78,7 +84,7 @@ def _check_kinds(kinds):
     if kinds is None or not set(kinds) <= PORTED_KINDS:
         raise NotImplementedError(
             f"BSDF kinds {sorted(kinds) if kinds is not None else 'all'}: "
-            "only diffuse is ported (ROADMAP Queue 1 item 12)")
+            "only diffuse and null are ported (ROADMAP Queue 1 item 12)")
 
 
 def _diffuse_eval(p: MatParams, wi, wo):
@@ -105,17 +111,23 @@ def _zflip(v, sign):
 
 
 def eval(p: MatParams, wi, wo, kinds=None):
-    """f(wi,wo)*|cos_o| (the diffuse lobe)."""
+    """f(wi,wo)*|cos_o| (the diffuse lobe; 0 on null rows, a delta)."""
     _check_kinds(kinds)
     sign = _flip_sign(p, wi)
-    return _diffuse_eval(p, _zflip(wi, sign), _zflip(wo, sign))
+    out = _diffuse_eval(p, _zflip(wi, sign), _zflip(wo, sign))
+    if NULL_BSDF in kinds:
+        out = torch.where((p.kind == NULL_BSDF)[..., None], 0.0, out)
+    return out
 
 
 def pdf(p: MatParams, wi, wo, kinds=None):
-    """Solid-angle pdf of sample() (the diffuse lobe)."""
+    """Solid-angle pdf of sample() (the diffuse lobe; 0 on null rows)."""
     _check_kinds(kinds)
     sign = _flip_sign(p, wi)
-    return _diffuse_pdf(p, _zflip(wi, sign), _zflip(wo, sign))
+    out = _diffuse_pdf(p, _zflip(wi, sign), _zflip(wo, sign))
+    if NULL_BSDF in kinds:
+        out = torch.where(p.kind == NULL_BSDF, 0.0, out)
+    return out
 
 
 class BSDFSample(NamedTuple):
@@ -128,8 +140,9 @@ class BSDFSample(NamedTuple):
 
 
 def sample(p: MatParams, wi, u2, u_comp, kinds=None) -> BSDFSample:
-    """Sample an outgoing direction (cosine hemisphere). u2: [N,2],
-    u_comp: [N] (unused by the diffuse lobe)."""
+    """Sample an outgoing direction (cosine hemisphere; null rows pass
+    straight through: wo = -wi, weight 1, pdf 1, delta). u2: [N,2],
+    u_comp: [N] (unused by both)."""
     _check_kinds(kinds)
     sign = _flip_sign(p, wi)
     wif = _zflip(wi, sign)
@@ -138,10 +151,21 @@ def sample(p: MatParams, wi, u2, u_comp, kinds=None) -> BSDFSample:
     weight = torch.where((wif[..., 2] > 0)[..., None], p.reflectance, 0.0)
     valid = (wif[..., 2] > 0) & (wo_d[..., 2] > 0)
     wo = _zflip(wo_d, sign)   # un-flip back to the true frame
+    pdf_out = pdf_d
+    is_delta = torch.zeros_like(valid)
+    if NULL_BSDF in kinds:
+        # the reference never flips a null row's frame (it handles the
+        # sign itself), so its pass-through is -wi as given
+        null = p.kind == NULL_BSDF
+        wo = torch.where(null[..., None], -wi, wo)
+        weight = torch.where(null[..., None], 1.0, weight)
+        pdf_out = torch.where(null, 1.0, pdf_out)
+        valid = valid | null
+        is_delta = null
     weight = torch.where(valid[..., None], weight, 0.0)
     return BSDFSample(wo=wo, weight=weight,
-                      pdf=torch.where(valid, pdf_d, 0.0),
-                      is_delta=torch.zeros_like(valid),
+                      pdf=torch.where(valid, pdf_out, 0.0),
+                      is_delta=is_delta,
                       eta=torch.ones_like(pdf_d), valid=valid)
 
 

@@ -19,7 +19,9 @@ from gradientdomain_mitsuba_tpu.ops import intersect as ref_isec
 from gradientdomain_mitsuba_tpu.scene import scene as ref_scene
 from gradientdomain_mitsuba_tpu_torch.models import (adaptive, bdpt, direct,
                                                      factory, gbdpt, gpt,
-                                                     multichannel, path)
+                                                     irrcache, multichannel,
+                                                     path, sppm, volpath,
+                                                     vpl)
 from gradientdomain_mitsuba_tpu_torch.scene import bridge
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -140,14 +142,20 @@ PORTED_TYPES = {"path": path.PathTracer, "gpt": gpt.GPTracer,
                 "direct": direct.DirectIntegrator,
                 "ao": direct.AOIntegrator, "field": direct.FieldIntegrator,
                 "multichannel": multichannel.MultiChannelIntegrator,
-                "adaptive": adaptive.AdaptiveTracer}
+                "adaptive": adaptive.AdaptiveTracer,
+                "volpath": volpath.VolPathTracer,
+                "volpath_simple": volpath.VolPathTracer,
+                "irrcache": irrcache.IrrCacheTracer, "vpl": vpl.VPLTracer,
+                "sppm": sppm.SPPMTracer, "ppm": sppm.SPPMTracer,
+                "photonmapper": sppm.SPPMTracer}
 
 
 @pytest.mark.parametrize("integrator", ref_factory.KNOWN)
 def test_factory_covers_known_types(integrator):
     """Every ported type is constructed; every other type of the
-    reference's KNOWN raises NotImplementedError naming its ROADMAP
-    item (15-19), never falling through to the path tracer."""
+    reference's KNOWN (pssmlt, mlt, erpt) raises NotImplementedError
+    naming its ROADMAP item 19, never falling through to the path
+    tracer."""
     assert factory.KNOWN == ref_factory.KNOWN
     scene, st = _load(integrator)
     ts = bridge.to_torch(scene, "cpu")
@@ -155,8 +163,9 @@ def test_factory_covers_known_types(integrator):
         assert type(factory.make_integrator(ts, st)) is \
             PORTED_TYPES[integrator]
     else:
+        assert integrator in ("pssmlt", "mlt", "erpt")
         with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP Queue 1 item 1[5-9][ab]?$"):
+                           match=r"ROADMAP Queue 1 item 19$"):
             factory.make_integrator(ts, st)
 
 

@@ -53,6 +53,18 @@ def test_random_bits_and_uniforms_bitwise(seed, dim):
                                   ref_2.view(np.uint32))
 
 
+@pytest.mark.parametrize("seed", [0, 2 ** 32 - 1])
+def test_lane_uniform_2d_bitwise(seed):
+    """The per-lane stream of the tracking loops draws the reference's
+    uniform_2d bits."""
+    pix, smp = _counters(seed % 1000)
+    u = port_rng.lane_uniform_2d(seed, _t(pix), _t(smp))
+    for dim in (0, 32768 + 126, 61440 + 2 * 63):
+        ref = np.asarray(ref_rng.uniform_2d(seed, pix, smp, dim))
+        np.testing.assert_array_equal(u(dim).numpy().view(np.uint32),
+                                      ref.view(np.uint32))
+
+
 def test_tensor_dims_and_seeds_bitwise():
     """Per-lane dims and seeds (broadcast counters) agree too."""
     pix, smp = _counters(11, 1024)
