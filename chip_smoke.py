@@ -109,7 +109,18 @@ its time):
      first 16,777,216-lane any-hit call against the plain version at
      phase 2's tolerance, timed beside its bound; all six at 64x64, 4 spp
      through the kernels and the plain versions (phase 4's tolerance),
-     sppm and vpl twice bit for bit.
+     sppm and vpl twice bit for bit;
+ 17. step E on caustics.xml (analytic glass and Ag spheres, ldsampler,
+     gaussian filter) through factory.make_integrator at the scene's
+     256x256, maxDepth 8: path, bdpt, sppm, pssmlt, erpt at 16 spp
+     (mutations a pixel for the chains) and mlt at 1, each after a
+     warm-up with the sweeps' launch counters reset just before it (wall,
+     rays, launches, finite pixels, mean |I| > 1e-5); one profiled pssmlt
+     render; all six at 64x64, 4 spp through the kernels and the plain
+     versions (phase 4's tolerance; for the chains the share of
+     acceptance decisions that agree); pssmlt's mean against path's
+     (64x64, 1,024 samples and mutations a pixel) and mlt's against the
+     timed bdpt render's (256x256, 16), each within 5%.
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -542,14 +553,17 @@ def phase_kernels(dev, kernels_rec):
 
 
 def use_plain(tracer):
-    """Swap a tracer's intersectors for the sweep kernels' plain versions
-    (for the kernel-vs-plain comparisons only)."""
+    """Swap a tracer's intersectors for the sweep kernels' plain versions,
+    analytic spheres merged as in the package (for the kernel-vs-plain
+    comparisons only)."""
     from gradientdomain_mitsuba_tpu_torch.ops import common
     from gradientdomain_mitsuba_tpu_torch.ops import intersect as isec
     tracer.closest, tracer.occluded = common.instrument_intersectors(
-        tracer,
-        lambda o, d, mn, mx, g: isec.intersect_matmul(o, d, mn, mx, g.linC),
-        lambda o, d, mn, mx, g: isec.occluded_matmul(o, d, mn, mx, g.linC))
+        tracer, *common.add_sphere_intersections(
+            lambda o, d, mn, mx, g: isec.intersect_matmul(o, d, mn, mx,
+                                                          g.linC),
+            lambda o, d, mn, mx, g: isec.occluded_matmul(o, d, mn, mx,
+                                                         g.linC)))
     return tracer
 
 
@@ -1670,20 +1684,25 @@ def load_scene_at(path, dev, size, spp, depth, integrator, props=None):
 
 
 def tracers_of(tracer):
-    """The tracer and the tracers it drives (an irradiance cache's
-    direct-light path tracer)."""
+    """The tracers that trace for `tracer`: itself and an irradiance
+    cache's direct-light path tracer, or a Markov-chain tracer's inner
+    path or BDPT tracer alone."""
+    if hasattr(tracer, "inner"):
+        return [tracer.inner]
     inner = getattr(tracer, "_direct", None)
     return [tracer] + ([inner] if inner is not None else [])
 
 
 def counted_render(tracer, scene, seed, spp):
     """One render with the intersectors' device ray counters on:
-    (image, rays).  The volumetric path tracer counts through
-    count_rays (its render_chunk resets the tally each pass); the
-    photon-mapping and cache tracers leave ray_tally alone, so it is set
-    on each tracer that traces and read once at the end."""
+    (image, rays).  The path, BDPT and volumetric path tracers count
+    through count_rays (their render_chunk resets the tally each pass);
+    the photon-mapping, cache and chain tracers leave ray_tally alone, so
+    it is set on each tracer that traces and read once at the end."""
+    from gradientdomain_mitsuba_tpu_torch.models.bdpt import BDPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
     from gradientdomain_mitsuba_tpu_torch.models.volpath import VolPathTracer
-    if isinstance(tracer, VolPathTracer):
+    if type(tracer) in (PathTracer, BDPTracer, VolPathTracer):
         tracer.count_rays = True
         return tracer.render(scene, seed=seed, spp=spp), \
             tracer.last_ray_count
@@ -1699,17 +1718,24 @@ def counted_render(tracer, scene, seed, spp):
     return img, rays
 
 
-def step_d_render(label, scene, st):
-    """A 1-spp warm-up, then one render timed with the sweeps' launch
-    counters reset just before it: wall, rays, Mrays/s, launches, finite
-    pixels and mean |I| > 1e-5."""
+def factory_render(label, scene, st):
+    """A warm-up (a 1-spp render; for a chain tracer one evaluation of
+    mutated states at its chain count), then one render timed with the
+    sweeps' launch counters reset just before it: wall, rays, Mrays/s,
+    launches, finite pixels and mean |I| > 1e-5."""
     from gradientdomain_mitsuba_tpu_torch.models import factory
     size, spp = st.width, st.spp
     tracer = factory.make_integrator(scene, st)
     t0 = time.time()
-    tracer.render(scene, seed=0, spp=1)
+    if hasattr(tracer, "_mstep"):
+        u = tracer._fresh(0, 0, tracer.n_chains)
+        tracer._eval(scene, tracer._mutate_small(0, 0, u))
+        warm = "one chain evaluation"
+    else:
+        tracer.render(scene, seed=0, spp=1)
+        warm = "1 spp"
     torch.cuda.synchronize()
-    log(f"{label}: warm-up render (1 spp) {time.time() - t0:.3f} s")
+    log(f"{label}: warm-up ({warm}) {time.time() - t0:.3f} s")
     kernels = [t.kernels for t in tracers_of(tracer)]
     for k in (k for ks in kernels for k in ks):
         k.launches = 0
@@ -1858,7 +1884,7 @@ def phase_step_d(dev, recs, path_img):
             scene, st = load_scene_at(path, dev, size, spp, depth,
                                       integrator,
                                       STEP_D_PROPS.get(integrator))
-            tracer, img, summary[label] = step_d_render(label, scene, st)
+            tracer, img, summary[label] = factory_render(label, scene, st)
             tracers[label] = (tracer, scene)
             if label == "volpath":
                 summary[label]["vs_path"] = volpath_vs_path(dev, img,
@@ -1918,6 +1944,152 @@ def phase_step_d(dev, recs, path_img):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# slice 10: ROADMAP step E on caustics.xml (analytic spheres, dielectric and
+# conductor, ldsampler, the gaussian filter) through factory.make_integrator
+
+CAUSTICS = os.path.join(ROOT, "data", "scenes", "caustics", "caustics.xml")
+STEP_E = ("path", "bdpt", "sppm", "pssmlt", "erpt", "mlt")
+CHAIN_FAMILIES = ("pssmlt", "erpt", "mlt")
+# mutations a pixel of the timed 256^2 MLT render (16 for the others): a
+# mutation of its 4,096 chains is a whole 4,096-lane BDPT pass
+STEP_E_SPP = {"mlt": 1}
+# the expectation checks (the reference's tests/test_pssmlt.py:55 and
+# tests/test_mlt.py:93 on caustics): the means within 5% at equal
+# samples and mutations.  A chain image's mean is its b, a plain Monte
+# Carlo estimate over luminanceSamples fresh states; caustic paths
+# through the glass make the integrand heavy-tailed, so each side takes
+# 1-4M samples, 65,536 chains a pass
+EXPECT_CHAINS = 65536
+
+
+def record_takes(tracer):
+    """Record a chain tracer's acceptance decisions: returns the list its
+    _mstep appends each step's [C] bool tensor to (a chain accepted where
+    its state changed: a proposal always differs from the state)."""
+    takes = []
+    step = tracer._mstep
+
+    def mstep(scene, seed, it, state, b, fb):
+        new, fb = step(scene, seed, it, state, b, fb)
+        takes.append((new[0] != state[0]).any(1))
+        return new, fb
+
+    tracer._mstep = mstep
+    return takes
+
+
+def expectation_check(dev, label, ref, family, size, mutations,
+                      bootstrap):
+    """`family`'s image mean at size^2 and `mutations` a pixel (chains of
+    EXPECT_CHAINS lanes, `bootstrap` luminance samples) against
+    ref = (family, size, spp, image or None to render it at seed 3),
+    within 5%."""
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    t0 = time.time()
+    ref_family, ref_size, ref_spp, ref_img = ref
+    if ref_img is None:
+        scene, st = load_scene_at(CAUSTICS, dev, ref_size, ref_spp, 8,
+                                  ref_family)
+        ref_img = factory.make_integrator(scene, st).render(
+            scene, seed=3, spp=ref_spp)
+    n = size * size * mutations
+    scene, st = load_scene_at(CAUSTICS, dev, size, mutations, 8, family, {
+        "chains": EXPECT_CHAINS, "luminanceSamples": bootstrap})
+    tracer = factory.make_integrator(scene, st)
+    img = tracer.render(scene, seed=1, spp=mutations)
+    rm, gm = float(ref_img.mean()), float(img.mean())
+    log(f"  {label}: {family} {size}x{size} {mutations} mutations a pixel "
+        f"({n} mutations, {bootstrap} bootstrap samples, b "
+        f"{tracer.last_b:.5f}) mean {gm:.5f} vs {ref_family} "
+        f"{ref_size}x{ref_size} {ref_spp} spp "
+        f"({ref_size * ref_size * ref_spp} samples) mean {rm:.5f}: ratio "
+        f"{gm / rm:.4f} ({time.time() - t0:.3f} s)")
+    check(bool(torch.isfinite(img).all()), f"{label}: not finite")
+    check(abs(gm / rm - 1) <= 0.05, f"{label}: means differ by > 5%")
+    return dict(mean=gm, ref_mean=rm, ratio=gm / rm)
+
+
+def phase_step_e(dev):
+    """path, bdpt, sppm, pssmlt, erpt and mlt on caustics.xml at its own
+    size (256^2, maxDepth 8, gaussian filter, ldsampler) through
+    factory.make_integrator: 16 spp (mutations a pixel for the chains;
+    mlt STEP_E_SPP), each after a warm-up with the sweeps' launch
+    counters reset just before it (factory_render: wall, rays from the
+    device tallies, launches, finite pixels, mean |I| > 1e-5); one
+    profiled pssmlt render (4 mutations a pixel); every family at 64^2,
+    4 spp through the kernels and through the plain versions (phase 4's
+    tolerance; for the chains the share of acceptance decisions that
+    agree); the pssmlt / path and mlt / bdpt expectation checks."""
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    size, depth = 256, 8
+    summary = {}
+    tracers = {}
+    for fam in STEP_E:
+        scene, st = load_scene_at(CAUSTICS, dev, size,
+                                  STEP_E_SPP.get(fam, 16), depth, fam)
+        check(st.sampler == "ldsampler" and st.rfilter == "gaussian",
+              f"caustics settings: {st.sampler}, {st.rfilter}")
+        tracer, img, summary[fam] = factory_render(fam, scene, st)
+        tracers[fam] = (tracer, scene, img)
+
+    tracer, scene, _ = tracers["pssmlt"]
+    prof = profiled_render(lambda: tracer.render(scene, seed=2, spp=4),
+                           "sweep_")
+    log(f"  profiled pssmlt render (4 mutations a pixel, seed 2): device "
+        f"busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall "
+        f"(idle {100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f}%), "
+        f"{prof['device_ops']} device ops; sweeps {prof['kernel_ms']:.3f} "
+        f"ms over {prof['kernel_calls']} launches")
+    summary["pssmlt"]["profiled"] = prof
+    bdpt_img = tracers["bdpt"][2]
+    del tracers
+
+    # kernels vs plain at 64^2, 4 spp (same seed); ERPT's round sized to
+    # the 16,384 mutations (chainLength 2 of its 8,192 chains)
+    for fam in STEP_E:
+        scene, st = load_scene_at(CAUSTICS, dev, 64, 4, depth, fam,
+                                  {"chainLength": 2} if fam == "erpt"
+                                  else None)
+        t0 = time.time()
+        outs, takes = {}, {}
+        for mode in ("kernel", "plain"):
+            tracer = factory.make_integrator(scene, st)
+            if mode == "plain":
+                for t in tracers_of(tracer):
+                    use_plain(t)
+            if fam in CHAIN_FAMILIES:
+                takes[mode] = record_takes(tracer)
+            outs[mode] = counted_render(tracer, scene, 5, 4)
+        (ok, rk), (op, rp) = outs["kernel"], outs["plain"]
+        log(f"{fam} 64x64 4spp kernel vs plain ({time.time() - t0:.3f} s): "
+            f"rays {rk} vs {rp}")
+        check(abs(rk - rp) <= 1e-3 * rp, f"{fam}: ray counts differ")
+        _buffers_agree(f"{fam} image", ok, op)
+        if fam in CHAIN_FAMILIES:
+            a = torch.stack(takes["kernel"])
+            b = torch.stack(takes["plain"])
+            share = float((a == b).float().mean())
+            chains = float((a == b).all(0).float().mean())
+            log(f"  {fam}: acceptance decisions agree {share:.6f} "
+                f"({a.shape[0]} steps x {a.shape[1]} chains; chains whose "
+                f"every decision agrees {chains:.6f}; accepted "
+                f"{float(a.float().mean()):.4f})")
+            summary[fam]["acceptance_agree"] = share
+            summary[fam]["chains_agree"] = chains
+
+    # pssmlt against a 4M-sample path render at 64^2; mlt against the
+    # timed 256^2 bdpt render (1M ldsampler samples) with 1M mutations
+    # and 2M bootstrap samples
+    summary["pssmlt"]["vs_path"] = expectation_check(
+        dev, "pssmlt vs path", ("path", 64, 1024, None), "pssmlt", 64, 1024,
+        64 * 64 * 1024)
+    summary["mlt"]["vs_bdpt"] = expectation_check(
+        dev, "mlt vs bdpt", ("bdpt", size, 16, bdpt_img), "mlt", size, 16,
+        2 * size * size * 16)
+    return summary
+
+
 def build_kernels():
     """Build the three kernel libraries, one nvcc each, all started
     together; prints how much the overlap saves against building them
@@ -1945,6 +2117,13 @@ def build_kernels():
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("step-e",),
+                    help="build the kernels and run one phase that needs "
+                         "no earlier one (step-e: phase 17), without the "
+                         "result line")
+    args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an "
@@ -1957,6 +2136,12 @@ def main():
     log(card_line())
     with Phase("build"):
         build_kernels()
+    if args.only == "step-e":
+        with Phase("step E on caustics"):
+            log(json.dumps({"step_e": phase_step_e(dev)}))
+        log(f"total {time.time() - t_start:.3f} s")
+        log(card_line())
+        return
 
     csrc = "gradientdomain_mitsuba_tpu_torch/csrc/"
     ref_sweep = "gradientdomain_mitsuba_tpu/ops/pallas_sweep.py:"
@@ -2008,10 +2193,12 @@ def main():
         step_b, step_b_images = phase_step_b(dev)
     with Phase("step D families"):
         step_d = phase_step_d(dev, recs, step_b_images["path"])
+    with Phase("step E on caustics"):
+        step_e = phase_step_e(dev)
     log(json.dumps({"slice": summary, "forest": forest_summary,
                     "forest_v4": v4_summary, "bidir": bidir_summary,
                     "gbdpt_gradients": grad_summary, "step_b": step_b,
-                    "step_d": step_d}))
+                    "step_d": step_d, "step_e": step_e}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

@@ -10,6 +10,10 @@ int64 holding values in [0, 2^32): every operation that can leave that
 range is masked with 0xFFFFFFFF.  A product of two such values can
 overflow int64, but it wraps modulo 2^64, so its low 32 bits (all the
 mask keeps) are still the uint32 product.
+
+make_sampler gives the reference's samplers: independent, LHS with a
+scrambled (0,2)-sequence (ldsampler / stratified / sobol) and rotated
+Halton (halton / hammersley), each a pure counter function too.
 """
 from __future__ import annotations
 
@@ -97,19 +101,172 @@ def uniform_2d(seed, pixel_id, sample_idx, dim):
     return torch.stack([u0, u1], dim=-1)
 
 
-# the reference's stratified samplers (lhs / (0,2)-sequence / halton)
-_UNPORTED_SAMPLERS = ("stratified", "ldsampler", "sobol", "halton",
-                      "hammersley")
+def mod1(x):
+    """x mod 1.0 with the sign of the divisor (jnp's `x % 1.0`: the
+    truncated remainder, plus 1 where it is negative)."""
+    r = torch.fmod(x, 1.0)
+    return torch.where(r < 0, r + 1.0, r)
+
+
+def lhs_float(seed, pixel_id, sample_idx, dim, spp):
+    """Latin-hypercube stratified sample: over spp samples each pixel
+    covers every 1/spp stratum of every dimension once, with a
+    per-(pixel, dim) stratum permutation (an odd-multiplier LCG step for
+    power-of-two spp, a rotation otherwise)."""
+    h = random_bits(_u32(seed) ^ 0x51A7E, pixel_id, 0, dim)
+    i = _u32(sample_idx)
+    if spp & (spp - 1) == 0:
+        stratum = (((i * (h | 1)) & MASK) + (h >> 16)) & MASK
+    else:
+        stratum = (i + h) & MASK
+    stratum = stratum % spp
+    u = uniform_float(seed, pixel_id, sample_idx, dim)
+    return (stratum.to(torch.float32) + u) / spp
+
+
+def lhs_2d(seed, pixel_id, sample_idx, dim, spp):
+    return torch.stack([lhs_float(seed, pixel_id, sample_idx, dim, spp),
+                        lhs_float(seed, pixel_id, sample_idx, dim + 1, spp)],
+                       dim=-1)
+
+
+# --- scrambled (0,2)-sequence (ldsampler / sobol) --------------------------
+# Direction numbers of the 2nd Sobol dimension (dim 1 is van der Corput,
+# a bit reversal), XOR-scrambled per (pixel, dim).
+_SOBOL2_DIRS = []
+_v = 1 << 31
+for _k in range(32):
+    _SOBOL2_DIRS.append(_v)
+    _v ^= _v >> 1
+del _v, _k
+# bit j of direction k, as the [32, 32] 0/1 matrix of the XOR sum below
+_SOBOL2_BITS = [[(dk >> j) & 1 for j in range(32)] for dk in _SOBOL2_DIRS]
+
+
+def _reverse_bits32(x):
+    x = ((x & 0x55555555) << 1) | ((x & 0xAAAAAAAA) >> 1)
+    x = ((x & 0x33333333) << 2) | ((x & 0xCCCCCCCC) >> 2)
+    x = ((x & 0x0F0F0F0F) << 4) | ((x & 0xF0F0F0F0) >> 4)
+    x = ((x & 0x00FF00FF) << 8) | ((x & 0xFF00FF00) >> 8)
+    return ((x << 16) & MASK) | (x >> 16)
+
+
+_CONSTANTS = {}
+
+
+def _constant(name, values, dtype, device):
+    """A small constant table on `device`, copied there once."""
+    key = (name, str(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype,
+                                           device=device)
+    return t
+
+
+def _sobol2_bits(n):
+    """2nd Sobol dimension of index n (uint32 lanes as int64, or a Python
+    int): the XOR of the directions of n's set bits, for lanes bit by bit
+    as the parity of a 0/1 product (at most 32 ones a sum, exact in
+    f32)."""
+    n = _u32(n)
+    if not torch.is_tensor(n):
+        r = 0
+        for k, dk in enumerate(_SOBOL2_DIRS):
+            if (n >> k) & 1:
+                r ^= dk
+        return r
+    shifts = _constant("shifts", list(range(32)), torch.int64, n.device)
+    nbits = ((n[..., None] >> shifts) & 1).to(torch.float32)
+    table = _constant("sobol2", _SOBOL2_BITS, torch.float32, n.device)
+    ones = (nbits @ table).to(torch.int64) & 1        # [..., 32] parities
+    return (ones << shifts).sum(-1)
+
+
+def sobol02_2d(seed, pixel_id, sample_idx, dim, spp):
+    """Scrambled (0,2)-sequence point pair: with power-of-two spp each
+    pixel's spp points hit every base-2 elementary interval of area
+    1/spp once."""
+    i = _u32(sample_idx)
+    b0 = _reverse_bits32(i)
+    b1 = _sobol2_bits(i)
+    s = _u32(seed) ^ 0x50B01
+    u0 = (b0 ^ random_bits(s, pixel_id, 0, dim)).to(torch.float32)
+    u1 = (b1 ^ random_bits(s, pixel_id, 0, dim + 1)).to(torch.float32)
+    return torch.stack(torch.broadcast_tensors(u0, u1), dim=-1) * _INV_2_32
+
+
+# --- scrambled Halton (halton / hammersley) ---------------------------------
+# Prime-base radical inverse with a per-(pixel, dim) Cranley-Patterson
+# rotation.
+_PRIMES = (
+    2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59, 61,
+    67, 71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127, 131, 137,
+    139, 149, 151, 157, 163, 167, 173, 179, 181, 191, 193, 197, 199,
+    211, 223, 227, 229, 233, 239, 241, 251, 257, 263, 269, 271, 277,
+    281, 283, 293, 307, 311)
+
+
+def halton_float(seed, pixel_id, sample_idx, dim):
+    """Rotated radical inverse in base prime[dim % 64] of sample_idx
+    (24 digits, as the reference's fixed loop).  XLA's CPU compiler
+    contracts the digit step res + d * f into one fused multiply-add;
+    the step is formed in float64 here (the f32 product exact, the sum
+    rounded once, then to f32), which gives the fused result up to
+    double-rounding ties."""
+    if torch.is_tensor(dim):
+        base = _constant("primes", _PRIMES, torch.int64,
+                         dim.device)[dim.long() % 64]
+    else:
+        base = _PRIMES[int(dim) % 64]
+    n, pix = _u32(sample_idx), _u32(pixel_id)
+    if not torch.is_tensor(n):
+        # a fill on the lanes' device (no host-to-device copy)
+        n = (torch.full_like(pix, n) if torch.is_tensor(pix)
+             else torch.tensor(n))
+    if torch.is_tensor(pix):
+        n, pix = torch.broadcast_tensors(n, pix)
+    # 1/base, an f32 division
+    inv_b = 1.0 / (base.to(torch.float32) if torch.is_tensor(base) else
+                   torch.tensor(float(base), dtype=torch.float32))
+    if not torch.is_tensor(base):
+        inv_b = float(inv_b)
+    res = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
+    f = torch.full(n.shape, 1.0, dtype=torch.float32, device=n.device) * inv_b
+    for _ in range(24):
+        d = (n % base).to(torch.float32)
+        res = (res.double() + d.double() * f.double()).float()
+        f = f * inv_b
+        n = n // base
+    rot = random_bits(_u32(seed) ^ 0x8A170, pix, 0, dim).to(
+        torch.float32) * _INV_2_32
+    return mod1(res + rot)
+
+
+def halton_2d(seed, pixel_id, sample_idx, dim):
+    return torch.stack([halton_float(seed, pixel_id, sample_idx, dim),
+                        halton_float(seed, pixel_id, sample_idx, dim + 1)],
+                       dim=-1)
+
+
+LDS_SAMPLERS = ("stratified", "ldsampler", "sobol")
+HALTON_SAMPLERS = ("halton", "hammersley")
 
 
 def make_sampler(sampler: str, spp: int):
-    """Returns (u1, u2) draw functions for the configured sampler type.
-    Only the independent sampler is ported; the reference's stratified
-    samplers raise (ROADMAP Queue 1 item 2).  Unknown types fall back to
-    independent, as in the reference."""
-    if sampler in _UNPORTED_SAMPLERS and spp > 1:
-        raise NotImplementedError(
-            f"sampler {sampler!r}: ROADMAP Queue 1 item 2")
+    """Returns (u1, u2) draw functions for the configured sampler type:
+    the scrambled Halton pair, LHS in 1D with the (0,2)-sequence in 2D,
+    or the independent sampler (spp 1, and unknown types, as in the
+    reference)."""
+    if sampler in HALTON_SAMPLERS and spp > 1:
+        return halton_float, halton_2d
+    if sampler in LDS_SAMPLERS and spp > 1:
+        def u1(seed, pixel_id, sample_idx, dim):
+            return lhs_float(seed, pixel_id, sample_idx, dim, spp)
+
+        def u2(seed, pixel_id, sample_idx, dim):
+            return sobol02_2d(seed, pixel_id, sample_idx, dim, spp)
+        return u1, u2
     return uniform_float, uniform_2d
 
 

@@ -26,12 +26,14 @@ the reference reads it.  The eye image is grid-aligned and accumulates
 through the dense film adds; the light image lands at arbitrary pixels
 and goes through the deterministic scatter (ops/film.splat_unfiltered).
 
-Ported: the scenes the port's ops cover (diffuse BSDFs, area lights,
-pinhole perspective, no textures, the independent sampler).  Environment
-and delta-light NEE on the eye walk (item 14), the woven-cloth payload
-(item 12) and every other unported branch raise NotImplementedError
-naming its ROADMAP Queue 1 item.  The delta-vertex bookkeeping
-(_is_delta_kind) is kept, but no ported scene reaches a delta vertex.
+Ported: the scenes the port's ops cover (diffuse, conductor and
+dielectric BSDFs, analytic spheres, area lights, pinhole perspective, no
+textures).  A delta vertex (_is_delta_kind) stores delta, passes a
+forward pdf of 0 (remapped to 1 in the MIS ratios) and is never a
+connection endpoint, as in the reference.  Environment and delta-light
+NEE on the eye walk (item 14), the woven-cloth payload (item 12) and
+every other unported branch raise NotImplementedError naming its
+ROADMAP Queue 1 item.
 """
 from __future__ import annotations
 
@@ -50,13 +52,17 @@ from ..ops import bsdf as bsdf_ops
 from ..ops import common, film as film_ops
 from ..ops import sensor as sensor_ops
 from ..ops.emitter import _searchsorted_segment, sample_emitter_triangle
-from ..scene.materials import CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC
+from ..scene.materials import (CONDUCTOR, DIELECTRIC, DIFFUSE,
+                               THIN_DIELECTRIC)
 
 # Depth cap used when maxDepth=-1 (unbounded in the reference's own
 # renderer, bounded here as in the reference); GDMT_MAX_BDPT_DEPTH
 # overrides it, read at import as the reference reads it.
 MAX_BDPT_DEPTH = int(os.environ.get("GDMT_MAX_BDPT_DEPTH", "8"))
 LIGHT_DIM_BASE = 4096  # rng dim offset separating the light-path stream
+# the kinds the bidirectional tracers take: diffuse vertices and the delta
+# vertices of _is_delta_kind (a null medium boundary is neither)
+BIDIR_KINDS = frozenset({DIFFUSE, CONDUCTOR, DIELECTRIC})
 
 
 class SubPath(NamedTuple):
@@ -172,10 +178,11 @@ def check_scene(scene, settings):
         raise NotImplementedError(
             "woven-cloth (irawan) vertex payload: ROADMAP Queue 1 item 12")
     kinds = bsdf_ops.scene_kinds(scene)
-    if not kinds <= bsdf_ops.DIFFUSE_ONLY:
+    if not kinds <= BIDIR_KINDS:
         raise NotImplementedError(
-            f"material kinds {sorted(kinds)}: only diffuse is ported "
-            "(delta vertices: item 12a; ROADMAP Queue 1 item 12)")
+            f"material kinds {sorted(kinds)}: only diffuse, conductor and "
+            "dielectric are ported for the bidirectional tracers (ROADMAP "
+            "Queue 1 item 12)")
     if settings.has_textures:
         raise NotImplementedError(
             "textured materials: ROADMAP Queue 1 item 13")

@@ -2,14 +2,12 @@
 
 Counterpart of gradientdomain_mitsuba_tpu/models/factory.py (the analog
 of PluginManager::createObject for the integrator family,
-src/libcore/plugin.cpp).  It constructs the integrator types the port
-renders (PORTED); every other type of KNOWN raises NotImplementedError
-naming its ROADMAP Queue 1 item, so none of them falls through to the
-path tracer.  A type outside KNOWN falls through to the path tracer, as
-in the reference, unless the scene carries subsurface attachments (the
-reference's dipole route, item 17c).  `gpt` / `gbdpt` return buffers
-that the reconstruction layer (models/poisson.reconstruct) turns into
-the final image.
+src/libcore/plugin.cpp).  It constructs every integrator type of
+KNOWN.  A type outside KNOWN falls through to the path tracer, as in the
+reference, unless the scene carries subsurface attachments (the
+reference's dipole route, which raises ROADMAP Queue 1 item 17c).
+`gpt` / `gbdpt` return buffers that the reconstruction layer
+(models/poisson.reconstruct) turns into the final image.
 """
 from __future__ import annotations
 
@@ -21,10 +19,11 @@ KNOWN = ("path", "direct", "ao", "bdpt", "field", "volpath",
 
 PORTED = ("path", "gpt", "bdpt", "gbdpt", "direct", "ao", "field",
           "multichannel", "adaptive", "volpath", "volpath_simple",
-          "irrcache", "vpl", "sppm", "ppm", "photonmapper")
+          "irrcache", "vpl", "sppm", "ppm", "photonmapper", "pssmlt",
+          "mlt", "erpt")
 
 # the ROADMAP Queue 1 item of every type of KNOWN the port does not render
-UNPORTED = {"pssmlt": "19", "mlt": "19", "erpt": "19"}
+UNPORTED = {}
 
 
 def make_integrator(scene, settings):
@@ -32,6 +31,15 @@ def make_integrator(scene, settings):
     if t in UNPORTED:
         raise NotImplementedError(
             f"integrator {t!r}: ROADMAP Queue 1 item {UNPORTED[t]}")
+    if t == "pssmlt":
+        from .pssmlt import PSSMLTracer
+        return PSSMLTracer(scene, settings)
+    if t == "mlt":
+        from .mlt import MLTracer
+        return MLTracer(scene, settings)
+    if t == "erpt":
+        from .erpt import ERPTracer
+        return ERPTracer(scene, settings)
     if t == "gpt":
         from .gpt import GPTracer
         return GPTracer(scene, settings)

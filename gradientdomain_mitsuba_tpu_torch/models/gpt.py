@@ -59,9 +59,13 @@ class GPTracer:
         configure()
         self.kinds = bsdf_ops.scene_kinds(scene)
         if not self.kinds <= bsdf_ops.DIFFUSE_ONLY:
+            # delta kinds the port's BSDFs have: what G-PT lacks is the
+            # half-vector shift through them
+            item = ("7a (half-vector shift)"
+                    if self.kinds <= bsdf_ops.PORTED_KINDS else "12")
             raise NotImplementedError(
-                f"material kinds {sorted(self.kinds)}: only diffuse is "
-                "ported (ROADMAP Queue 1 item 12)")
+                f"material kinds {sorted(self.kinds)}: G-PT takes diffuse "
+                f"only (ROADMAP Queue 1 item {item})")
         if settings.has_textures:
             raise NotImplementedError(
                 "textured materials: ROADMAP Queue 1 item 13")

@@ -14,7 +14,10 @@ Semantics are the reference's:
 
 `jit` and `fori_loop` become eager code and Python loops on the scene's
 device.  Ported: the scenes the port's BSDFs, emitters and sensors cover
-(diffuse, area lights, pinhole perspective, no textures).  The texture
+(diffuse and the delta conductor / dielectric / null kinds, analytic
+spheres, area lights, pinhole perspective, no textures).  At a delta
+vertex the NEE shadow ray is still traced, as in the reference; eval's
+delta mask makes its contribution 0.  The texture
 footprint, environment, delta-light and subsurface branches raise
 NotImplementedError naming their ROADMAP item.
 """
@@ -64,8 +67,9 @@ class PathTracer:
         self.kinds = bsdf_ops.scene_kinds(scene)
         if not self.kinds <= bsdf_ops.PORTED_KINDS:
             raise NotImplementedError(
-                f"material kinds {sorted(self.kinds)}: only diffuse is "
-                "ported (ROADMAP Queue 1 item 12)")
+                f"material kinds {sorted(self.kinds)}: only diffuse, "
+                "conductor, dielectric and null are ported (ROADMAP Queue 1 "
+                "item 12)")
         if settings.has_textures:
             raise NotImplementedError(
                 "textured materials (uv footprint): ROADMAP Queue 1 item 13")

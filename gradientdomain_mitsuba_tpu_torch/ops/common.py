@@ -8,7 +8,8 @@ Intersection record every integrator uses.
 
 Ported: the small-scene (<= 2048 triangles) traversal through the sweep
 kernels, the large-scene traversal through the pair kernels (or, under
-GDMT_KERNEL=v4, the v4 block kernels), the
+GDMT_KERNEL=v4, the v4 block kernels), analytic spheres merged by
+closest t (their exact normals and lat-long uv in the hit fill), the
 untextured material gather, and the hit fill without the barycentric
 payload or normal perturbation.  The reference's one-hot
 matmul gather (fast_row_gather) is a TPU workaround; here it is plain
@@ -16,33 +17,50 @@ indexing.
 """
 from __future__ import annotations
 
+import math
 import os
 
 import torch
 
 from ..core import math as m
 from ..core.records import Intersection
+from . import intersect as isec
 from . import sweep, trace
 
 BRUTE_FORCE_MAX_TRIS = 2048
 
 
-def add_sphere_intersections(closest_tri, occl_tri):
-    """Analytic-sphere merge.  Only the no-sphere pass-through is ported:
-    a scene with analytic spheres raises (ROADMAP Queue 1 item 3)."""
+# prim-id namespace for analytic spheres (above any padded triangle count)
+SPHERE_PRIM_BASE = 1 << 28
 
-    def _no_spheres(geom):
-        if geom.sph_center.shape[0] != 0:
-            raise NotImplementedError(
-                "analytic spheres: ROADMAP Queue 1 item 3")
+
+def add_sphere_intersections(closest_tri, occl_tri):
+    """Merge analytic-sphere hits (intersect.intersect_spheres) into the
+    triangle traversal by closest t: the sphere test runs with the
+    triangle hit's t as its maxt, so a sphere hit is the nearer one.
+    Scenes without analytic spheres pass straight through."""
 
     def closest(o, d, mint, maxt, geom):
-        _no_spheres(geom)
-        return closest_tri(o, d, mint, maxt, geom)
+        hit = closest_tri(o, d, mint, maxt, geom)
+        if geom.sph_center.shape[0] == 0:
+            return hit
+        tri_t = torch.where(hit.valid, hit.t, maxt)
+        ts, sid = isec.intersect_spheres(o, d, mint, tri_t,
+                                         geom.sph_center, geom.sph_radius)
+        sph = sid >= 0
+        return isec.Hit(
+            t=torch.where(sph, ts, hit.t),
+            u=torch.where(sph, 0.0, hit.u),
+            v=torch.where(sph, 0.0, hit.v),
+            prim=torch.where(sph, SPHERE_PRIM_BASE + sid, hit.prim),
+            valid=hit.valid | sph)
 
     def occluded(o, d, mint, maxt, geom):
-        _no_spheres(geom)
-        return occl_tri(o, d, mint, maxt, geom)
+        occ = occl_tri(o, d, mint, maxt, geom)
+        if geom.sph_center.shape[0] == 0:
+            return occ
+        return occ | isec.occluded_spheres(o, d, mint, maxt,
+                                           geom.sph_center, geom.sph_radius)
 
     closest.kernel = getattr(closest_tri, "kernel", None)
     occluded.kernel = getattr(occl_tri, "kernel", None)
@@ -135,8 +153,6 @@ def fill_intersection(scene, o, d, hit) -> Intersection:
     """Shading data for Hit records via ONE packed-row gather of the
     BVH-ordered tri_shade table (see scene.Geometry)."""
     g = scene.geom
-    if g.sph_center.shape[0] > 0:
-        raise NotImplementedError("analytic spheres: ROADMAP Queue 1 item 3")
     if scene.materials.packed.shape[1] >= 32:
         raise NotImplementedError(
             "bump/normal maps: ROADMAP Queue 1 item 13")
@@ -164,6 +180,32 @@ def fill_intersection(scene, o, d, hit) -> Intersection:
     bsdf_id = row[..., 18].to(torch.int32)
     emitter_id = row[..., 19].to(torch.int32)
     shape_id = row[..., 20].to(torch.int32)
+
+    if g.sph_center.shape[0] > 0:
+        # analytic-sphere lanes: exact quadric normals + lat-long uv
+        # (z-up, matching meshes.make_sphere / sphere.cpp)
+        is_sph = hit.prim >= SPHERE_PRIM_BASE
+        sid = torch.clamp(hit.prim - SPHERE_PRIM_BASE, 0,
+                          g.sph_center.shape[0] - 1).long()
+        cen = g.sph_center[sid]
+        rad = g.sph_radius[sid]
+        n_s = m.normalize((p - cen) / torch.clamp_min(rad, 1e-12)[..., None])
+        theta = torch.arccos(torch.clamp(n_s[..., 2], -1.0, 1.0))
+        phi = torch.atan2(n_s[..., 1], n_s[..., 0])
+        phi = torch.where(phi < 0, phi + 2 * math.pi, phi)
+        uv_s = torch.stack([phi / (2 * math.pi), 1.0 - theta / math.pi], -1)
+        s3 = is_sph[..., None]
+        # sphere lanes must not inherit the clamped triangle row's
+        # tangents (columns 23 and up)
+        keep = (torch.arange(row.shape[-1], device=row.device) < 23).to(
+            row.dtype)
+        row = torch.where(s3, row * keep, row)
+        ng = torch.where(s3, n_s, ng)
+        ns = torch.where(s3, n_s, ns)
+        uv = torch.where(s3, uv_s, uv)
+        bsdf_id = torch.where(is_sph, g.sph_bsdf[sid], bsdf_id)
+        emitter_id = torch.where(is_sph, -1, emitter_id)
+        shape_id = torch.where(is_sph, g.sph_shape[sid], shape_id)
     return Intersection(
         valid=hit.valid,
         t=hit.t,

@@ -6,8 +6,11 @@ linear-MT coefficient builders, intersect_matmul / occluded_matmul —
 the PLAIN PyTorch versions of the two CUDA sweep kernels (ops/sweep.py,
 csrc/sweep.cu) — and the pairwise Moeller-Trumbore test `_mt` with the
 all-pairs intersect_brute / occluded_brute, the reference's exact oracle
-and the arithmetic of the v2 traversal (ops/trace.tri9_plain).  The CPU
-path and the tests use them; a CUDA tensor goes through the kernels.
+and the arithmetic of the v2 traversal (ops/trace.tri9_plain), and the
+analytic spheres' dense quadric test (intersect_spheres /
+occluded_spheres, plain PyTorch on every device, as in the reference).
+The CPU path and the tests use the sweeps' plain versions; a CUDA
+tensor goes through the kernels.
 
 Linear Moeller-Trumbore (reference ops/intersect.py:415-435): with
 n = e1 x e2,
@@ -220,3 +223,38 @@ def occluded_matmul(o, d, mint, maxt, linC):
     ok = ((su >= 0.0) & (sv >= 0.0) & (su + sv <= ad) & (ad > 0.0) &
           (st > mint[:, None] * ad) & (st < maxt[:, None] * ad))
     return torch.any(ok, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Analytic spheres (src/shapes/sphere.cpp): a second primitive type, tested
+# densely beside the triangle traversal and merged by closest t
+# (ops/common.add_sphere_intersections).  Scenes hold a handful of
+# spheres, so the [N, S] quadric solve is plain PyTorch, as the reference
+# computes it outside its Pallas kernels.
+# ---------------------------------------------------------------------------
+
+def intersect_spheres(o, d, mint, maxt, centers, radii):
+    """Closest sphere hit per ray: (t [N], sid [N] i32, -1 on miss).
+    Directions must be unit length (every caller's convention).  Among
+    equal t the first sphere wins (torch.argmin returns the first
+    minimum, as jnp.argmin)."""
+    oc = o[:, None, :] - centers[None]                # [N, S, 3]
+    b = torch.sum(oc * d[:, None, :], -1)             # [N, S]
+    c = torch.sum(oc * oc, -1) - radii[None] ** 2
+    disc = b * b - c
+    ok = disc >= 0
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t0 = -b - sq
+    t1 = -b + sq
+    in0 = (t0 > mint[:, None]) & (t0 < maxt[:, None])
+    in1 = (t1 > mint[:, None]) & (t1 < maxt[:, None])
+    t = torch.where(ok & in0, t0, torch.where(ok & in1, t1, F32_MAX))
+    tmin, sid = torch.min(t, dim=1)
+    hit = tmin < 0.5 * F32_MAX
+    return (torch.where(hit, tmin, F32_MAX),
+            torch.where(hit, sid.to(torch.int32), -1))
+
+
+def occluded_spheres(o, d, mint, maxt, centers, radii):
+    _, sid = intersect_spheres(o, d, mint, maxt, centers, radii)
+    return sid >= 0

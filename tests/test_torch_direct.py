@@ -18,9 +18,10 @@ from gradientdomain_mitsuba_tpu.ops import common as ref_common
 from gradientdomain_mitsuba_tpu.ops import intersect as ref_isec
 from gradientdomain_mitsuba_tpu.scene import scene as ref_scene
 from gradientdomain_mitsuba_tpu_torch.models import (adaptive, bdpt, direct,
-                                                     factory, gbdpt, gpt,
-                                                     irrcache, multichannel,
-                                                     path, sppm, volpath,
+                                                     erpt, factory, gbdpt,
+                                                     gpt, irrcache, mlt,
+                                                     multichannel, path,
+                                                     pssmlt, sppm, volpath,
                                                      vpl)
 from gradientdomain_mitsuba_tpu_torch.scene import bridge
 
@@ -147,26 +148,22 @@ PORTED_TYPES = {"path": path.PathTracer, "gpt": gpt.GPTracer,
                 "volpath_simple": volpath.VolPathTracer,
                 "irrcache": irrcache.IrrCacheTracer, "vpl": vpl.VPLTracer,
                 "sppm": sppm.SPPMTracer, "ppm": sppm.SPPMTracer,
-                "photonmapper": sppm.SPPMTracer}
+                "photonmapper": sppm.SPPMTracer,
+                "pssmlt": pssmlt.PSSMLTracer, "mlt": mlt.MLTracer,
+                "erpt": erpt.ERPTracer}
 
 
 @pytest.mark.parametrize("integrator", ref_factory.KNOWN)
 def test_factory_covers_known_types(integrator):
-    """Every ported type is constructed; every other type of the
-    reference's KNOWN (pssmlt, mlt, erpt) raises NotImplementedError
-    naming its ROADMAP item 19, never falling through to the path
-    tracer."""
+    """Every type of the reference's KNOWN is constructed as its own
+    class, never falling through to the path tracer, and none is left
+    unported."""
     assert factory.KNOWN == ref_factory.KNOWN
+    assert factory.UNPORTED == {}
+    assert set(factory.PORTED) == set(factory.KNOWN)
     scene, st = _load(integrator)
     ts = bridge.to_torch(scene, "cpu")
-    if integrator in PORTED_TYPES:
-        assert type(factory.make_integrator(ts, st)) is \
-            PORTED_TYPES[integrator]
-    else:
-        assert integrator in ("pssmlt", "mlt", "erpt")
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP Queue 1 item 19$"):
-            factory.make_integrator(ts, st)
+    assert type(factory.make_integrator(ts, st)) is PORTED_TYPES[integrator]
 
 
 def test_factory_unknown_type_and_subsurface():

@@ -169,7 +169,7 @@ def test_gbdpt_render_is_deterministic():
 
 
 @pytest.mark.parametrize("scene_file,item", [
-    ("caustics/caustics.xml", "item 12"),
+    ("cbox-mats/cbox-mats.xml", "item 12"),
     ("envmap/envmap.xml", "item 14")])
 @pytest.mark.parametrize("cls", [bdpt.BDPTracer, gbdpt.GBDPTracer])
 def test_unported_scenes_raise(scene_file, item, cls):

@@ -99,8 +99,41 @@ def test_near_one_rounds_like_reference():
     assert (got == 1.0).any()
 
 
-def test_stratified_samplers_raise():
-    u1, u2 = port_rng.make_sampler("independent", 64)
-    assert u1 is port_rng.uniform_float and u2 is port_rng.uniform_2d
-    with pytest.raises(NotImplementedError):
-        port_rng.make_sampler("ldsampler", 16)
+@pytest.mark.parametrize("sampler", ["ldsampler", "halton",
+                                     "independent"])
+@pytest.mark.parametrize("spp", [1, 4, 12])
+@pytest.mark.parametrize("dim", [DA.PIXEL_JITTER,
+                                 DA.bounce_dim(1, DA.D_BSDF_UV),
+                                 4096 + 8 + 5, 16384 + 3])
+def test_stratified_samplers_bitwise(sampler, spp, dim):
+    """make_sampler's (u1, u2) pair draws the reference's bits for every
+    sampler family: LHS + the scrambled (0,2)-sequence (ldsampler,
+    power-of-two spp and the rotation of other spp), the rotated Halton
+    radical inverse, and the independent sampler (spp 1 falls back to it
+    for every family).  Sample indices run over a few multiples of spp
+    and over the full uint32 range."""
+    ru1, ru2 = ref_rng.make_sampler(sampler, spp)
+    pu1, pu2 = port_rng.make_sampler(sampler, spp)
+    for seed in (0, 2 ** 32 - 1):
+        pix, smp = _counters(seed % 1000, 2048)
+        smp[: 1024] %= 4 * spp
+        for ref_f, port_f in ((ru1, pu1), (ru2, pu2)):
+            ref = np.asarray(ref_f(seed, pix, smp, dim))
+            got = port_f(seed, _t(pix), _t(smp), dim).numpy()
+            assert got.dtype == np.float32 and got.shape == ref.shape
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          ref.view(np.uint32))
+    if spp == 1 or sampler == "independent":
+        assert pu1 is port_rng.uniform_float
+        assert pu2 is port_rng.uniform_2d
+
+
+def test_sampler_integer_stages_bitwise():
+    """The integer stages of the (0,2)-sequence (bit reversal, the second
+    Sobol dimension) equal the reference's on the full uint32 range."""
+    pix, smp = _counters(5, 4096)
+    for ref_f, port_f in ((ref_rng._reverse_bits32, port_rng._reverse_bits32),
+                          (ref_rng._sobol2_bits, port_rng._sobol2_bits)):
+        ref = np.asarray(ref_f(jnp.asarray(smp)))
+        got = port_f(_t(smp)).numpy()
+        np.testing.assert_array_equal(got, ref.astype(np.int64))

@@ -19,6 +19,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = {
     "cbox": os.path.join(ROOT, "data/scenes/cbox/cbox.xml"),
     "cbox-mats": os.path.join(ROOT, "data/scenes/cbox-mats/cbox-mats.xml"),
+    # analytic spheres (sph_center / sph_radius / sph_bsdf / sph_shape),
+    # a dielectric and an Ag conductor row from the spectral tables
+    "caustics": os.path.join(ROOT, "data/scenes/caustics/caustics.xml"),
 }
 VARS = {"width": "32", "height": "24", "spp": "2", "maxDepth": "6",
         "integrator": "gpt"}

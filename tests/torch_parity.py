@@ -68,3 +68,56 @@ def assert_image_close(got, ref, size=16):
     frac = np.isclose(got, ref, rtol=1e-3, atol=1e-4).all(-1).mean()
     assert frac >= 0.99, frac
     assert abs(got.mean() - ref.mean()) <= 1e-3 * abs(ref.mean()) + 1e-6
+
+
+def render_chains(rt, rs, pt, ts, seed, spp):
+    """Render a Markov-chain tracer (pssmlt, erpt, mlt) in both packages
+    and record every mutation's acceptance decisions.
+
+    The reference runs its own _run / _run_round code with the outer jit
+    undone: _eval is jitted alone and the fori_loops over mutations run as
+    Python loops, so each step's chain states can be read (a proposal
+    always differs from the current state, so a chain accepted where its
+    state changed).  This compiles one _eval instead of the whole chain
+    program.  Returns (reference image, port image, reference decisions
+    [steps, C], port decisions [steps, C])."""
+    import functools
+
+    ref_takes, port_takes = [], []
+    orig_loop = jax.lax.fori_loop
+
+    def loop(lo, hi, body, init):
+        if any(isinstance(x, jax.core.Tracer)
+               for x in jax.tree_util.tree_leaves(init)):
+            return orig_loop(lo, hi, body, init)
+        c = init
+        for i in range(lo, hi):
+            n = body(i, c)
+            if isinstance(c, tuple):
+                ref_takes.append(
+                    (np.asarray(n[0]) != np.asarray(c[0])).any(1))
+            c = n
+        return c
+
+    cls = type(rt)
+    rt._eval = jax.jit(functools.partial(cls._eval, rt))
+    for name in ("_run", "_run_round"):
+        f = getattr(cls, name, None)
+        if f is not None:
+            setattr(rt, name, functools.partial(f.__wrapped__, rt))
+    port_step = pt._mstep
+
+    def mstep(scene, seed, it, state, b, fb):
+        new, fb = port_step(scene, seed, it, state, b, fb)
+        port_takes.append((new[0] != state[0]).any(1).numpy())
+        return new, fb
+
+    pt._mstep = mstep
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax.lax, "fori_loop", loop)
+    try:
+        ref = np.asarray(rt.render(rs, seed=seed, spp=spp))
+    finally:
+        mp.undo()
+    got = pt.render(ts, seed=seed, spp=spp).numpy()
+    return ref, got, np.stack(ref_takes), np.stack(port_takes)
