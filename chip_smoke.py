@@ -120,7 +120,21 @@ its time):
      versions (phase 4's tolerance; for the chains the share of
      acceptance decisions that agree); pssmlt's mean against path's
      (64x64, 1,024 samples and mutations a pixel) and mlt's against the
-     timed bdpt render's (256x256, 16), each within 5%.
+     timed bdpt render's (256x256, 16), each within 5%;
+ 18. step F on envmap.xml (envmap emitter, thin lens, gaussian filter,
+     checkerboard-textured roughplastic ground, analytic roughconductor,
+     roughdielectric and plastic spheres) through factory.make_integrator
+     at the scene's own 128x96, 32 spp, maxDepth 5: G-PT + L1
+     reconstruction and path, each after a 1-spp warm-up with the sweeps'
+     launch counters reset just before it (wall, rays from the device
+     tallies, Mrays/s, launches, added to the sweep kernels' records,
+     finite pixels), then one more render of each under torch.profiler
+     (device busy time and idle share, device ops); both at the zoo's
+     64x64, 4 spp, seed 1 through the kernels and through the plain
+     versions (the four G-PT buffers and the path image within rtol
+     1e-3 / atol 1e-4 on >= 99% of pixels, means within 1e-3 relative);
+     the G-PT primal's mean |I| there against ZOO_r05.json's
+     envmap-gpt 0.12644, within 5%.
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -2090,6 +2104,137 @@ def phase_step_e(dev):
     return summary
 
 
+ENVMAP = os.path.join(ROOT, "data", "scenes", "envmap", "envmap.xml")
+# ZOO_r05.json, envmap-gpt: mean |primal| of the reference's G-PT at
+# 64x64, 4 spp, maxDepth 5, seed 1 (tools/tpu_zoo.py); an image
+# statistic, not a speed
+ZOO_ENVMAP_MEAN = 0.12644
+
+
+def load_envmap(dev, integrator, size=None, spp=None):
+    """envmap.xml on the card at its own size (128x96, 32 spp, maxDepth
+    5), or square at `size` with `spp` (maxDepth 5, the zoo's)."""
+    from gradientdomain_mitsuba_tpu_torch.scene import bridge
+    from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
+    over = {"integrator": integrator, "maxDepth": "5"}
+    if size is not None:
+        over.update(width=str(size), height=str(size), spp=str(spp))
+    scene_np, st = sc.load_scene(ENVMAP, over)
+    return bridge.to_torch(scene_np, dev), st
+
+
+def envmap_render(tracer, scene, seed, spp):
+    """(image, buffers or None, rays) of one render: G-PT's render_final
+    (L1) and its buffers, or the path tracer's counted render."""
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    if isinstance(tracer, GPTracer):
+        tracer.count_rays = True
+        final, bufs = tracer.render_final(scene, seed, spp, alpha=0.2,
+                                          mode="L1")
+        return final, bufs, int(bufs.pop("rays"))
+    img, rays = counted_render(tracer, scene, seed, spp)
+    return img, None, rays
+
+
+def phase_step_f(dev, recs):
+    """G-PT + L1 and path on envmap.xml through factory.make_integrator at
+    the scene's own size, each after a 1-spp warm-up with the sweeps'
+    launch counters reset just before it (the counts are added to the
+    sweep kernels' records), then one profiled render of each; both at
+    the zoo's 64^2, 4 spp, seed 1
+    through the kernels and through the plain versions; the G-PT
+    primal's mean against the zoo's."""
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    summary = {}
+    for fam, cls in (("gpt", GPTracer), ("path", PathTracer)):
+        scene, st = load_envmap(dev, fam)
+        check((st.width, st.height, st.spp, st.max_depth) == (128, 96, 32, 5)
+              and st.env_kind == 2 and st.has_textures == 1 and
+              float(scene.camera.aperture_radius) > 0,
+              f"envmap settings: {st.width}x{st.height} {st.spp}spp "
+              f"maxDepth {st.max_depth} env {st.env_kind} textures "
+              f"{st.has_textures}")
+        tracer = factory.make_integrator(scene, st)
+        check(type(tracer) is cls, f"factory built {type(tracer).__name__}")
+        t0 = time.time()
+        envmap_render(tracer, scene, 0, 1)
+        torch.cuda.synchronize()
+        log(f"envmap {fam}: warm-up (1 spp) {time.time() - t0:.3f} s")
+        for k in tracer.kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img, _, rays = envmap_render(tracer, scene, 1, st.spp)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = [k.launches for k in tracer.kernels]
+        for k, n in zip(tracer.kernels, launches):
+            recs[k.name]["launches"] += n
+        finite = bool(torch.isfinite(img).all())
+        mean = float(img.abs().mean())
+        log(f"envmap {fam} {st.width}x{st.height} {st.spp}spp"
+            f"{' + L1' if fam == 'gpt' else ''}: wall {wall:.4f} s, rays "
+            f"{rays}, {rays / wall / 1e6:.3f} Mrays/s, sweep launches "
+            f"closest {launches[0]} occluded {launches[1]}, finite "
+            f"{finite}, mean |I| {mean:.5f}")
+        check(tuple(img.shape) == (96, 128, 3), f"envmap {fam}: shape")
+        check(finite and mean > 1e-5, f"envmap {fam}: not finite or black")
+        check(all(n > 0 for n in launches),
+              f"envmap {fam}: a sweep kernel was not launched: {launches}")
+        prof = profiled_render(
+            lambda: envmap_render(tracer, scene, 2, st.spp), "sweep_")
+        log(f"  profiled render (seed 2): device busy {prof['busy_ms']:.3f} "
+            f"ms of {prof['wall_ms']:.3f} ms wall (idle "
+            f"{100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f}%), "
+            f"{prof['device_ops']} device ops; sweeps "
+            f"{prof['kernel_ms']:.3f} ms over {prof['kernel_calls']} "
+            "launches")
+        summary[fam] = dict(wall_s=wall, rays=rays,
+                            mrays_per_s=rays / wall / 1e6,
+                            launches=launches, mean=mean, profiled=prof)
+
+    # kernels vs plain at the zoo's settings (same seed)
+    for fam in ("gpt", "path"):
+        scene, st = load_envmap(dev, fam, 64, 4)
+        outs = {}
+        for mode in ("kernel", "plain"):
+            tracer = factory.make_integrator(scene, st)
+            if mode == "plain":
+                use_plain(tracer)
+            img, bufs, rays = envmap_render(tracer, scene, 1, 4)
+            outs[mode] = (bufs if bufs is not None else {"image": img}), rays
+        (k_bufs, k_rays), (p_bufs, p_rays) = outs["kernel"], outs["plain"]
+        log(f"envmap {fam} 64x64 4spp kernel vs plain: rays {k_rays} vs "
+            f"{p_rays}")
+        check(abs(k_rays - p_rays) <= 1e-3 * p_rays,
+              f"envmap {fam}: ray counts differ")
+        for name in (("primal", "very_direct", "dx", "dy") if fam == "gpt"
+                     else ("image",)):
+            a, b = k_bufs[name], p_bufs[name]
+            frac = float(torch.isclose(a, b, rtol=IMG_RTOL, atol=IMG_ATOL)
+                         .all(-1).float().mean())
+            rel = abs(float(a.mean()) - float(b.mean())) / max(
+                abs(float(b.mean())), 1e-12)
+            log(f"  {name}: {frac:.5f} of pixels within rtol {IMG_RTOL} "
+                f"atol {IMG_ATOL}; mean rel diff {rel:.2e}")
+            check(bool(torch.isfinite(a).all()), f"envmap {name} not finite")
+            check(frac >= IMG_FRAC, f"envmap {fam} {name}: kernel != plain")
+            check(rel < 1e-3 or abs(float(a.mean()) - float(b.mean())) < 1e-6,
+                  f"envmap {fam} {name}: means differ")
+        if fam == "gpt":
+            zoo = float(k_bufs["primal"].abs().mean())
+            rel = abs(zoo - ZOO_ENVMAP_MEAN) / ZOO_ENVMAP_MEAN
+            log(f"  G-PT primal mean |I| at the zoo's settings {zoo:.5f} "
+                f"beside ZOO_r05.json's {ZOO_ENVMAP_MEAN} (rel diff "
+                f"{rel:.4f}; an image statistic)")
+            check(rel <= 0.05, "envmap G-PT primal mean is not within 5% of "
+                  "the zoo's")
+            summary["gpt"]["zoo_primal_mean"] = zoo
+    return summary
+
+
 def build_kernels():
     """Build the three kernel libraries, one nvcc each, all started
     together; prints how much the overlap saves against building them
@@ -2119,10 +2264,10 @@ def build_kernels():
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("step-e",),
+    ap.add_argument("--only", choices=("step-e", "step-f"),
                     help="build the kernels and run one phase that needs "
-                         "no earlier one (step-e: phase 17), without the "
-                         "result line")
+                         "no earlier one (step-e: phase 17, step-f: phase "
+                         "18), without the result line")
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2136,13 +2281,6 @@ def main():
     log(card_line())
     with Phase("build"):
         build_kernels()
-    if args.only == "step-e":
-        with Phase("step E on caustics"):
-            log(json.dumps({"step_e": phase_step_e(dev)}))
-        log(f"total {time.time() - t_start:.3f} s")
-        log(card_line())
-        return
-
     csrc = "gradientdomain_mitsuba_tpu_torch/csrc/"
     ref_sweep = "gradientdomain_mitsuba_tpu/ops/pallas_sweep.py:"
     ref_trace = "gradientdomain_mitsuba_tpu/ops/pallas_trace.py:"
@@ -2160,6 +2298,16 @@ def main():
             ("tri9_closest", "trace_block.cu", ref_trace + "62"),
             ("tri9_occluded", "trace_block.cu", ref_trace + "62"))]
     recs = {r["name"]: r for r in kernels_rec}
+    if args.only == "step-e":
+        with Phase("step E on caustics"):
+            log(json.dumps({"step_e": phase_step_e(dev)}))
+    if args.only == "step-f":
+        with Phase("step F on envmap"):
+            log(json.dumps({"step_f": phase_step_f(dev, recs)}))
+    if args.only:
+        log(f"total {time.time() - t_start:.3f} s")
+        log(card_line())
+        return
     with Phase("sweep kernels vs plain"):
         phase_kernels(dev, kernels_rec)
     with Phase("slice 1: cbox G-PT + L1"):
@@ -2195,10 +2343,12 @@ def main():
         step_d = phase_step_d(dev, recs, step_b_images["path"])
     with Phase("step E on caustics"):
         step_e = phase_step_e(dev)
+    with Phase("step F on envmap"):
+        step_f = phase_step_f(dev, recs)
     log(json.dumps({"slice": summary, "forest": forest_summary,
                     "forest_v4": v4_summary, "bidir": bidir_summary,
                     "gbdpt_gradients": grad_summary, "step_b": step_b,
-                    "step_d": step_d, "step_e": step_e}))
+                    "step_d": step_d, "step_e": step_e, "step_f": step_f}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

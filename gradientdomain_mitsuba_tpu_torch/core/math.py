@@ -7,6 +7,8 @@ whose last axis is 3; every function broadcasts over leading axes.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -56,6 +58,20 @@ def to_local(v, s, t, n):
 def to_world(v, s, t, n):
     """Local shading frame coordinates -> world direction."""
     return v[..., 0:1] * s + v[..., 1:2] * t + v[..., 2:3] * n
+
+
+def spherical_direction(theta, phi):
+    st, ct = torch.sin(theta), torch.cos(theta)
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    return torch.stack([st * cp, st * sp, ct], dim=-1)
+
+
+def spherical_coordinates(d):
+    """Unit vector -> (theta, phi), phi in [0, 2pi)."""
+    theta = torch.arccos(torch.clamp(d[..., 2], -1.0, 1.0))
+    phi = torch.atan2(d[..., 1], d[..., 0])
+    phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
+    return theta, phi
 
 
 def transform_point(m, p):

@@ -1,7 +1,10 @@
-"""Sampling warps: [0,1)^2 -> disks, hemispheres, triangles.
+"""Sampling warps: [0,1)^2 -> disks, hemispheres, triangles and
+microfacet half vectors.
 
 Counterpart of gradientdomain_mitsuba_tpu/core/warp.py (Mitsuba's warp
-namespace, src/libcore/warp.cpp) for the warps the G-PT slice uses.
+namespace, src/libcore/warp.cpp).  The uniform sphere / hemisphere /
+cone warps and interval_to_tent are not ported yet (ROADMAP Queue 1
+item 2).
 """
 from __future__ import annotations
 
@@ -45,3 +48,44 @@ def square_to_uniform_triangle(u):
     warp::squareToUniformTriangle: a = sqrt(1-u1))."""
     a = torch.sqrt(torch.clamp_min(1.0 - u[..., 0], 0.0))
     return torch.stack([1.0 - a, a * u[..., 1]], dim=-1)
+
+
+def square_to_beckmann(u, alpha):
+    """Beckmann NDF-sampled half vector about +z (full-NDF sampling as in
+    Mitsuba 0.5's microfacet.h; it predates VNDF sampling)."""
+    phi = 2.0 * PI * u[..., 1]
+    log_term = torch.log(torch.clamp_min(1.0 - u[..., 0], 1e-38))
+    tan2theta = -(alpha ** 2) * log_term
+    cos_theta = 1.0 / torch.sqrt(1.0 + tan2theta)
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta ** 2, 0.0))
+    return torch.stack([sin_theta * torch.cos(phi),
+                        sin_theta * torch.sin(phi), cos_theta], dim=-1)
+
+
+def square_to_beckmann_pdf(d, alpha):
+    ct = d[..., 2]
+    ct2 = ct * ct
+    tan2 = (1.0 - ct2) / torch.clamp_min(ct2, 1e-12)
+    p = torch.exp(-tan2 / (alpha ** 2)) / (
+        PI * alpha ** 2 * torch.clamp_min(ct2 * ct, 1e-12))
+    return torch.where(ct > 1e-6, p, 0.0)
+
+
+def square_to_ggx(u, alpha):
+    """GGX (Trowbridge-Reitz) NDF-sampled half vector about +z (full
+    NDF)."""
+    phi = 2.0 * PI * u[..., 1]
+    tan2theta = (alpha ** 2) * u[..., 0] / torch.clamp_min(1.0 - u[..., 0],
+                                                           1e-12)
+    cos_theta = 1.0 / torch.sqrt(1.0 + tan2theta)
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta ** 2, 0.0))
+    return torch.stack([sin_theta * torch.cos(phi),
+                        sin_theta * torch.sin(phi), cos_theta], dim=-1)
+
+
+def square_to_ggx_pdf(d, alpha):
+    ct = torch.clamp_min(d[..., 2], 0.0)
+    a2 = alpha ** 2
+    denom = ct * ct * (a2 - 1.0) + 1.0
+    D = a2 / (PI * torch.clamp_min(denom * denom, 1e-20))
+    return D * ct

@@ -173,7 +173,8 @@ def check_scene(scene, settings):
         raise NotImplementedError(
             "environment / delta-light NEE on the eye walk: ROADMAP "
             "Queue 1 item 14")
-    sensor_ops.check_supported(scene.camera)
+    # light tracing needs the pinhole's importance
+    sensor_ops.check_supported(scene.camera, lens=False)
     if bool(int(settings.has_textures) & 16):
         raise NotImplementedError(
             "woven-cloth (irawan) vertex payload: ROADMAP Queue 1 item 12")

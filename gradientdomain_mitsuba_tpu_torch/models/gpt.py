@@ -1,4 +1,4 @@
-"""Gradient-Domain Path Tracing (G-PT), all-diffuse scenes.
+"""Gradient-Domain Path Tracing (G-PT) through the reconnection shift.
 
 Counterpart of gradientdomain_mitsuba_tpu/models/gpt.py (the fork's
 src/integrators/gpt/gpt.cpp, Kettunen et al. 2015): a lockstep wavefront
@@ -11,9 +11,12 @@ module docstring); `jit` and `fori_loop` become eager code and Python
 loops, and the scene's device is the tensors' device.
 
 Ported: scenes whose materials all classify as diffuse for shifting
-(any_specular False), area lights only, no textures, pinhole perspective
-camera.  Other scenes raise NotImplementedError at construction, naming
-the ROADMAP item.  The half-vector shift is not ported yet.
+(any_specular False: the kinds of bsdf.PORTED_KINDS rougher than
+shiftThreshold), area lights and the environment map (its shift), the
+perspective and thin-lens cameras, and reflectance textures with the
+primary hits' mip level for the base and the offset paths.  Other scenes
+raise NotImplementedError at construction, naming the ROADMAP item; the
+half-vector shift through specular or glossy vertices is item 7a.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from ..ops import bsdf as bsdf_ops
 from ..ops import common, emitter as em_ops
 from ..ops import film as film_ops
 from ..ops import sensor as sensor_ops
-from .path import MAX_BOUNCES_UNLIMITED, mis_weight
+from .path import MAX_BOUNCES_UNLIMITED, check_scene_extras, mis_weight
 
 # film-space shifts: +x, -x, +y, -y
 OFFSETS = ((1.0, 0.0), (-1.0, 0.0), (0.0, 1.0), (0.0, -1.0))
@@ -53,25 +56,26 @@ def _where(c, a, b):
 
 
 class GPTracer:
-    """Gradient-domain path tracer for all-diffuse scenes."""
+    """Gradient-domain path tracer for scenes without specular or glossy
+    vertices (the reconnection and environment shifts)."""
 
     def __init__(self, scene, settings):
         configure()
         self.kinds = bsdf_ops.scene_kinds(scene)
-        if not self.kinds <= bsdf_ops.DIFFUSE_ONLY:
-            # delta kinds the port's BSDFs have: what G-PT lacks is the
-            # half-vector shift through them
-            item = ("7a (half-vector shift)"
-                    if self.kinds <= bsdf_ops.PORTED_KINDS else "12")
+        if not self.kinds <= bsdf_ops.PORTED_KINDS:
             raise NotImplementedError(
-                f"material kinds {sorted(self.kinds)}: G-PT takes diffuse "
-                f"only (ROADMAP Queue 1 item {item})")
-        if settings.has_textures:
+                f"material kinds {sorted(self.kinds)}: not all ported "
+                "(ROADMAP Queue 1 item 12)")
+        p = settings.integrator_props
+        self.shift_threshold = float(p.get("shiftThreshold", 0.001))
+        if bsdf_ops.any_specular(scene.materials, self.shift_threshold):
+            # the kinds are the port's: what G-PT lacks is the half-vector
+            # shift through vertices that classify as specular or glossy
             raise NotImplementedError(
-                "textured materials: ROADMAP Queue 1 item 13")
-        if settings.env_kind != 0 or settings.n_delta > 0:
-            raise NotImplementedError(
-                "environment / delta emitters: ROADMAP Queue 1 item 14")
+                f"specular/glossy vertices at shiftThreshold "
+                f"{self.shift_threshold} (half-vector shift): ROADMAP "
+                "Queue 1 item 7a")
+        check_scene_extras(settings)
         sensor_ops.check_supported(scene.camera)
         self._beval = functools.partial(bsdf_ops.eval, kinds=self.kinds)
         self._bpdf = functools.partial(bsdf_ops.pdf, kinds=self.kinds)
@@ -80,7 +84,10 @@ class GPTracer:
         self.device = scene.geom.linC.device
         self.n_area = int((scene.emitters.tri_count > 0).sum())
         self.env_kind = settings.env_kind
-        self.has_env = False
+        self.has_env = settings.env_kind != 0
+        # emitters NEE picks among: the area lights and the environment
+        self.n_lights = self.n_area + (1 if self.has_env else 0)
+        self.has_textures = settings.has_textures
         self.n_delta = 0
         n_tris = int(scene.geom.indices.shape[0])
         closest, occluded = common.choose_intersector(
@@ -95,12 +102,6 @@ class GPTracer:
         md = settings.max_depth
         self.n_bounces = (md - 1 if md > 0 else MAX_BOUNCES_UNLIMITED)
         self.filter_kind = film_ops.FILTERS.get(settings.rfilter, 0)
-        p = settings.integrator_props
-        self.shift_threshold = float(p.get("shiftThreshold", 0.001))
-        if bsdf_ops.any_specular(scene.materials, self.shift_threshold):
-            raise NotImplementedError(
-                "specular/glossy shifts (half-vector copy): ROADMAP Queue "
-                "1 item 7")
         self._u1, self._u2 = make_sampler(settings.sampler, settings.spp)
 
     # ------------------------------------------------------------------
@@ -163,6 +164,10 @@ class GPTracer:
         rad = scene.emitters.radiance[
             torch.clamp_min(its_m.emitter_id, 0).long()]
         very = _where(_b3(is_em), rad, 0.0)
+        if self.has_env:
+            very = very + _where(_b3(~its_m.valid),
+                                 em_ops.eval_env(scene, self.env_kind, d_m),
+                                 0.0)
 
         state = dict(
             # main
@@ -181,10 +186,17 @@ class GPTracer:
             grad=torch.zeros((4, N, 3), device=dev),
         )
 
+        # mip level: primary hits only (bounce 0), as in the reference
+        fp_m = fp_o = None
+        if self.has_textures and self.n_bounces > 0:
+            fp_m = common.primary_uv_footprint(scene, W, H, d_m, its_m)
+            fp_o = common.primary_uv_footprint(scene, W, H, d_o, its_o)
+
         if self.n_bounces > 0:
             state = self._bounce(scene, state, 0, seed, sample_idx,
-                                 pixel_id, N, eps, occl4, trace4, True)
-        # all-diffuse: after bounce 0 every live offset is CONNECTED
+                                 pixel_id, N, eps, occl4, trace4, True,
+                                 fp_main=fp_m, fp_off=fp_o)
+        # no specular vertex: after bounce 0 every live offset is CONNECTED
         # (reconnection either succeeded or the shift died), so bounce 1
         # runs without the not-connected machinery
         if self.n_bounces > 1:
@@ -215,7 +227,8 @@ class GPTracer:
 
     # ------------------------------------------------------------------
     def _bounce(self, scene, s, b, seed, sample_idx, pixel_id, N, eps,
-                occl4, trace4, allow_conn0=True, with_offsets=True):
+                occl4, trace4, allow_conn0=True, with_offsets=True,
+                fp_main=None, fp_off=None):
         """One lockstep bounce.  with_offsets=False runs the plain-PT
         subset only (main NEE + main BSDF segment, offset state passed
         through untouched)."""
@@ -236,15 +249,18 @@ class GPTracer:
         # frames & params: main
         ss_m, ts_m = m.build_frame(its.ns)
         wi_m = m.to_local(wi_w, ss_m, ts_m, its.ns)
-        par_m = common.material_params(scene, 0, its.bsdf_id, its.uv)
+        par_m = common.material_params(scene, self.has_textures,
+                                       its.bsdf_id, its.uv,
+                                       uv_footprint=fp_main)
         c_main = self._classify_diffuse(scene, its.bsdf_id, its.valid)
 
         if with_offsets:
             # frames & params: offsets (own vertices; only used conn==0)
             ss_o, ts_o = m.build_frame(o_its.ns)
             wi_o_loc = m.to_local(o_wi, ss_o, ts_o, o_its.ns)
-            par_o = common.material_params(scene, 0, o_its.bsdf_id,
-                                           o_its.uv)
+            par_o = common.material_params(scene, self.has_textures,
+                                           o_its.bsdf_id, o_its.uv,
+                                           uv_footprint=fp_off)
             c_off = self._classify_diffuse(scene, o_its.bsdf_id,
                                            o_its.valid)
             # wi of offsets expressed in MAIN frame (conn>=1 states)
@@ -262,8 +278,9 @@ class GPTracer:
                          DA.bounce_dim(b, DA.D_LIGHT_UV))
         ds = em_ops.sample_direct(scene, self.n_area, self.env_kind,
                                   its.p, u_sel, u_pos, n_delta=self.n_delta)
-        if self.n_area > 0:
-            # unified-measure quantities (area measure for surfaces)
+        if self.n_lights > 0:
+            # unified-measure quantities (area for surfaces, solid angle
+            # for the environment)
             conv_m = _where(ds.is_env | ds.is_delta, 1.0,
                             torch.clamp_min(-m.dot(ds.d, ds.n), 0.0) /
                             torch.clamp_min(ds.dist ** 2, 1e-12))
@@ -397,7 +414,6 @@ class GPTracer:
         hit_em = its_n.valid & (its_n.emitter_id >= 0) & (cosf_n > 0)
         rad_n = scene.emitters.radiance[
             torch.clamp_min(its_n.emitter_id, 0).long()]
-        n_tot = self.n_area
         em_of_shape = scene.geom.shape_emitter[
             torch.clamp_min(its_n.shape_id, 0).long()]
         pe_area_n = _where(
@@ -405,7 +421,7 @@ class GPTracer:
             1.0 / (torch.clamp_min(
                 scene.emitters.total_area[
                     torch.clamp_min(em_of_shape, 0).long()], 1e-12)
-                * max(n_tot, 1)), 0.0)
+                * max(self.n_lights, 1)), 0.0)
         esc = main_cont & ~its_n.valid
         env_rad = em_ops.eval_env(scene, self.env_kind, wo_w)
         pe_env = em_ops.pdf_env_direct(scene, self.n_area, self.env_kind,
@@ -616,7 +632,7 @@ class GPTracer:
             1.0 / (torch.clamp_min(
                 scene.emitters.total_area[
                     torch.clamp_min(its_n.emitter_id, 0).long()], 1e-12)
-                * max(self.n_area, 1)), 0.0)
+                * max(self.n_lights, 1)), 0.0)
         off_emit = (_where(_b3(hit_em_o), rad_np[None], 0.0) +
                     _where(_b3(esc[None]), env_rad_m[None], 0.0))
         off_pe_u = _where(esc[None], pe_env_m[None], pe_area_n[None])

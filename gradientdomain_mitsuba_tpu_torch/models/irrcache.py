@@ -45,6 +45,8 @@ class IrrCacheTracer(PathTracer):
     default 4), `gatherSamples` (hemisphere rays per record, default 64),
     `quality` (Ward error bound kappa, default 0.5)."""
 
+    shades_textures_and_env = False
+
     def __init__(self, scene, settings):
         super().__init__(scene, settings)
         props = settings.integrator_props

@@ -14,11 +14,12 @@ Semantics are the reference's:
 
 `jit` and `fori_loop` become eager code and Python loops on the scene's
 device.  Ported: the scenes the port's BSDFs, emitters and sensors cover
-(diffuse and the delta conductor / dielectric / null kinds, analytic
-spheres, area lights, pinhole perspective, no textures).  At a delta
-vertex the NEE shadow ray is still traced, as in the reference; eval's
-delta mask makes its contribution 0.  The texture
-footprint, environment, delta-light and subsurface branches raise
+(the kinds of bsdf.PORTED_KINDS, analytic spheres, area lights and the
+environment map, perspective and thin-lens cameras, reflectance
+textures with the primary hits' mip level).  At a delta vertex the NEE
+shadow ray is still traced, as in the reference; eval's delta mask
+makes its contribution 0.  The anisotropic texture filter, constant
+environments, delta lights and the subsurface branch raise
 NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -59,23 +60,43 @@ def _b3(x):
     return x[..., None]
 
 
+def check_scene_extras(settings, textures_and_env=True):
+    """Raise NotImplementedError naming the ROADMAP Queue 1 item for the
+    texture and emitter features a ported tracer cannot render yet.
+    textures_and_env=False also refuses reflectance textures and the
+    environment map (tracers whose own loops do not shade them yet)."""
+    if not textures_and_env:
+        if settings.has_textures:
+            raise NotImplementedError(
+                "textured materials (uv footprint): ROADMAP Queue 1 item 13")
+        if settings.env_kind != 0:
+            raise NotImplementedError(
+                "environment emitters: ROADMAP Queue 1 item 14")
+    if settings.n_delta > 0:
+        raise NotImplementedError(
+            "delta-light emitters: ROADMAP Queue 1 item 14")
+    em_ops.check_env(settings.env_kind)
+    common.check_texture_bits(settings.has_textures)
+    if settings.has_ewa:
+        raise NotImplementedError(
+            "anisotropic (EWA) texture filtering: ROADMAP Queue 1 item 13")
+
+
 class PathTracer:
     """Unidirectional path tracer (NEE + MIS) on the scene's device."""
+
+    # False in subclasses whose own loops do not shade reflectance
+    # textures and the environment yet: they raise on such scenes
+    shades_textures_and_env = True
 
     def __init__(self, scene, settings):
         configure()
         self.kinds = bsdf_ops.scene_kinds(scene)
         if not self.kinds <= bsdf_ops.PORTED_KINDS:
             raise NotImplementedError(
-                f"material kinds {sorted(self.kinds)}: only diffuse, "
-                "conductor, dielectric and null are ported (ROADMAP Queue 1 "
-                "item 12)")
-        if settings.has_textures:
-            raise NotImplementedError(
-                "textured materials (uv footprint): ROADMAP Queue 1 item 13")
-        if settings.env_kind != 0 or settings.n_delta > 0:
-            raise NotImplementedError(
-                "environment / delta emitters: ROADMAP Queue 1 item 14")
+                f"material kinds {sorted(self.kinds)}: not all ported "
+                "(ROADMAP Queue 1 item 12)")
+        check_scene_extras(settings, self.shades_textures_and_env)
         sensor_ops.check_supported(scene.camera)
         self._beval = functools.partial(bsdf_ops.eval, kinds=self.kinds)
         self._bpdf = functools.partial(bsdf_ops.pdf, kinds=self.kinds)
@@ -83,8 +104,9 @@ class PathTracer:
         self.settings = settings
         self.device = scene.geom.linC.device
         self.n_area = int((scene.emitters.tri_count > 0).sum())
-        self.has_env = False
+        self.has_env = settings.has_env
         self.env_kind = settings.env_kind
+        self.has_textures = settings.has_textures
         self.n_delta = 0
         n_tris = int(scene.geom.indices.shape[0])
         closest, occluded = common.choose_intersector(
@@ -125,7 +147,8 @@ class PathTracer:
 
     def _emitted(self, scene, its, o_prev, d, alive, tp, last_pdf,
                  last_delta):
-        """MIS-weighted emission seen at `its` along d from o_prev."""
+        """MIS-weighted emission seen at `its` along d from o_prev: an
+        area emitter hit, or the environment on an escaped ray."""
         cos_front = m.dot(its.ns, -d)
         is_emitter = its.valid & (its.emitter_id >= 0) & (cos_front > 0)
         rad = scene.emitters.radiance[
@@ -134,8 +157,20 @@ class PathTracer:
             scene, self.n_area, self.has_env, its.emitter_id, o_prev,
             its.p, its.ng, n_delta=self.n_delta)
         w_hit = torch.where(last_delta, 1.0, mis_weight(last_pdf, lum_pdf))
-        return torch.where(_b3(alive & is_emitter), tp * rad * _b3(w_hit),
-                           0.0)
+        out = torch.where(_b3(alive & is_emitter), tp * rad * _b3(w_hit),
+                          0.0)
+        if self.has_env:
+            # the two terms are exclusive per lane (hit or escaped), so
+            # their sum adds as the reference's two adds do
+            env_l = em_ops.eval_env(scene, self.env_kind, d)
+            env_pdf = em_ops.pdf_env_direct(scene, self.n_area,
+                                            self.env_kind, d,
+                                            n_delta=self.n_delta)
+            w_env = torch.where(last_delta, 1.0,
+                                mis_weight(last_pdf, env_pdf))
+            out = out + torch.where(_b3(alive & ~its.valid),
+                                    tp * env_l * _b3(w_env), 0.0)
+        return out
 
     def trace_rays(self, scene, seed, sample_idx, pixel_id, o, d,
                    direct_at_first=True, sss_cache=None):
@@ -168,15 +203,22 @@ class PathTracer:
                                   device=dev),
         )
         for b in range(self.n_bounces):
+            # bounce 0 shades the primary hits at their mip level (pixel
+            # footprint); later bounces sample the finest level
+            fp = None
+            if b == 0 and self.has_textures:
+                fp = common.primary_uv_footprint(scene, st.width, st.height,
+                                                 d, its)
             s = self._bounce(scene, s, b, seed, sample_idx, pixel_id, N,
-                             eps)
+                             eps, fp)
 
         # final emitter-hit pass for the vertex reached by the last bounce
         return s["L"] + self._emitted(scene, s["its"], s["o"], s["d"],
                                       s["alive"], s["tp"], s["last_pdf"],
                                       s["last_delta"])
 
-    def _bounce(self, scene, s, b, seed, sample_idx, pixel_id, N, eps):
+    def _bounce(self, scene, s, b, seed, sample_idx, pixel_id, N, eps,
+                fp=None):
         st = self.settings
         dev = self.device
         depth = b + 1  # Mitsuba depth of the CURRENT vertex
@@ -197,7 +239,9 @@ class PathTracer:
         # ---- shading frame ------------------------------------------------
         ss, ts = m.build_frame(its.ns)
         wi = m.to_local(wi_world, ss, ts, its.ns)
-        params = common.material_params(scene, 0, its.bsdf_id, its.uv)
+        params = common.material_params(scene, self.has_textures,
+                                        its.bsdf_id, its.uv,
+                                        uv_footprint=fp)
 
         # ---- NEE ------------------------------------------------------------
         u_sel = self._u1(seed, pixel_id, sample_idx,

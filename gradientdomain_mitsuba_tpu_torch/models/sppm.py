@@ -67,6 +67,8 @@ class SPPMTracer(PathTracer):
       gatherCap     per-cell scan bound             (default 32)
       maxDepth / rrDepth as usual."""
 
+    shades_textures_and_env = False
+
     def __init__(self, scene, settings):
         super().__init__(scene, settings)
         props = settings.integrator_props

@@ -10,10 +10,15 @@ sample() returns (wo, weight = f*cos/pdf, pdf, is_delta, eta, valid).
 as in the reference.  Ported: the DIFFUSE lobe (src/bsdfs/diffuse.cpp),
 the smooth CONDUCTOR (conductor.cpp: a delta mirror lobe weighted by the
 conductor Fresnel term) and DIELECTRIC (dielectric.cpp: delta reflection
-or refraction chosen by the dielectric Fresnel term), and the NULL kind
+or refraction chosen by the dielectric Fresnel term), the NULL kind
 (src/bsdfs/null.cpp: an index-matched medium boundary, a delta
-pass-through wo = -wi).  Delta lobes evaluate to 0 in eval and pdf.  Any
-other kind raises (ROADMAP Queue 1 item 12).
+pass-through wo = -wi), the microfacet kinds ROUGH_CONDUCTOR,
+ROUGH_PLASTIC and ROUGH_DIELECTRIC (roughconductor.cpp,
+roughplastic.cpp, roughdielectric.cpp over microfacet.h's Beckmann /
+GGX with full-NDF sampling) and PLASTIC (plastic.cpp: a delta specular
+lobe over a diffuse substrate; eval and pdf cover the substrate).  Delta
+lobes evaluate to 0 in eval and pdf.  Any other kind raises (ROADMAP
+Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -22,21 +27,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import math as m
 from ..core import warp
 from ..core.spectrum import luminance
 from ..scene.materials import (BLEND, COATING, CONDUCTOR, DIELECTRIC,
-                               DIFFUSE, FLAG_TWOSIDED, NULL_BSDF,
-                               ROUGH_CONDUCTOR, ROUGH_DIELECTRIC,
+                               DIFFUSE, DIST_GGX, FLAG_TWOSIDED, NULL_BSDF,
+                               PLASTIC, ROUGH_CONDUCTOR, ROUGH_DIELECTRIC,
                                ROUGH_PLASTIC, THIN_DIELECTRIC, WARD)
 
 INV_PI = warp.INV_PI
 OPACITY = -2             # pseudo-kind: some row has a mask opacity
 ROUGH_COAT = -3          # pseudo-kind: some COATING row has a rough layer
 _ROUGH_LAYER_MIN = 1e-5  # coat_alpha above this = microfacet layer lobe
-PORTED_KINDS = frozenset({DIFFUSE, NULL_BSDF, CONDUCTOR, DIELECTRIC})
-# the kinds the gradient-domain tracers take: their shifts through delta
-# vertices (the half-vector shift) are ROADMAP Queue 1 item 7a
-DIFFUSE_ONLY = frozenset({DIFFUSE})
+PORTED_KINDS = frozenset({DIFFUSE, NULL_BSDF, CONDUCTOR, DIELECTRIC,
+                          ROUGH_CONDUCTOR, PLASTIC, ROUGH_PLASTIC,
+                          ROUGH_DIELECTRIC})
 # the ported kinds whose every lobe is a delta: 0 in eval and pdf
 _DELTA_ONLY = (CONDUCTOR, DIELECTRIC, NULL_BSDF)
 
@@ -45,7 +50,7 @@ class MatParams(NamedTuple):
     """Per-interaction material parameters (gathered from the table)."""
     kind: torch.Tensor          # [N] i32
     twosided: torch.Tensor      # [N] bool
-    reflectance: torch.Tensor   # [N, 3]
+    reflectance: torch.Tensor   # [N, 3] (texture-resolved albedo)
     specular: torch.Tensor      # [N, 3]
     transmittance: torch.Tensor  # [N, 3]
     alpha: torch.Tensor         # [N]
@@ -61,11 +66,16 @@ class MatParams(NamedTuple):
     blend_w: torch.Tensor = None  # [N] second-child weight
 
 
-def gather_params(materials, mid) -> MatParams:
+def gather_params(materials, mid, albedo_override=None) -> MatParams:
     """Material parameters for a batch of ids — ONE gather of the packed
-    [M, 28] row table (Materials.packed); fields are slices of the row."""
+    [M, 28] row table (Materials.packed); fields are slices of the row.
+    albedo_override (texture-resolved reflectance, [N, 3]) replaces the
+    row's reflectance before the specular sampling weight is taken from
+    it, as in the reference."""
     row = materials.packed[mid.long()]
     refl = row[..., 2:5]
+    if albedo_override is not None:
+        refl = albedo_override
     spec = row[..., 5:8]
     # Mitsuba's specularSamplingWeight: sAvg / (sAvg + dAvg) by luminance
     s_lum = luminance(spec)
@@ -88,8 +98,9 @@ def _check_kinds(kinds):
     if kinds is None or not set(kinds) <= PORTED_KINDS:
         raise NotImplementedError(
             f"BSDF kinds {sorted(kinds) if kinds is not None else 'all'}: "
-            "only diffuse, conductor, dielectric and null are ported "
-            "(ROADMAP Queue 1 item 12)")
+            "only diffuse, conductor, dielectric, null, roughconductor, "
+            "plastic, roughplastic and roughdielectric are ported (ROADMAP "
+            "Queue 1 item 12)")
 
 
 def fresnel_dielectric(cos_i, eta):
@@ -134,6 +145,66 @@ def _reflect_local(w):
     return torch.stack([-w[..., 0], -w[..., 1], w[..., 2]], dim=-1)
 
 
+# ---------------------------------------------------------------------------
+# Microfacet helpers (Beckmann / GGX, full NDF — Mitsuba 0.5 microfacet.h)
+# ---------------------------------------------------------------------------
+
+def mf_D(m_, alpha, dist):
+    db = warp.square_to_beckmann_pdf(m_, alpha) / torch.clamp_min(
+        torch.abs(m_[..., 2]), 1e-9)
+    dg = warp.square_to_ggx_pdf(m_, alpha) / torch.clamp_min(
+        torch.abs(m_[..., 2]), 1e-9)
+    return torch.where(dist == DIST_GGX, dg, db)
+
+
+def mf_sample(u, alpha, dist):
+    mb = warp.square_to_beckmann(u, alpha)
+    mg = warp.square_to_ggx(u, alpha)
+    return torch.where((dist == DIST_GGX)[..., None], mg, mb)
+
+
+def mf_pdf(m_, alpha, dist):
+    """pdf of the sampled half vector (D * cos)."""
+    pb = warp.square_to_beckmann_pdf(m_, alpha)
+    pg = warp.square_to_ggx_pdf(m_, alpha)
+    return torch.where(dist == DIST_GGX, pg, pb)
+
+
+def _smith_g1(v, m_, alpha, dist):
+    cos_v = v[..., 2]
+    # side check: v and m on the same side
+    valid = (m.dot(v, m_) * cos_v) > 0.0
+    ct2 = torch.clamp(cos_v * cos_v, 1e-9, 1.0)
+    tan_v = torch.sqrt(torch.clamp_min(1.0 - ct2, 0.0) / ct2)
+    # Beckmann rational approximation
+    a = 1.0 / torch.clamp_min(alpha * tan_v, 1e-9)
+    g_b = torch.where(
+        a < 1.6,
+        (3.535 * a + 2.181 * a * a) / (1.0 + 2.276 * a + 2.577 * a * a),
+        1.0)
+    # GGX exact
+    g_g = 2.0 / (1.0 + torch.sqrt(1.0 + (alpha * tan_v) ** 2))
+    g = torch.where(dist == DIST_GGX, g_g, g_b)
+    return torch.where(valid, g, 0.0)
+
+
+def mf_G(wi, wo, m_, alpha, dist):
+    return _smith_g1(wi, m_, alpha, dist) * _smith_g1(wo, m_, alpha, dist)
+
+
+def _half_vector(wi, wo):
+    """Normalized wi + wo on the +z side, and its pre-normalization
+    length."""
+    h = wi + wo
+    hlen = m.length(h, keepdims=True)
+    h = h / torch.clamp_min(hlen, 1e-12)
+    return h * torch.sign(h[..., 2:3]), hlen[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Per-model eval / pdf (one-sided models take the flipped-to-front wi)
+# ---------------------------------------------------------------------------
+
 def _diffuse_eval(p: MatParams, wi, wo):
     f = p.reflectance * INV_PI * torch.clamp_min(wo[..., 2], 0.0)[..., None]
     valid = (wi[..., 2] > 0) & (wo[..., 2] > 0)
@@ -145,12 +216,178 @@ def _diffuse_pdf(p, wi, wo):
     return torch.where(valid, warp.square_to_cosine_hemisphere_pdf(wo), 0.0)
 
 
+def _roughconductor_eval(p: MatParams, wi, wo):
+    h, hlen = _half_vector(wi, wo)
+    D = mf_D(h, p.alpha, p.dist)
+    G = mf_G(wi, wo, h, p.alpha, p.dist)
+    F = fresnel_conductor(m.dot(wi, h), p.eta, p.k)
+    ci = wi[..., 2]
+    spec = (D * G / torch.clamp_min(4.0 * ci, 1e-9))[..., None] * F * \
+        p.specular
+    valid = (ci > 0) & (wo[..., 2] > 0) & (hlen > 1e-12)
+    return torch.where(valid[..., None], spec, 0.0)
+
+
+def _roughconductor_pdf(p, wi, wo):
+    h, _ = _half_vector(wi, wo)
+    pdf_m = mf_pdf(h, p.alpha, p.dist)
+    jac = 1.0 / torch.clamp_min(4.0 * torch.abs(m.dot(wo, h)), 1e-9)
+    valid = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+    return torch.where(valid, pdf_m * jac, 0.0)
+
+
+def _roughconductor_spec_dielectric(p, wi, wo):
+    """Microfacet specular lobe with DIELECTRIC Fresnel (roughplastic)."""
+    h, hlen = _half_vector(wi, wo)
+    D = mf_D(h, p.alpha, p.dist)
+    G = mf_G(wi, wo, h, p.alpha, p.dist)
+    F, _ = fresnel_dielectric(m.dot(wi, h), p.eta[..., 0])
+    ci = wi[..., 2]
+    spec = (D * G * F / torch.clamp_min(4.0 * ci, 1e-9))[..., None] * \
+        p.specular
+    valid = (ci > 0) & (wo[..., 2] > 0) & (hlen > 1e-12)
+    return torch.where(valid[..., None], spec, 0.0)
+
+
+def _substrate_eval(p, wi, wo):
+    """The diffuse substrate under a dielectric interface (plastic.cpp /
+    roughplastic.cpp with nonlinear=false): rho / (1 - fdr_int) times the
+    two Fresnel transmissions and 1/eta^2."""
+    Fi, _ = fresnel_dielectric(wi[..., 2], p.eta[..., 0])
+    Fo, _ = fresnel_dielectric(wo[..., 2], p.eta[..., 0])
+    inv_eta2 = 1.0 / torch.clamp_min(p.eta[..., 0] ** 2, 1e-9)
+    diff = p.reflectance / torch.clamp_min(1.0 - p.fdr_int, 1e-6)[..., None]
+    return diff * INV_PI * (inv_eta2 * (1.0 - Fi) * (1.0 - Fo) *
+                            torch.clamp_min(wo[..., 2], 0.0))[..., None]
+
+
+def _roughplastic_eval(p: MatParams, wi, wo):
+    spec = _roughconductor_spec_dielectric(p, wi, wo)
+    valid = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+    return torch.where(valid[..., None], spec + _substrate_eval(p, wi, wo),
+                       0.0)
+
+
+def _spec_prob(p, wi):
+    """Probability of picking the specular lobe of a (rough) plastic:
+    Fresnel-weighted specular sampling weight.  Returns (prob, Fi)."""
+    Fi, _ = fresnel_dielectric(wi[..., 2], p.eta[..., 0])
+    sw = p.spec_weight
+    prob = (Fi * sw) / torch.clamp_min(Fi * sw + (1 - Fi) * (1 - sw), 1e-9)
+    return prob, Fi
+
+
+def _roughplastic_pdf(p, wi, wo):
+    prob_spec = torch.clamp(_spec_prob(p, wi)[0], 0.0, 1.0)
+    pdf_s = _roughconductor_pdf(p, wi, wo)
+    pdf_d = _diffuse_pdf(p, wi, wo)
+    return prob_spec * pdf_s + (1 - prob_spec) * pdf_d
+
+
+def _plastic_eval_diffuse(p, wi, wo):
+    """Smooth plastic: delta specular + diffuse substrate; eval covers the
+    diffuse part only (plastic.cpp eval with ESolidAngle)."""
+    valid = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+    return torch.where(valid[..., None], _substrate_eval(p, wi, wo), 0.0)
+
+
+def _plastic_pdf(p, wi, wo):
+    prob_spec = _spec_prob(p, wi)[0]
+    return (1 - prob_spec) * _diffuse_pdf(p, wi, wo)
+
+
+def _roughdielectric_H(p, wi, wo):
+    """Half vector for reflection / refraction (Walter et al. 2007),
+    oriented to +z.  Returns (H, refract_mask, rel_eta, H_ok)."""
+    refract = (wi[..., 2] * wo[..., 2]) < 0
+    rel = torch.where(wi[..., 2] >= 0, p.eta[..., 0],
+                      1.0 / torch.clamp_min(p.eta[..., 0], 1e-9))
+    h_refl = wi + wo
+    h_refr = -(wi + rel[..., None] * wo)
+    h = torch.where(refract[..., None], h_refr, h_refl)
+    hlen = m.length(h, keepdims=True)
+    h = h / torch.clamp_min(hlen, 1e-12)
+    h = h * torch.sign(h[..., 2:3])
+    return h, refract, rel, hlen[..., 0] > 1e-12
+
+
+def _roughdielectric_valid(refract, widh, wodh, h_ok, wi, wo):
+    """Microfacet sidedness: reflection keeps wi / wo on the same side of
+    H, refraction on opposite sides, and the geometric sides agree."""
+    same = (wi[..., 2] * wo[..., 2]) > 0
+    side_ok = torch.where(refract, widh * wodh < 0, widh * wodh > 0)
+    return h_ok & side_ok & torch.where(refract, ~same, same)
+
+
+def _roughdielectric_eval(p: MatParams, wi, wo):
+    """f*|cos_o| for rough dielectric (radiance transport: the eta^2
+    compression folded in, as for the smooth dielectric)."""
+    h, refract, rel, h_ok = _roughdielectric_H(p, wi, wo)
+    D = mf_D(h, p.alpha, p.dist)
+    G = mf_G(wi * torch.sign(wi[..., 2:3]), wo * torch.sign(wo[..., 2:3]),
+             h, p.alpha, p.dist)
+    widh = m.dot(wi, h)
+    wodh = m.dot(wo, h)
+    F, _ = fresnel_dielectric(widh, p.eta[..., 0])
+    ci = torch.abs(wi[..., 2])
+
+    f_refl = p.specular * (F * D * G /
+                           torch.clamp_min(4.0 * ci, 1e-9))[..., None]
+    denom = (widh + rel * wodh) ** 2
+    f_refr = p.transmittance * (
+        torch.abs(widh) * torch.abs(wodh) / torch.clamp_min(ci, 1e-9) *
+        (1.0 - F) * D * G / torch.clamp_min(denom, 1e-12))[..., None]
+    out = torch.where(refract[..., None], f_refr, f_refl)
+    valid = _roughdielectric_valid(refract, widh, wodh, h_ok, wi, wo)
+    return torch.where(valid[..., None], out, 0.0)
+
+
+def _roughdielectric_pdf(p: MatParams, wi, wo):
+    h, refract, rel, h_ok = _roughdielectric_H(p, wi, wo)
+    widh = m.dot(wi, h)
+    wodh = m.dot(wo, h)
+    pm = mf_pdf(h, p.alpha, p.dist)   # D * |cos_h|
+    F, _ = fresnel_dielectric(widh, p.eta[..., 0])
+    jac_refl = 1.0 / torch.clamp_min(4.0 * torch.abs(wodh), 1e-9)
+    denom = (widh + rel * wodh) ** 2
+    jac_refr = (rel * rel) * torch.abs(wodh) / torch.clamp_min(denom, 1e-12)
+    pdf_ = torch.where(refract, pm * jac_refr * (1.0 - F), pm * jac_refl * F)
+    valid = _roughdielectric_valid(refract, widh, wodh, h_ok, wi, wo)
+    return torch.where(valid, pdf_, 0.0)
+
+
+def _roughdielectric_sample(p: MatParams, wi, u2, uc):
+    """Returns (wo, weight, pdf, valid, eta of the transition)."""
+    h = mf_sample(u2, p.alpha, p.dist)
+    widh = m.dot(wi, h)
+    F, _ = fresnel_dielectric(widh, p.eta[..., 0])
+    choose_refl = uc <= F
+    wo_refl = 2.0 * widh[..., None] * h - wi
+    rel = torch.where(widh >= 0, p.eta[..., 0],
+                      1.0 / torch.clamp_min(p.eta[..., 0], 1e-9))
+    c2 = 1.0 - (1.0 - widh * widh) / torch.clamp_min(rel * rel, 1e-18)
+    cos_tp = torch.sqrt(torch.clamp_min(c2, 0.0))
+    sgn = torch.sign(widh)
+    wo_refr = m.normalize(-wi / rel[..., None] +
+                          (widh / rel - sgn * cos_tp)[..., None] * h)
+    wo = torch.where(choose_refl[..., None], wo_refl, wo_refr)
+    valid_mode = torch.where(choose_refl,
+                             (wo[..., 2] * wi[..., 2]) > 0,
+                             (wo[..., 2] * wi[..., 2]) < 0)
+    f = _roughdielectric_eval(p, wi, wo)
+    pdf_ = _roughdielectric_pdf(p, wi, wo)
+    weight = f / torch.clamp_min(pdf_, 1e-12)[..., None]
+    valid = valid_mode & (pdf_ > 0) & (f.amax(-1) > 0)
+    return wo, weight, pdf_, valid, torch.where(choose_refl, 1.0, rel)
+
+
 def _flip_sign(p: MatParams, wi):
     """Two-sided handling: flip z for the intrinsically one-sided models
-    (diffuse, conductor) when lit from the back and the material is
-    two-sided; dielectric and null rows handle signed cosines
-    themselves and are never flipped."""
-    handles_sign = (p.kind == DIELECTRIC) | (p.kind == NULL_BSDF)
+    when lit from the back and the material is two-sided; dielectric,
+    rough dielectric and null rows handle signed cosines themselves and
+    are never flipped."""
+    handles_sign = ((p.kind == DIELECTRIC) | (p.kind == ROUGH_DIELECTRIC) |
+                    (p.kind == NULL_BSDF))
     flip = p.twosided & (wi[..., 2] < 0) & ~handles_sign
     return torch.where(flip, -1.0, 1.0)
 
@@ -170,12 +407,28 @@ def _zflip(v, sign):
     return v * torch.stack([one, one, sign], dim=-1)
 
 
+# smooth-lobe eval / pdf of each non-diffuse kind, in the reference's
+# dispatch order
+_EVALS = ((ROUGH_CONDUCTOR, _roughconductor_eval),
+          (ROUGH_PLASTIC, _roughplastic_eval),
+          (PLASTIC, _plastic_eval_diffuse),
+          (ROUGH_DIELECTRIC, _roughdielectric_eval))
+_PDFS = ((ROUGH_CONDUCTOR, _roughconductor_pdf),
+         (ROUGH_PLASTIC, _roughplastic_pdf),
+         (PLASTIC, _plastic_pdf),
+         (ROUGH_DIELECTRIC, _roughdielectric_pdf))
+
+
 def eval(p: MatParams, wi, wo, kinds=None):
-    """f(wi,wo)*|cos_o| of the smooth lobes (the diffuse lobe); 0 on
-    delta-only rows (conductor, dielectric, null)."""
+    """f(wi,wo)*|cos_o| of the smooth lobes; 0 on delta-only rows
+    (conductor, dielectric, null)."""
     _check_kinds(kinds)
     sign = _flip_sign(p, wi)
-    out = _diffuse_eval(p, _zflip(wi, sign), _zflip(wo, sign))
+    wi, wo = _zflip(wi, sign), _zflip(wo, sign)
+    out = _diffuse_eval(p, wi, wo)
+    for kk, f in _EVALS:
+        if kk in kinds:
+            out = torch.where((p.kind == kk)[..., None], f(p, wi, wo), out)
     delta = _delta_only(p, kinds)
     if delta is not None:
         out = torch.where(delta[..., None], 0.0, out)
@@ -187,7 +440,11 @@ def pdf(p: MatParams, wi, wo, kinds=None):
     delta-only rows."""
     _check_kinds(kinds)
     sign = _flip_sign(p, wi)
-    out = _diffuse_pdf(p, _zflip(wi, sign), _zflip(wo, sign))
+    wi, wo = _zflip(wi, sign), _zflip(wo, sign)
+    out = _diffuse_pdf(p, wi, wo)
+    for kk, f in _PDFS:
+        if kk in kinds:
+            out = torch.where(p.kind == kk, f(p, wi, wo), out)
     delta = _delta_only(p, kinds)
     if delta is not None:
         out = torch.where(delta, 0.0, out)
@@ -197,7 +454,7 @@ def pdf(p: MatParams, wi, wo, kinds=None):
 class BSDFSample(NamedTuple):
     wo: torch.Tensor        # [N, 3] local
     weight: torch.Tensor    # [N, 3] f*cos/pdf (0 on failure)
-    pdf: torch.Tensor       # [N] solid-angle pdf
+    pdf: torch.Tensor       # [N] solid-angle pdf (delta: discrete prob)
     is_delta: torch.Tensor  # [N] bool
     eta: torch.Tensor       # [N] relative IOR of the transition
     valid: torch.Tensor     # [N] bool
@@ -205,24 +462,29 @@ class BSDFSample(NamedTuple):
 
 def sample(p: MatParams, wi, u2, u_comp, kinds=None) -> BSDFSample:
     """Sample an outgoing direction.  u2: [N,2] (the diffuse lobe's
-    cosine-hemisphere draw), u_comp: [N] (the dielectric's choice of
-    reflection, u_comp <= F, or refraction).  Conductor rows mirror
-    (weight specular * F, pdf 1), dielectric rows reflect (weight
-    specular, pdf F) or refract (weight transmittance / eta^2, pdf 1 - F,
-    eta the relative IOR), null rows pass straight through (wo = -wi,
-    weight 1, pdf 1); all three are delta."""
+    cosine-hemisphere draw, or the microfacet normal's), u_comp: [N] (the
+    choice of lobe: reflection u_comp <= F or refraction for the
+    dielectrics, specular u_comp < prob_spec or diffuse for the
+    plastics).  Conductor rows mirror (weight specular * F, pdf 1),
+    dielectric rows reflect (weight specular, pdf F) or refract (weight
+    transmittance / eta^2, pdf 1 - F, eta the relative IOR), null rows
+    pass straight through (wo = -wi, weight 1, pdf 1): all three are
+    delta, as is plastic's specular lobe (pdf = its pick probability).
+    The microfacet kinds weight by eval / pdf."""
     _check_kinds(kinds)
     sign = _flip_sign(p, wi)
     wif = _zflip(wi, sign)
     k = p.kind
-    wo = warp.square_to_cosine_hemisphere(u2)
-    pdf_out = warp.square_to_cosine_hemisphere_pdf(wo)
+    wo_d = warp.square_to_cosine_hemisphere(u2)
+    pdf_d = warp.square_to_cosine_hemisphere_pdf(wo_d)
+    wo = wo_d
+    pdf_out = pdf_d
     weight = torch.where((wif[..., 2] > 0)[..., None], p.reflectance, 0.0)
-    valid = (wif[..., 2] > 0) & (wo[..., 2] > 0)
+    valid = (wif[..., 2] > 0) & (wo_d[..., 2] > 0)
     eta = torch.ones_like(pdf_out)
     is_delta = torch.zeros_like(valid)
 
-    def pick(kk, wo_k, w_k, pdf_k, valid_k, eta_k=None):
+    def pick(kk, wo_k, w_k, pdf_k, valid_k, eta_k=None, delta_k=True):
         nonlocal wo, weight, pdf_out, valid, eta, is_delta
         on = k == kk
         wo = torch.where(on[..., None], wo_k, wo)
@@ -231,15 +493,16 @@ def sample(p: MatParams, wi, u2, u_comp, kinds=None) -> BSDFSample:
         valid = torch.where(on, valid_k, valid)
         if eta_k is not None:
             eta = torch.where(on, eta_k, eta)
-        is_delta = is_delta | on
+        if delta_k is not False:
+            is_delta = is_delta | (on if delta_k is True else on & delta_k)
 
     one = torch.ones_like(pdf_out)
     if CONDUCTOR in kinds:
         pick(CONDUCTOR, _reflect_local(wif),
              p.specular * fresnel_conductor(wif[..., 2], p.eta, p.k), one,
              wif[..., 2] > 0)
+    eta_s = p.eta[..., 0]
     if DIELECTRIC in kinds:
-        eta_s = p.eta[..., 0]
         F, cos_t = fresnel_dielectric(wi[..., 2], eta_s)
         refl = u_comp <= F
         rel_eta = torch.where(wi[..., 2] >= 0, eta_s,
@@ -255,10 +518,46 @@ def sample(p: MatParams, wi, u2, u_comp, kinds=None) -> BSDFSample:
         pick(DIELECTRIC,
              torch.where(refl[..., None], _reflect_local(wi), wo_refr),
              w_die, pdf_die, pdf_die > 0, torch.where(refl, 1.0, rel_eta))
+    if ROUGH_CONDUCTOR in kinds or ROUGH_PLASTIC in kinds:
+        m_h = mf_sample(u2, p.alpha, p.dist)
+        wo_rc = 2.0 * m.dot(wif, m_h, keepdims=True) * m_h - wif
+    if ROUGH_CONDUCTOR in kinds:
+        pdf_rc = _roughconductor_pdf(p, wif, wo_rc)
+        w_rc = (_roughconductor_eval(p, wif, wo_rc) /
+                torch.clamp_min(pdf_rc, 1e-12)[..., None])
+        pick(ROUGH_CONDUCTOR, wo_rc, w_rc, pdf_rc,
+             (wo_rc[..., 2] > 0) & (wif[..., 2] > 0) & (pdf_rc > 0),
+             delta_k=False)
+    if ROUGH_PLASTIC in kinds:
+        prob_rp = torch.clamp(_spec_prob(p, wif)[0], 0.0, 1.0)
+        wo_rp = torch.where((u_comp < prob_rp)[..., None], wo_rc, wo_d)
+        pdf_rp = _roughplastic_pdf(p, wif, wo_rp)
+        w_rp = (_roughplastic_eval(p, wif, wo_rp) /
+                torch.clamp_min(pdf_rp, 1e-12)[..., None])
+        pick(ROUGH_PLASTIC, wo_rp, w_rp, pdf_rp,
+             (wo_rp[..., 2] > 0) & (wif[..., 2] > 0) & (pdf_rp > 0),
+             delta_k=False)
+    if PLASTIC in kinds:
+        prob_p, Fi_p = _spec_prob(p, wif)
+        prob_p = torch.clamp(prob_p, 0.0, 1.0)
+        spec_p = u_comp < prob_p
+        wo_pl = torch.where(spec_p[..., None], _reflect_local(wif), wo_d)
+        w_spec = p.specular * (Fi_p / torch.clamp_min(prob_p,
+                                                      1e-9))[..., None]
+        w_diff = (_plastic_eval_diffuse(p, wif, wo_pl) / torch.clamp_min(
+            (1 - prob_p) * pdf_d, 1e-12)[..., None])
+        pick(PLASTIC, wo_pl, torch.where(spec_p[..., None], w_spec, w_diff),
+             torch.where(spec_p, prob_p, (1 - prob_p) * pdf_d),
+             wif[..., 2] > 0, delta_k=spec_p)
+    if ROUGH_DIELECTRIC in kinds:
+        wo_rd, w_rd, pdf_rd, valid_rd, eta_rd = _roughdielectric_sample(
+            p, wi, u2, u_comp)
+        pick(ROUGH_DIELECTRIC, wo_rd, w_rd, pdf_rd, valid_rd, eta_rd,
+             delta_k=False)
     if NULL_BSDF in kinds:
         pick(NULL_BSDF, -wi, torch.ones_like(weight), one,
              torch.ones_like(valid))
-    # un-flip back to the true frame (dielectric and null rows were never
+    # un-flip back to the true frame (the sign-handling rows were never
     # flipped: their sign is 1)
     wo = _zflip(wo, sign)
     weight = torch.where(valid[..., None], weight, 0.0)

@@ -10,8 +10,9 @@ Ported: the small-scene (<= 2048 triangles) traversal through the sweep
 kernels, the large-scene traversal through the pair kernels (or, under
 GDMT_KERNEL=v4, the v4 block kernels), analytic spheres merged by
 closest t (their exact normals and lat-long uv in the hit fill), the
-untextured material gather, and the hit fill without the barycentric
-payload or normal perturbation.  The reference's one-hot
+material gather with reflectance textures, the primary hits' uv
+footprint, and the hit fill without the barycentric payload or normal
+perturbation.  The reference's one-hot
 matmul gather (fast_row_gather) is a TPU workaround; here it is plain
 indexing.
 """
@@ -221,16 +222,61 @@ def fill_intersection(scene, o, d, hit) -> Intersection:
     )
 
 
-def material_params(scene, has_textures, bsdf_id, uv):
-    """BSDF parameters of a batch of hits: the untextured, blend-free
-    case (has_textures == 0).  Other cases raise (ROADMAP Queue 1 items
-    12-13)."""
+# has_textures bits (scene.compile_scene) the port does not resolve yet,
+# with the ROADMAP Queue 1 item each waits for
+_UNPORTED_TEXTURE_BITS = ((2, "textured mask opacity", 13),
+                          (4, "blend / coating wrapper BSDFs", 12),
+                          (8, "textured blend weights", 13),
+                          (16, "woven-cloth (irawan) BSDFs", 12))
+
+
+def check_texture_bits(has_textures):
+    """Raise for the has_textures bits the port does not resolve yet."""
+    for bit, what, item in _UNPORTED_TEXTURE_BITS:
+        if int(has_textures) & bit:
+            raise NotImplementedError(
+                f"{what} (has_textures bit {bit.bit_length() - 1}): "
+                f"ROADMAP Queue 1 item {item}")
+
+
+def material_params(scene, has_textures, bsdf_id, uv, uv_footprint=None):
+    """BSDF parameters of a batch of hits, resolving reflectance textures
+    when bit 0 of the static has_textures mask is set (uv_footprint: the
+    primary hits' UV-space footprint for the mip level, None = finest).
+    The other bits (textured opacity, blend / coating wrappers, textured
+    blend weights, woven cloth) raise, naming their ROADMAP Queue 1
+    item."""
     from . import bsdf as bsdf_ops
-    if int(has_textures):
-        raise NotImplementedError(
-            "textured / blend materials: ROADMAP Queue 1 items 12-13")
-    return bsdf_ops.gather_params(scene.materials,
-                                  torch.clamp_min(bsdf_id, 0))
+    check_texture_bits(has_textures)
+    mid = torch.clamp_min(bsdf_id, 0)
+    albedo = None
+    if int(has_textures) & 1:
+        from .texture import resolve_albedo
+        albedo = resolve_albedo(scene, mid, uv, uv_footprint)
+    return bsdf_ops.gather_params(scene.materials, mid,
+                                  albedo_override=albedo)
+
+
+def primary_uv_footprint(scene, W, H, d, its):
+    """UV-space area of one pixel's footprint at a camera-ray hit — the
+    mipmap level source (the reference's stand-in for camera-ray
+    differentials; secondary bounces sample the finest level in both).
+    Pixel solid angle ~ (A_img / (W H)) cos^3(theta_cam); projected
+    surface area = t^2 omega / |cos(ng, d)|; converted to UV with the
+    hit triangle's uv-per-world-area density (tri_shade column 22).
+    Analytic-sphere lanes have no density row: 0, the finest level."""
+    from .sensor import image_area
+    cam = scene.camera
+    fwd = cam.to_world[:3, 2]
+    cos_cam = torch.clamp_min(m.dot(d, fwd.expand(d.shape)), 1e-6)
+    omega = (image_area(cam) / (W * H)) * cos_cam ** 3
+    cos_hit = torch.clamp_min(torch.abs(m.dot(its.ng, d)), 1e-4)
+    area = torch.where(its.valid, its.t, 0.0) ** 2 * omega / cos_hit
+    tri_shade = scene.geom.tri_shade
+    prim = torch.clamp(its.prim_id, 0, tri_shade.shape[0] - 1)
+    uvd = tri_shade[prim.long(), 22]
+    uvd = torch.where(its.prim_id >= SPHERE_PRIM_BASE, 0.0, uvd)
+    return area * uvd
 
 
 def offset_ray_origin(p, ng, d, eps):

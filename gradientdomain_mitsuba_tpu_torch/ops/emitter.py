@@ -1,12 +1,15 @@
-"""Emitter sampling and evaluation (NEE front door), area lights.
+"""Emitter sampling and evaluation (NEE front door): area lights and
+the environment map.
 
 Counterpart of gradientdomain_mitsuba_tpu/ops/emitter.py (Scene::
-sampleEmitterDirect / pdfEmitterDirect, src/emitters/area.cpp).  Mitsuba
-0.5 picks among emitters uniformly; an area emitter samples its surface
-uniformly by area (per-triangle CDF), then the pdf is converted to solid
-angle at the reference point.  Delta lights and environment emitters are
-not ported yet (ROADMAP Queue 1 item 14): sample_direct raises for them,
-and the environment functions only cover env_kind == 0 (no environment).
+sampleEmitterDirect / pdfEmitterDirect / evalEnvironment, src/emitters/
+{area,envmap}.cpp).  Mitsuba 0.5 picks among emitters uniformly; an area
+emitter samples its surface uniformly by area (per-triangle CDF), then
+the pdf is converted to solid angle at the reference point; the envmap
+samples a texel from its luminance CDF (rows, then columns of the row)
+and looks up radiance bilinearly.  Delta lights and the constant / sun /
+sky environments are not ported yet (ROADMAP Queue 1 item 14): they
+raise.
 """
 from __future__ import annotations
 
@@ -65,65 +68,142 @@ def sample_emitter_triangle(scene, flat, u_pos):
 
 def sample_direct(scene, n_area: int, env_kind: int, p_ref, u_sel, u_pos,
                   n_delta: int = 0):
-    """NEE sample toward one uniformly-picked area emitter.
-
-    n_area is static (from the scene); p_ref [N,3]; u_sel [N]; u_pos [N,2].
-    Delta lights and environments raise (ROADMAP Queue 1 item 14)."""
-    if n_delta > 0 or env_kind != ENV_NONE:
+    """NEE sample toward one uniformly-picked emitter: the n_area area
+    emitters, then the environment (pick order of the reference; n_area
+    and env_kind are static).  p_ref [N,3]; u_sel [N]; u_pos [N,2].
+    Delta lights raise (ROADMAP Queue 1 item 14)."""
+    if n_delta > 0:
         raise NotImplementedError(
-            "delta lights / environment emitters: ROADMAP Queue 1 item 14")
+            "delta lights: ROADMAP Queue 1 item 14")
+    check_env(env_kind)
+    has_env = env_kind != ENV_NONE
     em = scene.emitters
-    n_total = n_area
+    n_total = n_area + (1 if has_env else 0)
+    z = torch.zeros_like(p_ref)
+    zero = torch.zeros(p_ref.shape[:-1], device=p_ref.device)
+    no = zero > 1
+    out = DirectSample(d=z, dist=zero, pdf=zero, radiance=z, n=z, valid=no,
+                       p=z, pdf_area=zero, is_env=no, is_delta=no)
     if n_total == 0:
-        z = torch.zeros_like(p_ref)
-        zero = torch.zeros(p_ref.shape[:-1], device=p_ref.device)
-        no = zero > 1
-        return DirectSample(d=z, dist=zero, pdf=zero, radiance=z, n=z,
-                            valid=no, p=z, pdf_area=zero, is_env=no,
-                            is_delta=no)
+        return out
     pick_pdf = 1.0 / n_total
     idx = torch.clamp_max((u_sel * n_total).to(torch.int32), n_total - 1)
     # reuse u_sel within its stratum for the picked emitter's tri selection
     u_resc = torch.clamp(u_sel * n_total - idx.to(u_sel.dtype), 0.0, 1.0)
-    e = torch.clamp_max(idx, max(n_area - 1, 0)).long()
+    is_env = idx == n_area if has_env else no
 
-    off = em.tri_offset[e]
-    cnt = em.tri_count[e]
-    flat = _searchsorted_segment(em.tri_cdf, off, off + cnt - 1, u_resc)
-    pos, ng = sample_emitter_triangle(scene, flat, u_pos)
+    if n_area > 0:
+        e = torch.clamp_max(idx, n_area - 1).long()
+        off = em.tri_offset[e]
+        cnt = em.tri_count[e]
+        flat = _searchsorted_segment(em.tri_cdf, off, off + cnt - 1, u_resc)
+        pos, ng = sample_emitter_triangle(scene, flat, u_pos)
 
-    to_l = pos - p_ref
-    dist2 = torch.clamp_min(m.squared_length(to_l), 1e-12)
-    dist = torch.sqrt(dist2)
-    d = to_l / dist[..., None]
-    cos_l = -m.dot(d, ng)
-    area = em.total_area[e]
-    pdf_area = 1.0 / torch.clamp_min(area, 1e-12)
-    pdf_sa = pick_pdf * pdf_area * dist2 / torch.clamp_min(cos_l, 1e-9)
-    rad = em.radiance[e]
-    valid_area = cos_l > 1e-6
-    no = torch.zeros_like(valid_area)
-    return DirectSample(d=d, dist=dist, pdf=pdf_sa, radiance=rad, n=ng,
-                        valid=valid_area, p=pos, pdf_area=pick_pdf * pdf_area,
-                        is_env=no, is_delta=no)
+        to_l = pos - p_ref
+        dist2 = torch.clamp_min(m.squared_length(to_l), 1e-12)
+        dist = torch.sqrt(dist2)
+        d = to_l / dist[..., None]
+        cos_l = -m.dot(d, ng)
+        area = em.total_area[e]
+        pdf_area = 1.0 / torch.clamp_min(area, 1e-12)
+        pdf_sa = pick_pdf * pdf_area * dist2 / torch.clamp_min(cos_l, 1e-9)
+        out = DirectSample(d=d, dist=dist, pdf=pdf_sa, radiance=em.radiance[e],
+                           n=ng, valid=cos_l > 1e-6, p=pos,
+                           pdf_area=pick_pdf * pdf_area, is_env=no,
+                           is_delta=no)
+    if not has_env:
+        return out
+
+    d_env, pdf_env, rad_env = _sample_env(scene, u_pos)
+    pdf_env = pick_pdf * pdf_env
+    e3 = is_env[..., None]
+    return DirectSample(
+        d=torch.where(e3, d_env, out.d),
+        dist=torch.where(is_env, 1e7, out.dist),
+        pdf=torch.where(is_env, pdf_env, out.pdf),
+        radiance=torch.where(e3, rad_env, out.radiance),
+        n=torch.where(e3, -d_env, out.n),
+        valid=torch.where(is_env, pdf_env > 0, out.valid),
+        p=torch.where(e3, 0.0, out.p),
+        pdf_area=torch.where(is_env, 0.0, out.pdf_area),
+        is_env=is_env, is_delta=out.is_delta)
+
+
+def check_env(env_kind):
+    """Raise for the environments not ported yet."""
+    if env_kind not in (ENV_NONE, ENV_MAP):
+        raise NotImplementedError(
+            "constant / sun / sky environments (uniform-sphere warp): "
+            "ROADMAP Queue 1 item 14")
+
+
+def _sample_env(scene, u2):
+    """Envmap texel from the luminance CDF: the row by the marginal CDF,
+    then the column by the row's conditional CDF (each the last entry
+    <= u, searchsorted right - 1).  Returns (world direction, solid-angle
+    pdf, radiance)."""
+    em = scene.emitters
+    He, We = em.env_map.shape[:2]
+    row = torch.clamp(torch.searchsorted(
+        em.env_cdf_rows, u2[..., 0].contiguous(), right=True) - 1, 0, He - 1)
+    col = torch.searchsorted(em.env_cdf_cols[row],
+                             u2[..., 1:2].contiguous(), right=True)[..., 0]
+    col = torch.clamp(col - 1, 0, We - 1)
+    theta = (row.to(torch.float32) + 0.5) / He * math.pi
+    phi = (col.to(torch.float32) + 0.5) / We * 2 * math.pi
+    d = m.transform_vector(em.env_to_world, m.spherical_direction(theta, phi))
+    return d, em.env_pdf[row, col], em.env_map[row, col] * em.env_radiance
+
+
+def _env_coords(scene, d):
+    """(theta, phi) of world direction d in the envmap's frame."""
+    dl = m.normalize(m.transform_vector(scene.emitters.env_world_to_local,
+                                        d))
+    return m.spherical_coordinates(dl)
 
 
 def eval_env(scene, env_kind, d):
     """Environment radiance along direction d [N,3] (escaped rays): zero
-    without an environment; other kinds raise (ROADMAP Queue 1 item 14)."""
-    if env_kind != ENV_NONE:
-        raise NotImplementedError("environment emitters: ROADMAP Queue 1 "
-                                  "item 14")
-    return torch.zeros(d.shape[:-1] + (3,), dtype=d.dtype, device=d.device)
+    without an environment, the envmap's bilinear lookup (wrapping in
+    phi, clamped in theta) times its scale."""
+    check_env(env_kind)
+    if env_kind == ENV_NONE:
+        return torch.zeros(d.shape[:-1] + (3,), dtype=d.dtype,
+                           device=d.device)
+    env = scene.emitters.env_map
+    He, We = env.shape[:2]
+    theta, phi = _env_coords(scene, d)
+    x = phi / (2 * math.pi) * We - 0.5
+    y = theta / math.pi * He - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = torch.remainder(x0.to(torch.int32), We).long()
+    x1i = torch.remainder(x0i + 1, We)
+    y0i = torch.clamp(y0.to(torch.int32), 0, He - 1).long()
+    y1i = torch.clamp(y0i + 1, 0, He - 1)
+    c = (env[y0i, x0i] * ((1 - fx) * (1 - fy)) +
+         env[y0i, x1i] * (fx * (1 - fy)) +
+         env[y1i, x0i] * ((1 - fx) * fy) +
+         env[y1i, x1i] * (fx * fy))
+    return c * scene.emitters.env_radiance
 
 
 def pdf_env_direct(scene, n_area: int, env_kind: int, d, n_delta: int = 0):
-    """Solid-angle pdf of sample_direct choosing direction d on the
-    environment: zero without an environment."""
-    if env_kind != ENV_NONE:
-        raise NotImplementedError("environment emitters: ROADMAP Queue 1 "
-                                  "item 14")
-    return torch.zeros(d.shape[:-1], dtype=d.dtype, device=d.device)
+    """Solid-angle pdf that sample_direct would have produced direction d
+    toward the environment (MIS on escaped BSDF rays): zero without an
+    environment, the texel's pdf over the emitter count with the
+    envmap."""
+    check_env(env_kind)
+    if env_kind == ENV_NONE:
+        return torch.zeros(d.shape[:-1], dtype=d.dtype, device=d.device)
+    pdf = scene.emitters.env_pdf
+    He, We = pdf.shape
+    theta, phi = _env_coords(scene, d)
+    row = torch.clamp((theta / math.pi * He).to(torch.int32), 0, He - 1)
+    col = torch.clamp((phi / (2 * math.pi) * We).to(torch.int32), 0, We - 1)
+    return pdf[row.long(), col.long()] / (n_area + n_delta + 1)
 
 
 def pdf_area_direct(scene, n_area: int, has_env: bool, emitter_id, p_ref,

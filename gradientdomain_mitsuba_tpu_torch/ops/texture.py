@@ -1,15 +1,24 @@
-"""Texture tables (host side).
+"""Texture tables and their evaluation: bitmap (trilinear mipmapped,
+wrap) + checkerboard + grid.
 
-Counterpart of the numpy part of gradientdomain_mitsuba_tpu/ops/texture.py:
-the TextureTable the scene loader builds (bitmap mip atlases,
-checkerboard/grid/vertexcolor/wireframe rows).  Texture EVALUATION is not
-ported yet (ROADMAP Queue 1 item 13): GPTracer raises on textured scenes.
+Counterpart of gradientdomain_mitsuba_tpu/ops/texture.py (Mitsuba's
+src/textures/{bitmap,checkerboard,gridtexture}.cpp + mipmap.h): the
+TextureTable the scene loader builds on the host (every bitmap's mip
+pyramid packed into one padded atlas stack [T, Hmax, Wmax, 3]) and the
+lookups on the device (gathers + bilinear weights; trilinear filtering
+lerps between the two levels that straddle the primary hit's footprint).
+
+Not ported yet (ROADMAP Queue 1 item 13): the anisotropic (EWA-class)
+filter, the barycentric payload of vertexcolor / wireframe (without it
+they evaluate to their flat color0, as the reference's callers without
+a payload get), and the opacity and blend-weight textures.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 TEX_BITMAP = 0
 TEX_CHECKERBOARD = 1
@@ -222,3 +231,102 @@ def build_table(nodes, base_dir) -> TextureTable:
         grid_width=np.asarray(
             [grid_widths.get(i, 0.01) for i in range(T)], np.float32),
         filter_ewa=np.asarray(ewas, np.int32))
+
+
+def _bilinear(tex: TextureTable, tid, lvl, u, v):
+    """Bilinear tap at mip level lvl (wrap addressing, v flipped: uv
+    origin bottom-left, image row 0 at top — Mitsuba bitmap convention).
+    Float and integer wraps are floor-mods (torch.remainder), as jnp's."""
+    off = tex.lvl_off[tid, lvl]
+    size = tex.lvl_size[tid, lvl]
+    h = size[..., 0].to(torch.float32)
+    w = size[..., 1].to(torch.float32)
+    x = torch.remainder(u, 1.0) * w - 0.5
+    y = torch.remainder(1.0 - v, 1.0) * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    hi = size[..., 0]
+    wi_ = size[..., 1]
+    x0i = torch.remainder(x0.to(torch.int32), wi_)
+    x1i = torch.remainder(x0i + 1, wi_)
+    y0i = torch.remainder(y0.to(torch.int32), hi)
+    y1i = torch.remainder(y0i + 1, hi)
+    oy = off[..., 0]
+    ox = off[..., 1]
+
+    def tap(yy, xx):
+        return tex.image[tid, (oy + yy).long(), (ox + xx).long()]
+
+    return (tap(y0i, x0i) * (1 - fx) * (1 - fy) +
+            tap(y0i, x1i) * fx * (1 - fy) +
+            tap(y1i, x0i) * (1 - fx) * fy + tap(y1i, x1i) * fx * fy)
+
+
+def eval_texture(tex: TextureTable, tex_id, uv, uv_footprint=None):
+    """Evaluate textures for a batch: tex_id [N] (>= 0), uv [N, 2].
+
+    uv_footprint (optional): the UV-space footprint area [N] of a
+    primary hit (trilinear level selection); None is the finest level,
+    the behavior for secondary bounces.  A (area, jacobian) tuple asks
+    for the anisotropic filter, which raises (ROADMAP Queue 1 item 13).
+    Vertexcolor and wireframe rows evaluate to their flat color0."""
+    if isinstance(uv_footprint, tuple):
+        raise NotImplementedError(
+            "anisotropic (EWA) texture filtering: ROADMAP Queue 1 item 13")
+    tid = torch.clamp_min(tex_id, 0).long()
+    scale = tex.uv_scale[tid]
+    off = tex.uv_offset[tid]
+    u = uv[..., 0] * scale[..., 0] + off[..., 0]
+    v = uv[..., 1] * scale[..., 1] + off[..., 1]
+    c0 = tex.color0[tid]
+    c1 = tex.color1[tid]
+
+    # checkerboard (Mitsuba: floor(u)+floor(v) parity over [0,1] cells)
+    iu = torch.floor(u * 2.0).to(torch.int32)
+    iv = torch.floor(v * 2.0).to(torch.int32)
+    even = torch.remainder(iu + iv, 2) == 0
+    checker = torch.where(even[..., None], c0, c1)
+
+    if uv_footprint is None:
+        bmp = _bilinear(tex, tid, torch.zeros_like(tid), u, v)
+    else:
+        # lod = 0.5 log2(texels covered): footprint in scaled-uv space
+        # times the level-0 texel density
+        h0 = tex.img_size[tid, 0].to(torch.float32)
+        w0 = tex.img_size[tid, 1].to(torch.float32)
+        texels = uv_footprint * scale[..., 0] * scale[..., 1] * h0 * w0
+        lod = 0.5 * torch.log2(torch.clamp_min(texels, 1e-20))
+        top = tex.n_levels[tid] - 1
+        lod = torch.clamp(lod, min=torch.zeros_like(lod),
+                          max=top.to(torch.float32))
+        l0 = torch.floor(lod).to(torch.int32)
+        l1 = torch.minimum(l0 + 1, top)
+        fl = (lod - l0.to(torch.float32))[..., None]
+        bmp = (_bilinear(tex, tid, l0.long(), u, v) * (1 - fl) +
+               _bilinear(tex, tid, l1.long(), u, v) * fl)
+    bmp = bmp * c0
+
+    # gridtexture (src/textures/gridtexture.cpp): lines of color1 at
+    # integer uv boundaries over a color0 background
+    lw = tex.grid_width[tid]
+    fu = torch.remainder(u, 1.0)
+    fv = torch.remainder(v, 1.0)
+    on_line = (fu < lw) | (fu > 1.0 - lw) | (fv < lw) | (fv > 1.0 - lw)
+    grid = torch.where(on_line[..., None], c1, c0)
+
+    kind = tex.kind[tid]
+    out = torch.where((kind == TEX_CHECKERBOARD)[..., None], checker,
+                      torch.where((kind == TEX_GRID)[..., None], grid, bmp))
+    flat = (kind == TEX_VERTEXCOLOR) | (kind == TEX_WIREFRAME)
+    return torch.where(flat[..., None], c0, out)
+
+
+def resolve_albedo(scene, mid, uv, uv_footprint=None):
+    """Material reflectance with the texture override where one is bound
+    (packed column 20 holds the reflectance texture id, -1 for none)."""
+    row = scene.materials.packed[mid.long()]
+    tex_id = row[..., 20].to(torch.int32)
+    tex_val = eval_texture(scene.textures, tex_id, uv, uv_footprint)
+    return torch.where((tex_id >= 0)[..., None], tex_val, row[..., 2:5])

@@ -66,10 +66,14 @@ def test_sample_ray(scenes):
 
 
 def test_sample_ray_rejects_other_sensors(scenes):
+    """Orthographic and spherical cameras are not ported (the thin lens,
+    kind 0 with an aperture, is: tests/test_torch_envmap.py)."""
     _, ts_scene, _ = scenes
-    thin = ts_scene.camera._replace(aperture_radius=torch.tensor(0.5))
-    with pytest.raises(NotImplementedError):
-        sensor.sample_ray(thin, W, H, torch.zeros(4, 2), torch.zeros(4, 2))
+    for kind in (1.0, 2.0):
+        cam = ts_scene.camera._replace(kind=torch.tensor(kind))
+        with pytest.raises(NotImplementedError):
+            sensor.sample_ray(cam, W, H, torch.zeros(4, 2),
+                              torch.zeros(4, 2))
 
 
 @pytest.mark.parametrize("filter_kind", [0, 1, 2])
@@ -284,7 +288,7 @@ def test_non_diffuse_kinds_raise(scenes):
     _, ts_scene, _ = scenes
     tp = bsdf.gather_params(ts_scene.materials, torch.zeros(4, dtype=torch.int32))
     with pytest.raises(NotImplementedError):
-        bsdf.eval(tp, torch.ones(4, 3), torch.ones(4, 3), frozenset({0, 3}))
+        bsdf.eval(tp, torch.ones(4, 3), torch.ones(4, 3), frozenset({0, 7}))
 
 
 def test_fill_intersection(scenes):

@@ -22,6 +22,10 @@ SCENES = {
     # analytic spheres (sph_center / sph_radius / sph_bsdf / sph_shape),
     # a dielectric and an Ag conductor row from the spectral tables
     "caustics": os.path.join(ROOT, "data/scenes/caustics/caustics.xml"),
+    # envmap texel CDFs, a checkerboard texture row, a thin lens and the
+    # rough / plastic rows; door: thindielectric and ldsampler
+    "envmap": os.path.join(ROOT, "data/scenes/envmap/envmap.xml"),
+    "door": os.path.join(ROOT, "data/scenes/door/door.xml"),
 }
 VARS = {"width": "32", "height": "24", "spp": "2", "maxDepth": "6",
         "integrator": "gpt"}
