@@ -134,7 +134,25 @@ its time):
      versions (the four G-PT buffers and the path image within rtol
      1e-3 / atol 1e-4 on >= 99% of pixels, means within 1e-3 relative);
      the G-PT primal's mean |I| there against ZOO_r05.json's
-     envmap-gpt 0.12644, within 5%.
+     envmap-gpt 0.12644, within 5%;
+ 19. step 7a (G-PT's half-vector shift, G-BDPT's specular prefix replay)
+     through factory.make_integrator: G-BDPT + L1 on caustics.xml at
+     128x128, 16 spp, maxDepth 8 (CONFIGS_r05.json #3), G-PT + L1 on
+     caustics.xml and on cbox-mats.xml at 128x128, 32 spp, maxDepth 8,
+     each after a 1-spp warm-up with the sweeps' launch counters reset
+     just before it (wall, rays, launches, added to the sweep kernels'
+     records), then one profiled render of each (device idle share;
+     G-BDPT's at 4 spp);
+     the three at 64x64, 4 spp through the kernels and the plain
+     versions (the buffers, G-BDPT's light image and one pass's t=1
+     gradient pairs within phase 4's tolerance on >= 99%, means within
+     1e-3 relative, rays within 1e-3);
+     G-PT primal + very_direct against PathTracer on caustics at maxDepth
+     5 (rtol 3e-4, atol 3e-5; deeper, G-PT's Russian roulette starts one
+     bounce before the path tracer's, as in the reference) and G-BDPT's
+     against BDPTracer at maxDepth 8 (phase 12's check); E[dx] through the
+     reference tests' glass sphere against finite differences at their
+     thresholds (tests/test_gpt_specular.py, test_gbdpt_specular.py).
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -1510,7 +1528,7 @@ def phase_bidir_slice(dev):
     return summary
 
 
-def _buffers_agree(label, a, b):
+def _buffers_agree(label, a, b, mean_rtol=1e-4):
     frac = float(torch.isclose(a, b, rtol=IMG_RTOL, atol=IMG_ATOL)
                  .all(-1).float().mean())
     rel = abs(float(a.mean()) - float(b.mean())) / max(
@@ -1518,7 +1536,7 @@ def _buffers_agree(label, a, b):
     log(f"  {label}: {frac:.5f} of pixels within rtol {IMG_RTOL} atol "
         f"{IMG_ATOL}; mean rel diff {rel:.2e}")
     check(frac >= IMG_FRAC, f"{label} differs between kernel and plain")
-    check(rel < 1e-4 or abs(float(a.mean()) - float(b.mean())) < 1e-6,
+    check(rel < mean_rtol or abs(float(a.mean()) - float(b.mean())) < 1e-6,
           f"{label} mean differs")
 
 
@@ -1587,20 +1605,9 @@ def phase_gbdpt_gradients(dev):
     out = g.render(scene, seed=0, spp=48)
     ref = g.render(scene, seed=555, spp=256)
     torch.cuda.synchronize()
-    fd_x = ref["primal"][:, 1:] - ref["primal"][:, :-1]
-    dx = out["dx"][:, :-1]
-    vd = out["very_direct"].sum(-1)
-    mx = (vd[:, 1:] + vd[:, :-1]) == 0  # mask light-edge pixels
-    a, b = dx[mx].flatten(), fd_x[mx].flatten()
-    rms_fd = float(torch.sqrt((b ** 2).mean()))
-    rms_err = float(torch.sqrt(((a - b) ** 2).mean()))
-    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
-    log(f"G-BDPT 64x64 maxDepth 2, 48 vs 256 spp ({time.time() - t0:.3f} s): "
-        f"rms(dx - fd) / rms(fd) {rms_err / rms_fd:.4f} (< 0.55), "
-        f"corr {corr:.4f} (> 0.85)")
-    check(rms_err / rms_fd < 0.55, "G-BDPT E[dx] off the finite difference")
-    check(corr > 0.85, "G-BDPT dx uncorrelated with the finite difference")
-    return dict(rms_ratio=rms_err / rms_fd, corr=corr)
+    return gradient_check(
+        f"G-BDPT 64x64 maxDepth 2, 48 vs 256 spp ({time.time() - t0:.3f} s)",
+        out["dx"], ref["primal"], out["very_direct"], (0.55, 0.85, None))
 
 
 def phase_step_b(dev):
@@ -2235,6 +2242,264 @@ def phase_step_f(dev, recs):
     return summary
 
 
+CAUSTICS = os.path.join(ROOT, "data", "scenes", "caustics", "caustics.xml")
+CBOX_MATS = os.path.join(ROOT, "data", "scenes", "cbox-mats", "cbox-mats.xml")
+# the glass-sphere Cornell box of tests/test_gpt_specular.py and
+# tests/test_gbdpt_specular.py (their E[dx] checks); MESH is filled in
+GLASS_XML = """<scene version="0.5.0">
+  <integrator type="$integrator"><integer name="maxDepth" value="4"/>
+  </integrator>
+  <sensor type="perspective">
+    <float name="fov" value="39.3077"/>
+    <transform name="toWorld">
+      <lookat origin="278, 273, -800" target="278, 273, -799" up="0, 1, 0"/>
+    </transform>
+    <sampler type="independent"><integer name="sampleCount" value="8"/>
+    </sampler>
+    <film type="hdrfilm">
+      <integer name="width" value="$width"/>
+      <integer name="height" value="$height"/>
+      <rfilter type="box"/>
+    </film>
+  </sensor>
+  <bsdf type="diffuse" id="white"><rgb name="reflectance" value="0.725, 0.71, 0.68"/></bsdf>
+  <shape type="obj"><string name="filename" value="MESH/cbox_floor.obj"/><ref id="white"/></shape>
+  <shape type="obj"><string name="filename" value="MESH/cbox_ceiling.obj"/><ref id="white"/></shape>
+  <shape type="obj"><string name="filename" value="MESH/cbox_back.obj"/><ref id="white"/></shape>
+  <shape type="obj"><string name="filename" value="MESH/cbox_greenwall.obj"/><ref id="white"/></shape>
+  <shape type="obj"><string name="filename" value="MESH/cbox_redwall.obj"/><ref id="white"/></shape>
+  <shape type="sphere">
+    <point name="center" x="278" y="150" z="250"/>
+    <float name="radius" value="120"/>
+    <integer name="nTheta" value="12"/><integer name="nPhi" value="24"/>
+    <bsdf type="dielectric"><float name="intIOR" value="1.5"/></bsdf>
+  </shape>
+  <shape type="obj">
+    <string name="filename" value="MESH/cbox_luminaire.obj"/>
+    <ref id="white"/>
+    <emitter type="area"><rgb name="radiance" value="17, 12, 4"/></emitter>
+  </shape>
+</scene>
+"""
+
+
+def step_7a_render(tracer, scene, seed, spp):
+    """(L1 final, buffers, rays) of one render through the entry points:
+    G-PT's render_final; G-BDPT's render + poisson.reconstruct."""
+    from gradientdomain_mitsuba_tpu_torch.models import poisson
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    tracer.count_rays = True
+    if isinstance(tracer, GPTracer):
+        final, bufs = tracer.render_final(scene, seed, spp, alpha=0.2,
+                                          mode="L1")
+        return final, bufs, int(bufs.pop("rays"))
+    bufs = tracer.render(scene, seed=seed, spp=spp)
+    return poisson.reconstruct(bufs, mode="L1"), bufs, tracer.last_ray_count
+
+
+STEP_7A = (("gbdpt caustics", CAUSTICS, "gbdpt", 16),
+           ("gpt caustics", CAUSTICS, "gpt", 32),
+           ("gpt cbox-mats", CBOX_MATS, "gpt", 32))
+
+
+def gradient_check(label, dx, primal_ref, very, limits):
+    """E[dx] against the finite difference of a long run's primal, away
+    from pixel pairs that see the light directly: rms(dx - fd) / rms(fd),
+    correlation and regression slope against `limits` (rms ratio, min
+    correlation, slope range or None)."""
+    fd_x = primal_ref[:, 1:] - primal_ref[:, :-1]
+    vd = very.sum(-1)
+    mx = (vd[:, 1:] + vd[:, :-1]) == 0
+    a, b = dx[:, :-1][mx].flatten(), fd_x[mx].flatten()
+    ratio = float(torch.sqrt(((a - b) ** 2).mean()) /
+                  torch.sqrt((b ** 2).mean()))
+    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    slope = float((a * b).sum() / (b * b).sum())
+    max_ratio, min_corr, slopes = limits
+    log(f"  {label}: rms(dx - fd) / rms(fd) {ratio:.4f} (< {max_ratio}), "
+        f"corr {corr:.4f} (> {min_corr}), slope {slope:.4f}"
+        + (f" (in {slopes})" if slopes else ""))
+    check(ratio < max_ratio, f"{label}: E[dx] off the finite difference")
+    check(corr > min_corr, f"{label}: dx uncorrelated with the difference")
+    if slopes:
+        check(slopes[0] < slope < slopes[1], f"{label}: slope {slope}")
+    return dict(rms_ratio=ratio, corr=corr, slope=slope)
+
+
+def gbdpt_batched(tracer, scene, seed, spp, per_pass):
+    """G-BDPT buffers (primal, very_direct, dx normalized as finalize
+    does) of `spp` samples a pixel traced `per_pass` samples a pass: the
+    same lanes, sample indices and arithmetic as render's one sample a
+    pass (trace_pass takes a sample index a lane), without the host cost
+    of a pass a sample.  The light image is off (lightImage false)."""
+    from gradientdomain_mitsuba_tpu_torch.ops import film as film_ops
+    st = tracer.settings
+    H, W = st.height, st.width
+    N = H * W
+    dev = tracer.device
+    fb = torch.zeros((H, W, 3), device=dev)
+    vb = torch.zeros_like(fb)
+    dx = torch.zeros_like(fb)
+    wb = torch.zeros((H, W), device=dev)
+    ids = torch.arange(N, device=dev).repeat(per_pass)
+    for start in range(0, spp, per_pass):
+        sidx = start + torch.arange(per_pass, device=dev).repeat_interleave(N)
+        pos, primal, very, grad = tracer.trace_pass(
+            scene, seed, sidx, pixel_id=ids)[:4]
+        jit = (pos % 1.0).reshape(per_pass, N, 2)
+        fb, wb = film_ops.splat_grid(fb, wb, jit,
+                                     primal.reshape(per_pass, N, 3),
+                                     tracer.filter_kind)
+        vb, _ = film_ops.splat_grid(vb, torch.zeros_like(wb), jit,
+                                    very.reshape(per_pass, N, 3),
+                                    tracer.filter_kind)
+        g = grad.reshape(4, per_pass, N, 3)
+        dx = film_ops.add_grid_shifted(dx, g[0], 0, 0)
+        dx = film_ops.add_grid_shifted(dx, -g[1], -1, 0)
+    w = torch.clamp_min(wb, 1e-12)[..., None]
+    return fb / w, vb / w, dx / spp
+
+
+def phase_step_7a(dev, recs):
+    """Step 7a through factory.make_integrator: the three full-width
+    renders (timed after a 1-spp warm-up with the sweeps' launch counters
+    reset just before each; the counts are added to the sweep kernels'
+    records), one profiled render of each; the three at 64^2, 4 spp
+    through the kernels and the plain versions; the primal identities;
+    E[dx] through the glass sphere."""
+    import tempfile
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    from gradientdomain_mitsuba_tpu_torch.models.bdpt import BDPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    summary = {}
+    for label, path, fam, spp in STEP_7A:
+        scene, st = load_scene_at(path, dev, 128, spp, 8, fam)
+        tracer = factory.make_integrator(scene, st)
+        check(type(tracer) is (GBDPTracer if fam == "gbdpt" else GPTracer)
+              and tracer.any_specular, f"{label}: factory built "
+              f"{type(tracer).__name__} without the half-vector shift")
+        t0 = time.time()
+        step_7a_render(tracer, scene, 0, 1)
+        torch.cuda.synchronize()
+        log(f"{label}: warm-up (1 spp) {time.time() - t0:.3f} s")
+        for k in tracer.kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        final, _, rays = step_7a_render(tracer, scene, 1, spp)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = [k.launches for k in tracer.kernels]
+        for k, n in zip(tracer.kernels, launches):
+            recs[k.name]["launches"] += n
+        finite = bool(torch.isfinite(final).all())
+        mean = float(final.abs().mean())
+        log(f"{label} 128x128 {spp}spp maxDepth 8 + L1: wall {wall:.4f} s, "
+            f"rays {rays}, {rays / wall / 1e6:.3f} Mrays/s, sweep launches "
+            f"closest {launches[0]} occluded {launches[1]}, finite "
+            f"{finite}, mean |I| {mean:.5f}")
+        check(tuple(final.shape) == (128, 128, 3), f"{label}: shape")
+        check(finite and mean > 1e-5, f"{label}: not finite or black")
+        check(all(n > 0 for n in launches),
+              f"{label}: a sweep kernel was not launched: {launches}")
+        # G-BDPT's 16 passes are alike: 4 of them give its idle share
+        prof_spp = 4 if fam == "gbdpt" else spp
+        prof = profiled_render(
+            lambda: step_7a_render(tracer, scene, 2, prof_spp), "sweep_")
+        idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+        log(f"  profiled render (seed 2, {prof_spp} spp): device busy "
+            f"{prof['busy_ms']:.3f} "
+            f"ms of {prof['wall_ms']:.3f} ms wall (idle {100 * idle:.1f}%), "
+            f"{prof['device_ops']} device ops; sweeps "
+            f"{prof['kernel_ms']:.3f} ms over {prof['kernel_calls']} "
+            "launches")
+        summary[label] = dict(wall_s=wall, rays=rays,
+                              mrays_per_s=rays / wall / 1e6,
+                              launches=launches, mean=mean, idle=idle,
+                              profiled=prof)
+
+    # kernels vs plain at 64^2, 4 spp (same seed); the primal identities
+    for label, path, fam, _ in STEP_7A:
+        scene, st = load_scene_at(path, dev, 64, 4, 8, fam)
+        outs = {}
+        for mode in ("kernel", "plain"):
+            tracer = factory.make_integrator(scene, st)
+            if mode == "plain":
+                use_plain(tracer)
+            if fam == "gbdpt":
+                tracer.count_rays = True
+                raw = tracer.render_chunk(scene, 3, 0, 4)
+                rays = int(raw.pop("rays"))
+                bufs = dict(raw, **tracer.finalize(raw, 4))
+                # one pass's t=1 image-space gradient pairs, lane by lane
+                bufs["t1_grad"] = tracer.trace_pass(scene, 3, 0)[7]
+            else:
+                _, bufs, rays = step_7a_render(tracer, scene, 3, 4)
+            outs[mode] = bufs, rays
+        (kb, kr), (pb, pr) = outs["kernel"], outs["plain"]
+        log(f"{label} 64x64 4spp kernel vs plain: rays {kr} vs {pr}")
+        check(abs(kr - pr) <= 1e-3 * pr, f"{label}: ray counts differ")
+        names = ["primal", "very_direct", "dx", "dy"]
+        if fam == "gbdpt":
+            names += ["light_img", "t1_grad"]
+        for name in names:
+            a, b = kb[name], pb[name]
+            if name == "t1_grad":
+                a, b = a.reshape(-1, 3), b.reshape(-1, 3)
+            _buffers_agree(f"{label} {name}", a, b, mean_rtol=1e-3)
+            check(bool(torch.isfinite(a).all()), f"{label} {name}")
+        if fam == "gbdpt":
+            img = BDPTracer(scene, st).render(scene, seed=3, spp=4)
+            comb = kb["primal"] + kb["very_direct"]
+            err = float((comb - img).abs().max())
+            log(f"  G-BDPT primal + very_direct vs BDPT: max |diff| "
+                f"{err:.3e}")
+            check(bool(torch.allclose(comb, img, rtol=2e-4, atol=2e-5)),
+                  "G-BDPT primal != BDPT on caustics")
+    scene, st = load_scene_at(CAUSTICS, dev, 64, 4, 5, "gpt")
+    _, bufs, _ = step_7a_render(GPTracer(scene, st), scene, 3, 4)
+    img = PathTracer(scene, st).render(scene, seed=3, spp=4)
+    comb = bufs["primal"] + bufs["very_direct"]
+    err = float((comb - img).abs().max())
+    log(f"gpt caustics 64x64 4spp maxDepth 5: primal + very_direct vs "
+        f"PathTracer max |diff| {err:.3e}")
+    check(bool(torch.allclose(comb, img, rtol=3e-4, atol=3e-5)),
+          "G-PT primal != PathTracer on caustics")
+
+    # E[dx] through the glass sphere (the reference tests' scene, sizes,
+    # sample counts, seeds and thresholds)
+    tmp = tempfile.mkdtemp()
+    try:
+        xml = os.path.join(tmp, "glass.xml")
+        with open(xml, "w") as f:
+            f.write(GLASS_XML.replace("MESH", os.path.join(
+                ROOT, "data", "scenes", "cbox", "meshes")))
+        t0 = time.time()
+        scene, st = load_scene_at(xml, dev, 20, 8, 4, "gpt")
+        out = GPTracer(scene, st).render(scene, seed=0, spp=128)
+        ref = PathTracer(scene, st).render(scene, seed=777, spp=3072)
+        summary["gpt_glass_dx"] = gradient_check(
+            f"G-PT glass 20x20 128 vs 3072 spp ({time.time() - t0:.3f} s)",
+            out["dx"], ref - out["very_direct"], out["very_direct"],
+            (0.7, 0.8, None))
+        t0 = time.time()
+        scene, st = load_scene_at(xml, dev, 16, 8, 4, "gbdpt",
+                                  {"lightImage": False})
+        g = GBDPTracer(scene, st)
+        _, very, dx = gbdpt_batched(g, scene, 0, 256, 128)
+        primal_ref, _, _ = gbdpt_batched(g, scene, 555, 384, 128)
+        summary["gbdpt_glass_dx"] = gradient_check(
+            f"G-BDPT glass 16x16 lightImage false, 256 vs 384 spp "
+            f"({time.time() - t0:.3f} s)", dx, primal_ref, very,
+            (0.85, 0.7, (0.8, 1.2)))
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary
+
+
 def build_kernels():
     """Build the three kernel libraries, one nvcc each, all started
     together; prints how much the overlap saves against building them
@@ -2264,10 +2529,10 @@ def build_kernels():
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("step-e", "step-f"),
+    ap.add_argument("--only", choices=("step-e", "step-f", "step-7a"),
                     help="build the kernels and run one phase that needs "
                          "no earlier one (step-e: phase 17, step-f: phase "
-                         "18), without the result line")
+                         "18, step-7a: phase 19), without the result line")
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2304,6 +2569,9 @@ def main():
     if args.only == "step-f":
         with Phase("step F on envmap"):
             log(json.dumps({"step_f": phase_step_f(dev, recs)}))
+    if args.only == "step-7a":
+        with Phase("step 7a: specular and glossy shifts"):
+            log(json.dumps({"step_7a": phase_step_7a(dev, recs)}))
     if args.only:
         log(f"total {time.time() - t_start:.3f} s")
         log(card_line())
@@ -2345,10 +2613,13 @@ def main():
         step_e = phase_step_e(dev)
     with Phase("step F on envmap"):
         step_f = phase_step_f(dev, recs)
+    with Phase("step 7a: specular and glossy shifts"):
+        step_7a = phase_step_7a(dev, recs)
     log(json.dumps({"slice": summary, "forest": forest_summary,
                     "forest_v4": v4_summary, "bidir": bidir_summary,
                     "gbdpt_gradients": grad_summary, "step_b": step_b,
-                    "step_d": step_d, "step_e": step_e, "step_f": step_f}))
+                    "step_d": step_d, "step_e": step_e, "step_f": step_f,
+                    "step_7a": step_7a}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

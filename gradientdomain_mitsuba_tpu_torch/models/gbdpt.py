@@ -1,29 +1,32 @@
-"""Gradient-Domain Bidirectional Path Tracing (G-BDPT), all-diffuse scenes.
+"""Gradient-Domain Bidirectional Path Tracing (G-BDPT).
 
 Counterpart of gradientdomain_mitsuba_tpu/models/gbdpt.py (the fork's
 src/integrators/gbdpt/gbdpt.cpp + gbdpt_proc.cpp, Manzi et al., EGSR
 2015): per pixel sample, the base BDPT evaluation (models/bdpt.py) is
 augmented with FOUR shifted evaluations whose EYE subpath is offset to
-the neighboring pixel; the light subpath is shared.  The shift map, the
-decomposed gradient MIS
+the neighboring pixel; the light subpath is shared.  The shift map with
+its specular-prefix replay (the reconnection junction tested at every
+vertex, the base bounce replayed by gpt.half_vector_copy where it
+fails), the decomposed gradient MIS
 
     g_st = 1/(1 + r^2) * ( w_st(ybar) * c_off - w_st(xbar) * c_base ),
     r    = |J| * prod_i pdf_fwd_offset(z_i) / pdf_fwd_base(z_i),
 
-the image-space shift of the light-tracing (t=1) paths and the suffix
-factorization are the reference's, step for step (see its module
-docstring).  The four offset views evaluate as one 4N-lane batch.
+the image-space shift of the light-tracing (t=1) paths and, in
+all-diffuse scenes, the suffix factorization are the reference's, step
+for step (see its module docstring).  The four offset views evaluate as
+one 4N-lane batch.
 
-Ported: the all-diffuse, area-lit case (any_specular False), where the
-reconnection junction can only fire at the first vertex, so the
-half-vector prefix replay never runs.  A scene with a specular or glossy
-material raises (the replay is ROADMAP Queue 1 item 7a), and so does one
-that needs the aux-only G-PT pass for environment / delta lights (item
-14).  The eye images and eye-gradient pairs are grid-aligned and go
-through the dense film adds; the light image and its image-space
-gradient pairs go through the deterministic scatter.  The final image is
-models/poisson.reconstruct on the buffers `render` returns (L1 by
-default), as the reference's CLI does.
+Ported: area-lit scenes of the bidirectional kinds (bdpt.BIDIR_KINDS:
+diffuse, conductor, dielectric), with or without specular vertices.
+Other kinds raise item 12 (e.g. cbox-mats.xml's roughconductor and
+door.xml's thindielectric), textures item 13, and environment or delta
+lights item 14 (the reference's aux-only G-PT pass).  The eye images and
+eye-gradient pairs are grid-aligned and go through the dense film adds;
+the light image and its image-space gradient pairs go through the
+deterministic scatter.  The final image is models/poisson.reconstruct on
+the buffers `render` returns (L1 by default), as the reference's CLI
+does.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from ..ops import common, film as film_ops
 from ..ops import sensor as sensor_ops
 from .bdpt import (BDPTracer, SlotOverlay, SubPath, _b3, _dir_to_area,
                    _is_delta_kind, _remap0)
-from .gpt import OFFSETS
+from .gpt import OFFSETS, half_vector_copy
 
 
 def _tile4(tree):
@@ -52,10 +55,10 @@ class GBDPTracer(BDPTracer):
         super().__init__(scene, settings)
         p = settings.integrator_props
         self.shift_threshold = float(p.get("shiftThreshold", 0.001))
-        if bsdf_ops.any_specular(scene.materials, self.shift_threshold):
-            raise NotImplementedError(
-                "specular/glossy vertices (half-vector prefix replay): "
-                "ROADMAP Queue 1 item 7a")
+        # static: all-diffuse scenes skip the prefix replay (the junction
+        # always fires at the first vertex when it fires at all)
+        self.any_specular = bsdf_ops.any_specular(scene.materials,
+                                                  self.shift_threshold)
         # the light-tracing strategies (t=1, lightImage) are shifted in
         # image space for the gradients; lightImageGradients=false keeps
         # the light image primal-only (no t=1 retrace, no reconnection
@@ -87,15 +90,20 @@ class GBDPTracer(BDPTracer):
         return common.fill_intersection(scene, o, d, hit), d
 
     def _build_offset_view(self, scene, eye: SubPath, its1, d_cam, N, eps):
-        """Shifted eye-subpath view.
+        """Shifted eye-subpath view with specular-prefix replay.
 
-        The offset camera vertex z'_1 fills slot 0 with its TRUE camera
-        density; the reconnection junction c(z_1) & c(z'_1) & c(z_2)
-        reconnects z'_1 -> z_2 and shares the suffix with the base.
-        Without specular vertices the junction can only fire at slot 0
-        (the reference's half-vector replay, which would carry a failed
-        junction on, is item 7a), so this is the reference's walk with
-        its first step only.
+        The piecewise shift map (one per neighbor): starting from the
+        offset camera vertex z'_1, at each vertex index i the reconnection
+        junction c(z_i) & c(z'_i) & c(z_{i+1}) is tested; when it holds the
+        offset reconnects z'_i -> z_{i+1} (suffix shared with the base),
+        otherwise the base bounce is replayed by HALF-VECTOR COPY
+        (gpt.half_vector_copy, one N-lane closest-hit call a step) and the
+        walk continues.  The junction slot varies per lane; the view
+        stores, per slot, either the offset prefix vertex (with its TRUE
+        sampling density) or the base vertex with junction fixups, so
+        every strategy (s,t) reads a consistent path out of the same
+        arrays.  Without specular vertices the junction can only fire at
+        slot 0 and the walk is its first step.
 
         Returns dict(view, rcum, ok_recon, ok_end, ok_end_s0), indexed by
         the strategy's endpoint slot e = t-2:
@@ -104,13 +112,15 @@ class GBDPTracer(BDPTracer):
                          shift through the camera is measure-preserving)
           ok_recon[:, e] junction fired validly at some slot <= e-1
           ok_end[:, e]   endpoint mode incl. c(z_e) & c(z'_e)
-          ok_end_s0[:, e] endpoint mode without classifications (s=0)
+          ok_end_s0[:, e] endpoint mode without classifications (s=0:
+                         the HV chain itself hits the emitter)
         """
         TE = self.TE
         dev = self.device
         cls = self._classify_diffuse
         c_walk = [cls(scene, eye.bsdf_id[:, k], eye.valid[:, k])
                   for k in range(TE)]
+        n_steps = max(TE - 1, 1) if self.any_specular else 1
 
         def set_(arr, k, val, mask):
             mk = mask.reshape(mask.shape + (1,) * (val.dim() - 1))
@@ -123,9 +133,14 @@ class GBDPTracer(BDPTracer):
               "pdf_fwd", "pdf_rev", "delta")}
         rfac = torch.ones((N, TE), device=dev)
         no = torch.zeros(N, dtype=torch.bool, device=dev)
+        prefix_ok = [no] * TE
+        jun_struct = [no] * TE
+        jun_valid = [no] * TE
+        slot_iota = torch.arange(TE, device=dev)
 
         # ---- slot 0: offset camera vertex z'_1, TRUE camera density ----
         ok0 = its1.valid & eye.valid[:, 0]
+        prefix_ok[0] = ok0
         pf0_off = self._camera_pdf_area(scene, its1.p, its1.ng)
         v["p"][:, 0] = its1.p
         v["ng"][:, 0] = its1.ng
@@ -138,108 +153,198 @@ class GBDPTracer(BDPTracer):
         set_(v["pdf_fwd"], 0, pf0_off, ok0)
         v["delta"][:, 0] = _is_delta_kind(scene.materials, its1.bsdf_id)
 
-        # ---- the junction at slot 0: reconnect z'_1 -> z_2 -------------
-        k = 0
-        kn = min(k + 1, TE - 1)   # slot of z_2
-        kn2 = min(k + 2, TE - 1)  # slot of z_3 (clamped)
-        have_next = eye.valid[:, kn]
-        co_k = cls(scene, its1.bsdf_id, ok0)
-        jst = ok0 & c_walk[k] & co_k & c_walk[kn] & have_next
+        # the replay head z'_{k+1} and its throughput
+        cur = dict(p=its1.p, ng=its1.ng, ns=its1.ns, uv=its1.uv,
+                   bsdf_id=its1.bsdf_id, wi=-d_cam)
+        beta_cur = torch.ones((N, 3), device=dev)
+        replaying = ok0
 
-        # frames/params at the offset vertex z'_1
-        ssc, tsc = m.build_frame(its1.ns)
-        wi_c = m.to_local(-d_cam, ssc, tsc, its1.ns)
-        par_c = common.material_params(scene, self.has_textures,
-                                       its1.bsdf_id, its1.uv)
+        for k in range(n_steps):
+            kn = min(k + 1, TE - 1)   # slot of z_{k+2}
+            kn2 = min(k + 2, TE - 1)  # slot of z_{k+3} (clamped)
+            have_next = eye.valid[:, kn]
+            co_k = cls(scene, cur["bsdf_id"], prefix_ok[k])
+            jst = replaying & c_walk[k] & co_k & c_walk[kn] & have_next
+            jun_struct[k] = jst
 
-        # base bounce z_1 -> z_2: geometry + solid-angle pdf
-        dir_b = -eye.wi[:, kn]
-        d2b = torch.clamp_min(
-            m.squared_length(eye.p[:, kn] - eye.p[:, k]), 1e-12)
-        cosb = torch.clamp_min(torch.abs(m.dot(dir_b, eye.ng[:, kn])), 1e-9)
-        pdf_base_sa = eye.pdf_fwd[:, kn] * d2b / cosb
+            # frames/params at the current offset vertex
+            ssc, tsc = m.build_frame(cur["ns"])
+            wi_c = m.to_local(cur["wi"], ssc, tsc, cur["ns"])
+            par_c = common.material_params(scene, self.has_textures,
+                                           cur["bsdf_id"], cur["uv"])
 
-        to_j = eye.p[:, kn] - its1.p
-        d2j = torch.clamp_min(m.squared_length(to_j), 1e-12)
-        distj = torch.sqrt(d2j)
-        dir_rc = to_j / _b3(distj)
-        occ = self.occluded(
-            common.offset_ray_origin(its1.p, its1.ng, dir_rc, eps),
-            dir_rc, torch.zeros(N, device=dev),
-            torch.where(jst, distj - 2 * eps, -1.0), scene.geom)
-        wo_rc = m.to_local(dir_rc, ssc, tsc, its1.ns)
-        f_rc = self._beval(par_c, wi_c, wo_rc)
-        pb_rc = self._bpdf(par_c, wi_c, wo_rc)
-        jok = (jst & ~occ & (f_rc.amax(-1) > 0) & (pb_rc > 0) &
-               (pdf_base_sa > 0))
+            # base bounce z_{k+1} -> z_{k+2}: geometry + solid-angle pdf
+            dir_b = -eye.wi[:, kn]
+            d2b = torch.clamp_min(
+                m.squared_length(eye.p[:, kn] - eye.p[:, k]), 1e-12)
+            cosb = torch.clamp_min(torch.abs(m.dot(dir_b, eye.ng[:, kn])),
+                                   1e-9)
+            pdf_base_sa = eye.pdf_fwd[:, kn] * d2b / cosb
 
-        cosj = torch.abs(m.dot(dir_rc, eye.ng[:, kn]))
-        conv_o = cosj / d2j
-        jac_rc = conv_o / torch.clamp_min(cosb / d2b, 1e-30)
-        beta_j = f_rc * _b3(jac_rc / torch.clamp_min(pdf_base_sa, 1e-30))
-        rfac_j = pb_rc * jac_rc / torch.clamp_min(pdf_base_sa, 1e-30)
-        pf_j = pb_rc * conv_o
+            # ======== junction: reconnect z'_{k+1} -> z_{k+2} ==========
+            to_j = eye.p[:, kn] - cur["p"]
+            d2j = torch.clamp_min(m.squared_length(to_j), 1e-12)
+            distj = torch.sqrt(d2j)
+            dir_rc = to_j / _b3(distj)
+            occ = self.occluded(
+                common.offset_ray_origin(cur["p"], cur["ng"], dir_rc, eps),
+                dir_rc, torch.zeros(N, device=dev),
+                torch.where(jst, distj - 2 * eps, -1.0), scene.geom)
+            wo_rc = m.to_local(dir_rc, ssc, tsc, cur["ns"])
+            f_rc = self._beval(par_c, wi_c, wo_rc)
+            pb_rc = self._bpdf(par_c, wi_c, wo_rc)
+            jok = (jst & ~occ & (f_rc.amax(-1) > 0) & (pb_rc > 0) &
+                   (pdf_base_sa > 0))
+            jun_valid[k] = jok
 
-        # "recently connected" fixups at slot k+2 (z_2's incoming changed
-        # to come from z'_1)
-        ns2 = eye.ns[:, kn]
-        ss2, ts2 = m.build_frame(ns2)
-        par2 = common.material_params(scene, self.has_textures,
-                                      eye.bsdf_id[:, kn], eye.uv[:, kn])
-        wi2_off = m.to_local(-dir_rc, ss2, ts2, ns2)
-        wi2_base = m.to_local(eye.wi[:, kn], ss2, ts2, ns2)
-        to3 = eye.p[:, kn2] - eye.p[:, kn]
-        d3sq = torch.clamp_min(m.squared_length(to3), 1e-12)
-        dir23 = to3 / _b3(torch.sqrt(d3sq))
-        wo2 = m.to_local(dir23, ss2, ts2, ns2)
-        f2_off = self._beval(par2, wi2_off, wo2)
-        f2_base = self._beval(par2, wi2_base, wo2)
-        pdf2_off_sa = self._bpdf(par2, wi2_off, wo2)
-        pf_recent = _dir_to_area(pdf2_off_sa, dir23, d3sq, eye.ng[:, kn2])
-        ratio_f2 = torch.where(
-            _b3(f2_base.amax(-1) > 0),
-            f2_off / torch.clamp_min(f2_base, 1e-20), 0.0)
-        # re-sampling z'_1 from z_2 (view pdf_rev[0])
-        pr_j_sa = self._bpdf(par2, wo2, wi2_off)
-        pr_j = _dir_to_area(pr_j_sa, -dir_rc, d2j, its1.ng)
-        scale = torch.where(
-            _b3(torch.abs(eye.beta[:, kn]).amax(-1) > 0),
-            beta_j / torch.clamp_min(eye.beta[:, kn], 1e-30),
-            0.0) * ratio_f2
+            cosj = torch.abs(m.dot(dir_rc, eye.ng[:, kn]))
+            conv_o = cosj / d2j
+            jac_rc = conv_o / torch.clamp_min(cosb / d2b, 1e-30)
+            beta_j = beta_cur * f_rc * _b3(
+                jac_rc / torch.clamp_min(pdf_base_sa, 1e-30))
+            rfac_j = pb_rc * jac_rc / torch.clamp_min(pdf_base_sa, 1e-30)
+            pf_j = pb_rc * conv_o
 
-        set_(v["wi"], kn, -dir_rc, jok)
-        set_(v["beta"], kn, beta_j, jok)
-        set_(v["pdf_fwd"], kn, pf_j, jok)
-        set_(v["pdf_rev"], k, torch.where(jok, pr_j, 0.0), jok)
-        set_(rfac, kn, rfac_j, jok)
-        if k + 2 <= TE - 1:
-            set_(v["pdf_fwd"], kn2, pf_recent, jok)
-            set_(rfac, kn2, pf_recent / _remap0(eye.pdf_fwd[:, kn2]), jok)
-            # suffix throughput: beta'[j>=k+2] = beta_base[j] * scale
-            suff = (torch.arange(TE, device=dev) >= k + 2)[None, :, None]
-            v["beta"] = torch.where(jok[:, None, None] & suff,
-                                    eye.beta * scale[:, None, :], v["beta"])
+            # "recently connected" fixups at slot k+2 (z_{k+2}'s incoming
+            # changed to come from z'_{k+1})
+            ns2 = eye.ns[:, kn]
+            ss2, ts2 = m.build_frame(ns2)
+            par2 = common.material_params(scene, self.has_textures,
+                                          eye.bsdf_id[:, kn], eye.uv[:, kn])
+            wi2_off = m.to_local(-dir_rc, ss2, ts2, ns2)
+            wi2_base = m.to_local(eye.wi[:, kn], ss2, ts2, ns2)
+            to3 = eye.p[:, kn2] - eye.p[:, kn]
+            d3sq = torch.clamp_min(m.squared_length(to3), 1e-12)
+            dir23 = to3 / _b3(torch.sqrt(d3sq))
+            wo2 = m.to_local(dir23, ss2, ts2, ns2)
+            f2_off = self._beval(par2, wi2_off, wo2)
+            f2_base = self._beval(par2, wi2_base, wo2)
+            pdf2_off_sa = self._bpdf(par2, wi2_off, wo2)
+            pf_recent = _dir_to_area(pdf2_off_sa, dir23, d3sq,
+                                     eye.ng[:, kn2])
+            ratio_f2 = torch.where(
+                _b3(f2_base.amax(-1) > 0),
+                f2_off / torch.clamp_min(f2_base, 1e-20), 0.0)
+            # re-sampling z'_{k+1} from z_{k+2} (view pdf_rev[k])
+            pr_j_sa = self._bpdf(par2, wo2, wi2_off)
+            pr_j = _dir_to_area(pr_j_sa, -dir_rc, d2j, cur["ng"])
+            scale = torch.where(
+                _b3(torch.abs(eye.beta[:, kn]).amax(-1) > 0),
+                beta_j / torch.clamp_min(eye.beta[:, kn], 1e-30),
+                0.0) * ratio_f2
+
+            set_(v["wi"], kn, -dir_rc, jok)
+            set_(v["beta"], kn, beta_j, jok)
+            set_(v["pdf_fwd"], kn, pf_j, jok)
+            set_(v["pdf_rev"], k, torch.where(jok, pr_j, 0.0), jok)
+            set_(rfac, kn, rfac_j, jok)
+            if k + 2 <= TE - 1:
+                set_(v["pdf_fwd"], kn2, pf_recent, jok)
+                set_(rfac, kn2, pf_recent / _remap0(eye.pdf_fwd[:, kn2]),
+                     jok)
+                # suffix throughput: beta'[j>=k+2] = beta_base[j] * scale
+                suff = (slot_iota >= k + 2)[None, :, None]
+                v["beta"] = torch.where(jok[:, None, None] & suff,
+                                        eye.beta * scale[:, None, :],
+                                        v["beta"])
+            if k >= 1:
+                # re-sampling z'_k from z'_{k+1} whose outgoing changed
+                pr_prev_sa = self._bpdf(par_c, wo_rc, wi_c)
+                set_(v["pdf_rev"], k - 1,
+                     self._pdf_to_prev(v, k, cur, pr_prev_sa), jok)
+
+            if not self.any_specular:
+                break  # n_steps is 1: nothing to replay
+            # ======== half-vector replay step ==========================
+            hv_can = replaying & ~jst & have_next
+            ssm, tsm = m.build_frame(eye.ns[:, k])
+            wi_m = m.to_local(eye.wi[:, k], ssm, tsm, eye.ns[:, k])
+            wo_m = m.to_local(dir_b, ssm, tsm, eye.ns[:, k])
+            par_m = common.material_params(scene, self.has_textures,
+                                           eye.bsdf_id[:, k], eye.uv[:, k])
+            hv = half_vector_copy(self._beval, self._bpdf, wi_m, wo_m,
+                                  par_m, eye.delta[:, k], wi_c, par_c)
+            hv_ok = hv_can & hv["valid"]
+            wo_w = m.to_world(hv["wo"], ssc, tsc, cur["ns"])
+            o_new = common.offset_ray_origin(cur["p"], cur["ng"], wo_w, eps)
+            hit = self.closest(o_new, wo_w, torch.zeros(N, device=dev),
+                               torch.where(hv_ok, 3e38, -1.0), scene.geom)
+            its_n = common.fill_intersection(scene, o_new, wo_w, hit)
+            adv = hv_ok & its_n.valid
+
+            pb_base = torch.where(eye.delta[:, k], 1.0,
+                                  torch.clamp_min(pdf_base_sa, 1e-30))
+            beta_hv = beta_cur * hv["f"] * _b3(hv["jac"] / pb_base)
+            rfac_hv = hv["pdf"] * hv["jac"] / pb_base
+            conv_n = torch.abs(m.dot(its_n.ng, wo_w)) / torch.clamp_min(
+                its_n.t ** 2, 1e-12)
+            pf_hv = torch.where(hv["is_delta"], 0.0, hv["pdf"]) * conv_n
+
+            prefix_ok[kn] = adv
+            set_(v["p"], kn, its_n.p, adv)
+            set_(v["ng"], kn, its_n.ng, adv)
+            set_(v["ns"], kn, its_n.ns, adv)
+            set_(v["uv"], kn, its_n.uv, adv)
+            set_(v["wi"], kn, -wo_w, adv)
+            set_(v["bsdf_id"], kn, its_n.bsdf_id, adv)
+            set_(v["emitter_id"], kn, its_n.emitter_id, adv)
+            set_(v["beta"], kn, beta_hv, adv)
+            set_(v["pdf_fwd"], kn, torch.where(adv, pf_hv, 0.0), adv)
+            set_(v["delta"], kn,
+                 _is_delta_kind(scene.materials, its_n.bsdf_id), adv)
+            set_(rfac, kn, rfac_hv, adv)
+            if k >= 1:
+                # re-sampling z'_k from z'_{k+1} given the HV outgoing
+                pr_sa = self._bpdf(par_c, hv["wo"], wi_c)
+                set_(v["pdf_rev"], k - 1,
+                     self._pdf_to_prev(v, k, cur, pr_sa), adv)
+
+            # advance the replay head
+            for key, val in (("p", its_n.p), ("ng", its_n.ng),
+                             ("ns", its_n.ns), ("uv", its_n.uv),
+                             ("bsdf_id", its_n.bsdf_id), ("wi", -wo_w)):
+                mk = adv.reshape(adv.shape + (1,) * (val.dim() - 1))
+                cur[key] = torch.where(mk, val, cur[key])
+            beta_cur = torch.where(_b3(adv), beta_hv, beta_cur)
+            replaying = adv
 
         # ---- per-endpoint masks ----------------------------------------
-        # only slot 0 holds an offset prefix vertex, and only slot 0 can
-        # hold the junction: endpoint mode exists at slot 0 alone, and
-        # every later slot is reconnected iff the junction fired validly
-        rest = [no] * (TE - 1)
-        ok_recon = torch.stack([no] + [jok] * (TE - 1), dim=1)
-        ok_end_s0 = torch.stack([ok0] + rest, dim=1)
-        ok_end = torch.stack([ok0 & c_walk[0] & co_k] + rest, dim=1)
+        recon_before = []   # junction fired validly at slot <= e-1
+        struct_before = []  # junction fired structurally at slot <= e-1
+        acc_v = acc_s = no
+        for e in range(TE):
+            recon_before.append(acc_v)
+            struct_before.append(acc_s)
+            acc_v = acc_v | jun_valid[e]
+            acc_s = acc_s | jun_struct[e]
+        ok_recon = torch.stack(recon_before, dim=1)
+        prefix = torch.stack(prefix_ok, dim=1)
+        ok_end_s0 = prefix & ~torch.stack(struct_before, dim=1)
+        c_off_all = torch.stack(
+            [cls(scene, v["bsdf_id"][:, e], prefix_ok[e])
+             for e in range(TE)], dim=1)
+        ok_end = ok_end_s0 & torch.stack(c_walk, dim=1) & c_off_all
 
         rfac[:, 0] = 1.0
         rcum = torch.cumprod(rfac, dim=1)
 
-        # slot validity: the offset camera vertex at slot 0, base slots
-        # past a valid junction
-        valid = torch.cat([ok0[:, None], jok[:, None] & eye.valid[:, 1:]],
-                          dim=1)
+        # slot validity: the offset prefix where it exists, base slots
+        # past a valid junction (slot k is post-junction iff the junction
+        # fired at some slot <= k-1, which is exactly ok_recon[:, k])
+        valid = prefix | (ok_recon & eye.valid)
 
         view = SubPath(valid=valid, **v)
         return dict(view=view, rcum=rcum, ok_recon=ok_recon,
                     ok_end=ok_end, ok_end_s0=ok_end_s0)
+
+    @staticmethod
+    def _pdf_to_prev(v, k, cur, pdf_sa):
+        """Area density, at the view's slot k-1, of re-sampling z'_k from
+        the replay head z'_{k+1} with solid-angle density pdf_sa."""
+        to_prev = v["p"][:, k - 1] - cur["p"]
+        d2p = torch.clamp_min(m.squared_length(to_prev), 1e-12)
+        return _dir_to_area(pdf_sa, to_prev / _b3(torch.sqrt(d2p)), d2p,
+                            v["ng"][:, k - 1])
 
     # ------------------------------------------------------------------
     def _t1_prev(self, scene, light4, y04, s):
@@ -488,13 +593,13 @@ class GBDPTracer(BDPTracer):
             else:
                 ok = ok_recon4[:, :, e] | (
                     ok_end4[:, :, e] & classify_light_end(s)[None])
-            if e >= 2:
-                # SUFFIX FACTORIZATION: the junction can only fire at slot
-                # 0, so every contributing offset lane of an endpoint slot
-                # e >= 2 reads a pure shared suffix — the offset
-                # contribution is c_base * (beta'/beta) and only the
-                # technique sum over the view's pdfs is left to evaluate,
-                # with the base strategy's own fixups
+            if e >= 2 and not self.any_specular:
+                # SUFFIX FACTORIZATION (all-diffuse scenes): the junction
+                # can only fire at slot 0, so every contributing offset
+                # lane of an endpoint slot e >= 2 reads a pure shared
+                # suffix — the offset contribution is c_base * (beta'/beta)
+                # and only the technique sum over the view's pdfs is left
+                # to evaluate, with the base strategy's own fixups
                 bb = eye.beta[:, e]
                 vb = view4.beta[:, e].reshape(4, N, 3)
                 ratio = torch.where(
@@ -507,10 +612,13 @@ class GBDPTracer(BDPTracer):
                         "pdf_rev_pt", "pdf_rev_pt_minus", "pdf_rev_qs",
                         "pdf_rev_qs_minus"))).reshape(4, N)
             else:
-                # e == 1: the only contributing mode is reconnected at
-                # slot 0, whose endpoint is the BASE z_2 — the base
-                # strategy's shadow ray is reused
-                occ4 = auxd["occ"].repeat(4) if e == 1 and s >= 1 else None
+                # e == 1 in an all-diffuse scene: the only contributing
+                # mode is reconnected at slot 0, whose endpoint is the BASE
+                # z_2 — the base strategy's shadow ray is reused.  With a
+                # specular prefix the view is evaluated in full.
+                occ4 = (auxd["occ"].repeat(4)
+                        if e == 1 and s >= 1 and not self.any_specular
+                        else None)
                 c_off, sri_off = self._run_strategy(
                     scene, view4, light4, y04, s, t, M, eps, occ=occ4)
                 c_off = c_off.reshape(4, N, 3)

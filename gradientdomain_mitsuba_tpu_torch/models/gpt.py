@@ -1,22 +1,27 @@
-"""Gradient-Domain Path Tracing (G-PT) through the reconnection shift.
+"""Gradient-Domain Path Tracing (G-PT).
 
 Counterpart of gradientdomain_mitsuba_tpu/models/gpt.py (the fork's
 src/integrators/gpt/gpt.cpp, Kettunen et al. 2015): a lockstep wavefront
 where the base path through every pixel and its FOUR shift-mapped offset
 paths (x+-1, y+-1) advance one bounce per step as stacked SoA batches.
 The counter RNG makes the offsets replay the base path's numbers.  The
-estimator, the 4-technique MIS, the reconnection and environment shifts
-and the suffix factorization are the reference's, step for step (see its
-module docstring); `jit` and `fori_loop` become eager code and Python
-loops, and the scene's device is the tensors' device.
+estimator, the 4-technique MIS, the reconnection, environment and
+half-vector shifts and the suffix factorization are the reference's,
+step for step (see its module docstring); `jit` and `fori_loop` become
+eager code and Python loops, and the scene's device is the tensors'
+device.
 
-Ported: scenes whose materials all classify as diffuse for shifting
-(any_specular False: the kinds of bsdf.PORTED_KINDS rougher than
-shiftThreshold), area lights and the environment map (its shift), the
-perspective and thin-lens cameras, and reflectance textures with the
-primary hits' mip level for the base and the offset paths.  Other scenes
-raise NotImplementedError at construction, naming the ROADMAP item; the
-half-vector shift through specular or glossy vertices is item 7a.
+Ported: the kinds of bsdf.PORTED_KINDS, delta (conductor, dielectric) and
+glossy vertices through the half-vector copy (half_vector_copy, shared
+with G-BDPT's prefix replay; any_specular selects the branch that runs
+full offsets at every bounce), area lights and the environment map (its
+shift), the perspective and thin-lens cameras, and reflectance textures
+with the primary hits' mip level for the base and the offset paths.
+Other scenes raise NotImplementedError at construction, naming the
+ROADMAP item: other material kinds (item 12, e.g. door.xml's
+thindielectric), other textures (13), other emitters and sensors (14).
+The reference's aux_only mode (G-BDPT's env / delta-light family) is
+item 14.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from ..ops import bsdf as bsdf_ops
 from ..ops import common, emitter as em_ops
 from ..ops import film as film_ops
 from ..ops import sensor as sensor_ops
+from ..scene.materials import CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC
 from .path import MAX_BOUNCES_UNLIMITED, check_scene_extras, mis_weight
 
 # film-space shifts: +x, -x, +y, -y
@@ -55,9 +61,102 @@ def _where(c, a, b):
     return torch.where(c, a, b)
 
 
+def half_vector_copy(beval, bpdf, wi_m, wo_m, par_m, is_delta_m, wi_o,
+                     par_o):
+    """Half-vector copy shift (gpt.cpp halfVectorShift; reference
+    gpt.py:67), shape-agnostic: the BASE quantities broadcast against the
+    offset batch.  wi / wo are LOCAL directions in each vertex's own
+    shading frame.  Returns dict(wo, f, pdf, jac, valid, is_delta): the
+    offset's outgoing direction in ITS local frame, f*cos, the sampling
+    pdf, the |dwo_o/dH| / |dwo_m/dH| Jacobian ratio and validity.  Shared
+    by G-PT's per-bounce shift and G-BDPT's eye-subpath prefix replay."""
+    refract = (wi_m[..., 2] * wo_m[..., 2]) < 0  # transmission at base
+    eta_m = par_m.eta[..., 0]
+    eta_o = par_o.eta[..., 0]
+
+    # base half-vector in its local frame
+    h_refl = m.normalize(wi_m + wo_m)
+    h_refl = h_refl * torch.sign(h_refl[..., 2:3])
+    rel_eta_m = _where(wi_m[..., 2] >= 0, eta_m,
+                       1.0 / torch.clamp_min(eta_m, 1e-9))
+    h_refr = m.normalize(-(wi_m + _b3(rel_eta_m) * wo_m))
+    h_refr = h_refr * torch.sign(h_refr[..., 2:3])
+    h_m = _where(_b3(refract), h_refr, h_refl)
+
+    # delta offset materials use their own normal as H
+    kind_o = par_o.kind
+    is_delta_o = ((kind_o == CONDUCTOR) | (kind_o == DIELECTRIC) |
+                  (kind_o == THIN_DIELECTRIC))
+    z_axis = torch.zeros_like(h_m)
+    z_axis[..., 2] = 1.0
+    h_o = _where(_b3(is_delta_o), z_axis, h_m)
+
+    widh = m.dot(wi_o, h_o)
+    # reflection about H
+    wo_refl = 2.0 * _b3(widh) * h_o - wi_o
+    # refraction about H with the OFFSET's eta
+    rel_eta_o = _where(wi_o[..., 2] >= 0, eta_o,
+                       1.0 / torch.clamp_min(eta_o, 1e-9))
+    c2 = 1.0 - (1.0 - widh * widh) / torch.clamp_min(
+        rel_eta_o * rel_eta_o, 1e-18)
+    tir = c2 <= 0.0
+    cos_t = torch.sqrt(torch.clamp_min(c2, 0.0))
+    sgn = torch.sign(widh)
+    wo_refr = (-wi_o / _b3(rel_eta_o) +
+               _b3(widh / rel_eta_o - sgn * cos_t) * h_o)
+    wo_refr = m.normalize(wo_refr)
+    wo_o = _where(_b3(refract), wo_refr, wo_refl)
+
+    # validity: same structural event; hemisphere consistency
+    same_hemi_refl = (wo_o[..., 2] * wi_o[..., 2]) > 0
+    cross_hemi = (wo_o[..., 2] * wi_o[..., 2]) < 0
+    valid_mode = _where(refract, cross_hemi & ~tir, same_hemi_refl)
+
+    # f*cos and pdf at the offset vertex
+    f_smooth = beval(par_o, wi_o, wo_o)
+    pdf_smooth = bpdf(par_o, wi_o, wo_o)
+
+    # delta offsets: discrete weights
+    F_c = bsdf_ops.fresnel_conductor(wi_o[..., 2], par_o.eta, par_o.k)
+    F_d, _ = bsdf_ops.fresnel_dielectric(wi_o[..., 2], eta_o)
+    w_cond = par_o.specular * F_c
+    w_die = _where(_b3(refract),
+                   par_o.transmittance /
+                   _b3(torch.clamp_min(rel_eta_o ** 2, 1e-9)),
+                   par_o.specular)
+    p_die = _where(refract, 1.0 - F_d, F_d)
+    f_delta = _where(_b3(kind_o == CONDUCTOR), w_cond, w_die)
+    pdf_delta = _where(kind_o == CONDUCTOR, torch.ones_like(F_d), p_die)
+
+    f = _where(_b3(is_delta_o), f_delta, f_smooth)
+    pdf = _where(is_delta_o, pdf_delta, pdf_smooth)
+
+    # Jacobian |dwo/dH| ratio
+    wodh_m = torch.abs(m.dot(wo_m, h_m))
+    wodh_o = torch.abs(m.dot(wo_o, h_o))
+    j_refl = wodh_o / torch.clamp_min(wodh_m, 1e-9)
+    # refraction: |dwo/dH| = eta^2 |wo.H| / (wi.H + eta*wo.H)^2 with the
+    # relative eta; ratio of offset/base
+    den_m = (m.dot(wi_m, h_m) + rel_eta_m * m.dot(wo_m, h_m)) ** 2
+    den_o = (m.dot(wi_o, h_o) + rel_eta_o * m.dot(wo_o, h_o)) ** 2
+    j_refr = ((rel_eta_o ** 2) * wodh_o / torch.clamp_min(den_o, 1e-12)) / \
+        torch.clamp_min((rel_eta_m ** 2) * wodh_m /
+                        torch.clamp_min(den_m, 1e-12), 1e-12)
+    jac = _where(refract, j_refr, j_refl)
+
+    # structural consistency: a delta base bounce must map to a delta
+    # offset bounce and vice versa (classification-mismatch kill)
+    delta_match = is_delta_o == is_delta_m
+    valid = (valid_mode & delta_match & (f.amax(-1) > 0) &
+             torch.isfinite(jac) & (jac > 0))
+    return dict(wo=wo_o, f=f, pdf=pdf, jac=jac, valid=valid,
+                is_delta=is_delta_o)
+
+
 class GPTracer:
-    """Gradient-domain path tracer for scenes without specular or glossy
-    vertices (the reconnection and environment shifts)."""
+    """Gradient-domain path tracer (also the BASE path machinery for the
+    primal-parity check: with the gradients ignored, primal + very_direct
+    is the path tracer's image)."""
 
     def __init__(self, scene, settings):
         configure()
@@ -68,13 +167,11 @@ class GPTracer:
                 "(ROADMAP Queue 1 item 12)")
         p = settings.integrator_props
         self.shift_threshold = float(p.get("shiftThreshold", 0.001))
-        if bsdf_ops.any_specular(scene.materials, self.shift_threshold):
-            # the kinds are the port's: what G-PT lacks is the half-vector
-            # shift through vertices that classify as specular or glossy
-            raise NotImplementedError(
-                f"specular/glossy vertices at shiftThreshold "
-                f"{self.shift_threshold} (half-vector shift): ROADMAP "
-                "Queue 1 item 7a")
+        # static: does any material classify as specular/glossy for
+        # shifting?  All-diffuse scenes skip the half-vector machinery and
+        # its per-bounce offset continuation rays entirely
+        self.any_specular = bsdf_ops.any_specular(scene.materials,
+                                                  self.shift_threshold)
         check_scene_extras(settings)
         sensor_ops.check_supported(scene.camera)
         self._beval = functools.partial(bsdf_ops.eval, kinds=self.kinds)
@@ -196,6 +293,13 @@ class GPTracer:
             state = self._bounce(scene, state, 0, seed, sample_idx,
                                  pixel_id, N, eps, occl4, trace4, True,
                                  fp_main=fp_m, fp_off=fp_o)
+        if self.any_specular:
+            # an offset may stay NOT CONNECTED through any number of
+            # half-vector copies: every bounce runs the full offsets
+            for b in range(1, self.n_bounces):
+                state = self._bounce(scene, state, b, seed, sample_idx,
+                                     pixel_id, N, eps, occl4, trace4, True)
+            return pos_film, state["primal"], very, state["grad"]
         # no specular vertex: after bounce 0 every live offset is CONNECTED
         # (reconnection either succeeded or the shift died), so bounce 1
         # runs without the not-connected machinery
@@ -439,10 +543,10 @@ class GPTracer:
         # ----------------- offset shift handling --------------------------
         if with_offsets:
             new = self._shift_offsets(
-                scene, N, eps, occl4, its, par_m, c_main, bs, wo_w, its_n,
-                conv_m_seg, pb_m_sa, o_its, o_wi, wi_o_loc, wi_o_main,
-                par_o, ss_o, ts_o, c_off, o_tp, o_r, o_conn, o_alive,
-                main_cont, esc, allow_conn0)
+                scene, N, eps, occl4, trace4, wi_m, par_m, c_main, bs,
+                wo_w, its_n, conv_m_seg, pb_m_sa, o_its, o_wi, wi_o_loc,
+                wi_o_main, par_o, ss_o, ts_o, c_off, o_tp, o_r, o_conn,
+                o_alive, main_cont, esc, allow_conn0)
             (o_its2, o_wi2, o_tp2, o_r2, o_conn2, o_alive2,
              off_emit, off_pb_u, off_pe_u) = new
 
@@ -497,16 +601,17 @@ class GPTracer:
             grad=grad)
 
     # ------------------------------------------------------------------
-    def _shift_offsets(self, scene, N, eps, occl4, its, par_m, c_main, bs,
-                       wo_w, its_n, conv_m_seg, pb_m_sa, o_its, o_wi,
-                       wi_o_loc, wi_o_main, par_o, ss_o, ts_o, c_off, o_tp,
-                       o_r, o_conn, o_alive, main_cont, esc,
+    def _shift_offsets(self, scene, N, eps, occl4, trace4, wi_m, par_m,
+                       c_main, bs, wo_w, its_n, conv_m_seg, pb_m_sa, o_its,
+                       o_wi, wi_o_loc, wi_o_main, par_o, ss_o, ts_o, c_off,
+                       o_tp, o_r, o_conn, o_alive, main_cont, esc,
                        allow_conn0=True):
         """Advance the 4 offset paths across the base path's BSDF segment
-        (reconnection and environment shifts; in an all-diffuse scene a
-        non-reconnectable configuration kills the shift, as in the
-        reference).  Returns the updated offset state + the per-offset
-        emission/pdfs at the new vertex for the pair MIS."""
+        (reconnection, environment and half-vector shifts; in an
+        all-diffuse scene a non-reconnectable configuration kills the
+        shift, as in the reference).  Returns the updated offset state +
+        the per-offset emission/pdfs at the new vertex for the pair
+        MIS."""
         dev = self.device
         is0 = o_conn == CONN_NONE
         is1 = o_conn == CONN_RECENT
@@ -524,7 +629,7 @@ class GPTracer:
         # a delta base sample from a RECENT state kills the shift
         ok1 = ~bs.is_delta[None] & (torch.abs(f_o1).amax(-1) >= 0)
 
-        # ========== not connected: reconnection / env ======================
+        # ========== not connected: reconnection / env / half-vector ======
         recon_sel = c_main[None] & c_off & (c_next[None] | esc[None])
 
         wo_w4 = wo_w[None].expand(o_wi.shape)
@@ -581,25 +686,43 @@ class GPTracer:
             pb_env = torch.zeros_like(o_r)
             ok_env = torch.zeros_like(o_alive)
 
+        # --- half-vector copy --------------------------------------------
+        hv_on = self.any_specular and allow_conn0
+        if hv_on:
+            use_hv = is0 & ~recon_sel
+            hv = self._half_vector_shift(wi_m, par_m, bs, par_o, wi_o_loc)
+            wo_hv_w = m.to_world(hv["wo"], ss_o, ts_o, o_its.ns)
+            ok_hv = ~recon_sel & hv["valid"] & main_cont[None]
+            # the offset's own continuation ray (maxt=-1 elsewhere: the
+            # kernel skips those lanes and the ray counter stays honest)
+            o_hv = common.offset_ray_origin(o_its.p, o_its.ng, wo_hv_w, eps)
+            its_hv = trace4(o_hv, wo_hv_w, _where(ok_hv, 3e38, -1.0))
+            fac_hv = hv["f"] * _b3(hv["jac"])
+            r_fac_hv = hv["pdf"] * hv["jac"]
+        else:
+            # all-diffuse scene: a lane that can neither reconnect nor
+            # take the environment shift kills the shift (the reference's
+            # all-diffuse branch): zero throughput, pdf and emission
+            ok_hv = torch.zeros_like(o_alive)
+            fac_hv = r_fac_hv = 0.0
+
         # ---------------- merge the conn==0 strategies -------------------
-        # A lane that can neither reconnect nor take the environment shift
-        # would need the half-vector copy; in an all-diffuse scene that
-        # configuration kills the shift (the reference's all-diffuse
-        # branch), so such lanes get zero throughput, pdf and emission.
         use_rc = is0 & recon_sel & ~esc[None]
         use_env = is0 & recon_sel & esc[None]
 
         pb_base = _where(bs.is_delta, 1.0, pb_m_sa)[None]
-        # throughput factor f_offset*J / pdf_base
+        # throughput factor f_offset*J / pdf_base (the unified measure
+        # folds into jac_rc for reconnection; env / hv Jacobians explicit)
         fac0 = _where(
             _b3(use_rc), f_rc * _b3(jac_rc),
-            _where(_b3(use_env), f_env, 0.0)) / _b3(
+            _where(_b3(use_env), f_env, fac_hv)) / _b3(
             torch.clamp_min(pb_base, 1e-30))
-        ok0 = (use_rc & ok_rc) | (use_env & ok_env)
+        ok0 = _where(use_rc, ok_rc, _where(use_env, ok_env, ok_hv))
         # pdf ratio factor for this segment
         r_fac0 = _where(
             use_rc, pb_rc * jac_rc,
-            _where(use_env, pb_env, 0.0)) / torch.clamp_min(pb_base, 1e-30)
+            _where(use_env, pb_env, r_fac_hv)) / torch.clamp_min(pb_base,
+                                                                 1e-30)
 
         # ---------------- combine across connection states ---------------
         fac = _where(_b3(is2), f_w_conn,
@@ -616,8 +739,9 @@ class GPTracer:
         o_r2 = _where(o_alive2, o_r * r_fac, 0.0)
 
         # ---------------- offset emission at the new vertex --------------
-        # every live offset arrives at the SAME vertex as base (its_n) or
-        # the same environment direction
+        # connected / recently / reconnection / env: the offset path
+        # arrives at the SAME vertex as base (its_n) or the same
+        # environment direction
         dir_in = _where(_b3(use_rc), dir_rc, wo_w4)
         cosf_o = m.dot(its_n.ns[None], -dir_in)
         hit_em_o = (its_n.valid[None] & (its_n.emitter_id[None] >= 0) &
@@ -636,6 +760,15 @@ class GPTracer:
         off_emit = (_where(_b3(hit_em_o), rad_np[None], 0.0) +
                     _where(_b3(esc[None]), env_rad_m[None], 0.0))
         off_pe_u = _where(esc[None], pe_env_m[None], pe_area_n[None])
+        pb_hv_u = 0.0
+        if hv_on:
+            # HV: the offset has its OWN new vertex its_hv (or its own env
+            # escape), with its unified-measure pdfs
+            emit_hv, pe_hv, pb_hv_u = self._hv_emission(scene, N, hv,
+                                                        its_hv, wo_hv_w,
+                                                        ok_hv)
+            off_emit = _where(_b3(use_hv), emit_hv, off_emit)
+            off_pe_u = _where(use_hv, pe_hv, off_pe_u)
         # offset bsdf technique density in the unified measure
         pb_rc_u = pb_rc * conv_o_seg
         pb_o1_u = pb_o1 * conv_m_seg[None]
@@ -644,19 +777,70 @@ class GPTracer:
         off_pb_u = _where(is2, pb_conn_u,
                           _where(is1, pb_o1_u,
                                  _where(use_rc, pb_rc_u,
-                                        _where(use_env, pb_env, 0.0))))
+                                        _where(use_env, pb_env, pb_hv_u))))
 
         # ---------------- next-state bookkeeping -------------------------
         o_conn2 = _where(is2 | is1, CONN_DONE,
                          _where(use_rc | use_env, CONN_RECENT, CONN_NONE))
         o_conn2 = _where(o_alive2, o_conn2.to(o_conn.dtype), o_conn)
-        # every offset now shares the base's next vertex; a reconnected
-        # one keeps its own incoming direction
+        # a reconnected offset keeps its own incoming direction at the
+        # base's next vertex; a half-vector one its own vertex
         o_wi2 = _where(_b3(use_rc & o_alive2), -dir_rc, -wo_w4)
         o_its2 = tree_map(lambda a: a[None].expand((4,) + a.shape), its_n)
+        if hv_on:
+            o_wi2 = _where(_b3(use_hv & o_alive2), -wo_hv_w, o_wi2)
+            o_its2 = tree_map(
+                lambda hv_a, b_a: _where(
+                    use_hv.reshape(use_hv.shape + (1,) * (hv_a.dim() - 2)),
+                    hv_a, b_a), its_hv, o_its2)
+            # HV offsets die when their own ray escapes (its contribution
+            # is recorded above)
+            o_alive2 = o_alive2 & _where(use_hv, its_hv.valid, True)
 
         return (o_its2, o_wi2, o_tp2, o_r2, o_conn2, o_alive2,
                 off_emit, off_pb_u, off_pe_u)
+
+    def _hv_emission(self, scene, N, hv, its_hv, wo_hv_w, ok_hv):
+        """Emission a half-vector offset sees at its own new vertex (or
+        along its own escaped ray) [4,N,3], with its light-sampling and
+        BSDF-sampling densities in the unified measure [4,N]."""
+        cosf_hv = m.dot(its_hv.ns, -wo_hv_w)
+        hit_em_hv = (its_hv.valid & (its_hv.emitter_id >= 0) &
+                     (cosf_hv > 0))
+        rad_hv = scene.emitters.radiance[
+            torch.clamp_min(its_hv.emitter_id, 0).long()]
+        d4 = wo_hv_w.reshape(4 * N, 3)
+        env_rad_hv = em_ops.eval_env(scene, self.env_kind,
+                                     d4).reshape(4, N, 3)
+        pe_env_hv = em_ops.pdf_env_direct(
+            scene, self.n_area, self.env_kind, d4,
+            n_delta=self.n_delta).reshape(4, N)
+        esc_hv = ok_hv & ~its_hv.valid
+        pe_area_hv = _where(
+            its_hv.valid & (its_hv.emitter_id >= 0),
+            1.0 / (torch.clamp_min(
+                scene.emitters.total_area[
+                    torch.clamp_min(its_hv.emitter_id, 0).long()], 1e-12)
+                * max(self.n_lights, 1)), 0.0)
+        emit_hv = (_where(_b3(hit_em_hv), rad_hv, 0.0) +
+                   _where(_b3(esc_hv), env_rad_hv, 0.0))
+        pe_hv = _where(esc_hv, pe_env_hv, pe_area_hv)
+        conv_hv = _where(
+            its_hv.valid,
+            torch.abs(m.dot(its_hv.ng, wo_hv_w)) /
+            torch.clamp_min(its_hv.t ** 2, 1e-12), 1.0)
+        pb_hv_u = _where(hv["is_delta"], 0.0, hv["pdf"]) * conv_hv
+        return emit_hv, pe_hv, pb_hv_u
+
+    def _half_vector_shift(self, wi_m, par_m, bs, par_o, wi_o_loc):
+        """Half-vector copy for the 4 lockstep offsets: the base
+        quantities broadcast to the [4, N] offset batch, then the shared
+        half_vector_copy (gpt.cpp halfVectorShift semantics)."""
+        def b4(a):
+            return a[None].expand((4,) + a.shape)
+        return half_vector_copy(self._beval, self._bpdf, b4(wi_m),
+                                b4(bs.wo), tree_map(b4, par_m),
+                                b4(bs.is_delta), wi_o_loc, par_o)
 
     # ------------------------------------------------------------------
     def samples_per_batch(self, n_samples):

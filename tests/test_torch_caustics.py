@@ -328,9 +328,12 @@ def test_factory_builds_chain_families_on_caustics(integrator, cls):
                                         st)) is cls
 
 
-@pytest.mark.parametrize("cls", [GPTracer, GBDPTracer])
-def test_gradient_tracers_raise_item_7a_on_caustics(cls):
-    """The half-vector shift through delta vertices is item 7a."""
-    scene, st = load(CAUS, "gpt", size=W, spp=2, depth=8)
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        cls(bridge.to_torch(scene, "cpu"), st)
+@pytest.mark.parametrize("integrator,cls", [("gpt", GPTracer),
+                                             ("gbdpt", GBDPTracer)])
+def test_factory_builds_gradient_tracers_on_caustics(integrator, cls):
+    """The glass and Ag spheres classify specular: both gradient tracers
+    take the half-vector shift (their parity with the reference:
+    test_torch_specular.py, test_torch_gbdpt_specular.py)."""
+    scene, st = load(CAUS, integrator, size=W, spp=2, depth=8)
+    tracer = factory.make_integrator(bridge.to_torch(scene, "cpu"), st)
+    assert type(tracer) is cls and tracer.any_specular

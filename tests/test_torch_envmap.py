@@ -531,12 +531,15 @@ def test_factory_builds_both_tracers():
                                             st)) is cls
 
 
-def test_gpt_raises_item_7a_on_glossy_threshold():
+def test_gpt_takes_the_half_vector_shift_at_glossy_threshold():
     """shiftThreshold 0.5 classes the alpha 0.2 roughconductor (and the
-    other rough rows) as glossy: the half-vector shift is item 7a."""
+    other rough rows) as glossy: G-PT takes the half-vector shift (its
+    parity with the reference: test_torch_specular.py)."""
     scene, st = _load("gpt", shiftThreshold=0.5)
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        GPTracer(bridge.to_torch(scene, "cpu"), st)
+    tracer = factory.make_integrator(bridge.to_torch(scene, "cpu"), st)
+    assert type(tracer) is GPTracer and tracer.any_specular
+    assert not GPTracer(bridge.to_torch(scene, "cpu"),
+                        _load("gpt")[1]).any_specular
 
 
 @pytest.mark.parametrize("bit,item", [(2, 13), (4, 12), (8, 13), (16, 12)])

@@ -180,12 +180,17 @@ def test_unported_scenes_raise(scene_file, item, cls):
         cls(bridge.to_torch(scene, "cpu"), st)
 
 
-def test_any_specular_raises(monkeypatch):
-    """A scene with a specular or glossy vertex class needs the
-    half-vector prefix replay (item 7a)."""
+def test_any_specular_turns_the_replay_on(monkeypatch, port):
+    """A specular or glossy vertex class selects the half-vector prefix
+    replay and the full offset evaluation (no suffix factorization); the
+    primal estimator does not move (the replay's parity with the
+    reference: test_torch_gbdpt_specular.py)."""
     scene, st = port_scene.load_scene(CBOX, VARS)
     ts = bridge.to_torch(scene, "cpu")
-    gbdpt.GBDPTracer(ts, st)
+    assert not gbdpt.GBDPTracer(ts, st).any_specular
     monkeypatch.setattr(gbdpt.bsdf_ops, "any_specular", lambda *a: True)
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        gbdpt.GBDPTracer(ts, st)
+    tracer = gbdpt.GBDPTracer(ts, st)
+    assert tracer.any_specular
+    bufs = tracer.render(ts, seed=SEED, spp=SPP)
+    for k in ("primal", "very_direct"):
+        np.testing.assert_array_equal(bufs[k].numpy(), port[k], k)

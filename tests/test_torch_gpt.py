@@ -163,9 +163,10 @@ def test_render_is_deterministic():
 
 
 def test_unported_scenes_raise():
+    """door.xml's thindielectric and twosided rows are item 12."""
     scene, st = port_scene.load_scene(
-        os.path.join(ROOT, "data/scenes/cbox-mats/cbox-mats.xml"), VARS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        os.path.join(ROOT, "data/scenes/door/door.xml"), VARS)
+    with pytest.raises(NotImplementedError, match="item 12"):
         GPTracer(bridge.to_torch(scene, "cpu"), st)
 
 

@@ -1,13 +1,15 @@
 """Helpers shared by the port's slice parity tests (test_torch_volpath.py,
-test_torch_sppm.py, test_torch_irrcache.py): one scene rendered through
-both packages' factories with the reference's intersectors pinned to the
-linear-MT matmul sweeps (the function the port's plain sweeps compute, as
-in test_torch_gpt.py), and the image check."""
+test_torch_sppm.py, test_torch_irrcache.py, test_torch_specular.py, ...):
+one scene rendered through both packages' factories with the reference's
+intersectors pinned to the linear-MT matmul sweeps (the function the
+port's plain sweeps compute, as in test_torch_gpt.py), the image check,
+the lane-share check of an op, and XLA's flush of subnormals."""
 import copy
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from gradientdomain_mitsuba_tpu.models import factory as ref_factory
 from gradientdomain_mitsuba_tpu.ops import common as ref_common
@@ -15,6 +17,42 @@ from gradientdomain_mitsuba_tpu.ops import intersect as ref_isec
 from gradientdomain_mitsuba_tpu.scene import scene as ref_scene
 from gradientdomain_mitsuba_tpu_torch.models import factory
 from gradientdomain_mitsuba_tpu_torch.scene import bridge
+
+
+@pytest.fixture(scope="module")
+def flush_subnormals():
+    """XLA's CPU arithmetic flushes subnormal floats to zero; torch's does
+    not.  A steep lobe underflows (roughdielectric alpha 0.05 at a grazing
+    half vector: f ~ 1e-39), so a shift would be valid in the port and
+    dead in the reference.  A module that uses this fixture runs the port
+    in the reference's mode (ROADMAP Queue 3)."""
+    assert torch.set_flush_denormal(True)
+    yield
+    torch.set_flush_denormal(False)
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """torch on one CPU thread: in a process that also runs XLA, a
+    multi-threaded CPU torch.exp has returned a thread's chunk at ~1.5e-4
+    relative error (tests/test_torch_medium.py), which lane-level
+    tolerances of 1e-4 cannot absorb."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def op_close(got, ref, name, frac=0.999, rtol_all=1e-4, atol=1e-6):
+    """rtol 1e-5 / atol on >= frac of lanes (a lane: all of its
+    components) and rtol_all / 10 atol on all, NaN equal to NaN."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape, name
+    lanes = np.isclose(got, ref, rtol=1e-5, atol=atol, equal_nan=True)
+    lanes = lanes.reshape(lanes.shape[0], -1).all(-1)
+    assert lanes.mean() >= frac, (name, lanes.mean())
+    np.testing.assert_allclose(got, ref, rtol=rtol_all, atol=10 * atol,
+                               equal_nan=True, err_msg=name)
 
 
 def pinned_matmul(settings, n_tris, n_clusters=0):
