@@ -90,8 +90,9 @@ its time):
      finite difference of a 256-spp primal (tests/test_bdpt.py's
      thresholds: rms ratio < 0.55, correlation > 0.85);
  15. step B families through factory.make_integrator: direct, ao, field
-     (shNormal), multichannel (path + ao) at 256x256, 16 spp and adaptive
-     at 64x64, 4 spp (finite pixels, mean |I| > 1e-5, sweeps launched);
+     (shNormal), multichannel (path + ao) at 256x256, 16 spp, maxDepth 5,
+     and adaptive at 64x64, 4 spp, maxDepth 3 (finite pixels, mean |I| >
+     1e-5, sweeps launched);
      adaptive once more through the plain versions, same seed: the
      sample maps equal and the images within phase 4's tolerance on >= 99%
      of pixels, means within 1e-3;
@@ -153,6 +154,28 @@ its time):
      against BDPTracer at maxDepth 8 (phase 12's check); E[dx] through the
      reference tests' glass sphere against finite differences at their
      thresholds (tests/test_gpt_specular.py, test_gbdpt_specular.py).
+ 20. step G1 through factory.make_integrator: door.xml (BASELINE config
+     #2, CONFIGS_r05.json: diffuse, roughconductor, roughplastic and
+     thindielectric rows, three two-sided) with G-PT + L1 and path at
+     128x128, 32 spp, maxDepth 8, BDPT and G-BDPT + L1 at 16 spp;
+     G-BDPT + L1 on cbox-mats.xml (textured floor, roughconductor) at
+     128x128, 16 spp, maxDepth 8; tools/materials_board.py's board (one
+     analytic sphere per new kind: roughdiffuse, difftrans, phong, ward,
+     hk, mask, blend, coating, roughcoating) with path and G-PT + L1 at
+     128x128, 16 spp, maxDepth 6; each after a 1-spp warm-up with the
+     sweeps' launch counters reset just before it (wall, rays,
+     launches, added to the sweep kernels' records), then one profiled
+     render of each (idle share; one pass); G-BDPT primal + very_direct
+     against the BDPT image on door at full width; door G-PT, door and
+     cbox-mats G-BDPT and the board at 64x64, 4 spp through the kernels
+     and the plain versions (phase 4's tolerance, rays within 1e-3);
+     G-BDPT against BDPTracer on cbox-mats there, G-PT primal +
+     very_direct against PathTracer on door at maxDepth 5;
+     each new kind's sample against its own pdf by chi^2 at 1,048,576
+     lanes (thin glass: the reflection's share against its pdf, the rest
+     passing straight through); door's E[dx] against the finite
+     difference of a 2,048-spp path render, recorded (the reference's
+     half-vector copy refracts a thin-glass offset: ROADMAP Queue 3).
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -1612,17 +1635,20 @@ def phase_gbdpt_gradients(dev):
 
 def phase_step_b(dev):
     """direct, ao, field (shNormal), multichannel (path + ao) at 256^2,
-    16 spp and adaptive at 64^2, 4 spp, through factory.make_integrator
+    16 spp, maxDepth 5, and adaptive at 64^2, 4 spp, maxDepth 3, through
+    factory.make_integrator
     (tools/tpu_zoo.py's check: finite pixels, mean |I| > 1e-5); adaptive
     also against its render through the plain versions (sample map and
     image)."""
     from gradientdomain_mitsuba_tpu_torch.models import factory
     summary, images = {}, {}
-    for name, size, spp, props in (
-            ("direct", 256, 16, {}), ("ao", 256, 16, {}),
-            ("field", 256, 16, {"field": "shNormal"}),
-            ("multichannel", 256, 16, {}), ("adaptive", 64, 4, {})):
-        scene, st = load_scene_at(CBOX, dev, size, spp, 5, name)
+    # adaptive's rounds are host-paced and run twice (kernels, plain):
+    # maxDepth 3 keeps the whole script inside its time limit
+    for name, size, spp, depth, props in (
+            ("direct", 256, 16, 5, {}), ("ao", 256, 16, 5, {}),
+            ("field", 256, 16, 5, {"field": "shNormal"}),
+            ("multichannel", 256, 16, 5, {}), ("adaptive", 64, 4, 3, {})):
+        scene, st = load_scene_at(CBOX, dev, size, spp, depth, name)
         st.integrator_props.update(props)
         if name == "multichannel":
             st.integrator_children = [("path", {}), ("ao", {})]
@@ -2306,7 +2332,8 @@ def gradient_check(label, dx, primal_ref, very, limits):
     """E[dx] against the finite difference of a long run's primal, away
     from pixel pairs that see the light directly: rms(dx - fd) / rms(fd),
     correlation and regression slope against `limits` (rms ratio, min
-    correlation, slope range or None)."""
+    correlation, slope range or None; limits None: logged, not
+    checked)."""
     fd_x = primal_ref[:, 1:] - primal_ref[:, :-1]
     vd = very.sum(-1)
     mx = (vd[:, 1:] + vd[:, :-1]) == 0
@@ -2315,6 +2342,10 @@ def gradient_check(label, dx, primal_ref, very, limits):
                   torch.sqrt((b ** 2).mean()))
     corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
     slope = float((a * b).sum() / (b * b).sum())
+    if limits is None:
+        log(f"  {label}: rms(dx - fd) / rms(fd) {ratio:.4f}, corr "
+            f"{corr:.4f}, slope {slope:.4f} (recorded, not checked)")
+        return dict(rms_ratio=ratio, corr=corr, slope=slope)
     max_ratio, min_corr, slopes = limits
     log(f"  {label}: rms(dx - fd) / rms(fd) {ratio:.4f} (< {max_ratio}), "
         f"corr {corr:.4f} (> {min_corr}), slope {slope:.4f}"
@@ -2500,6 +2531,291 @@ def phase_step_7a(dev, recs):
     return summary
 
 
+DOOR = os.path.join(ROOT, "data", "scenes", "door", "door.xml")
+# step G1's full-width renders: (label, scene, integrator, spp, maxDepth);
+# BOARD stands for tools/materials_board.py's XML, written at run time
+BOARD = "materials board"
+STEP_G1 = (("gpt door", DOOR, "gpt", 32, 8),
+           ("path door", DOOR, "path", 32, 8),
+           ("bdpt door", DOOR, "bdpt", 16, 8),
+           ("gbdpt door", DOOR, "gbdpt", 16, 8),
+           ("gbdpt cbox-mats", CBOX_MATS, "gbdpt", 16, 8),
+           ("path board", BOARD, "path", 16, 6),
+           ("gpt board", BOARD, "gpt", 16, 6))
+# samples a pixel of the profiled render that reads a render's idle
+# share: one pass of each tracer (G-PT 16 samples a pixel a pass, path
+# 4 at 128^2, the bidirectional tracers 1)
+G1_PROFILE_SPP = {"gpt": 16, "path": 4, "bdpt": 1, "gbdpt": 1}
+N_CHI2 = 1 << 20
+CHI2_CT, CHI2_PHI, CHI2_SUB = 12, 24, 24
+
+
+def g1_render(tracer, scene, seed, spp):
+    """(image or L1 final, buffers or None, rays) of one render through
+    the entry points."""
+    from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    if isinstance(tracer, (GPTracer, GBDPTracer)):
+        return step_7a_render(tracer, scene, seed, spp)
+    img, rays = counted_render(tracer, scene, seed, spp)
+    return img, None, int(rays)
+
+
+def chi2_on_card(label, params, kinds, wi, dev):
+    """The port's sample() against its own pdf() at N_CHI2 lanes on the
+    card (tests/test_torch_bsdf_rest.py's test, 16x the lanes): a
+    histogram of the smooth samples' wo over the sphere against the pdf
+    integrated over each bin (CHI2_SUB^2 midpoints a bin), chi^2 below
+    dof + 5.5 sqrt(2 dof), the pdf's integral within 0.03 of the smooth
+    share.  `params(n)` gives the row's MatParams for n lanes."""
+    from gradientdomain_mitsuba_tpu_torch.ops import bsdf
+    n = N_CHI2
+    wi = torch.tensor(wi, dtype=torch.float32, device=dev)
+    wi = wi / wi.norm()
+    g = torch.Generator(device=dev).manual_seed(7)
+    u2 = torch.rand((n, 2), generator=g, device=dev)
+    uc = torch.rand((n,), generator=g, device=dev)
+    bs = bsdf.sample(params(n), wi.expand(n, 3), u2, uc, kinds)
+    keep = bs.valid & ~bs.is_delta
+    wo = bs.wo[keep]
+    ct = torch.clamp(wo[:, 2], -1.0, 1.0)
+    phi = torch.remainder(torch.atan2(wo[:, 1], wo[:, 0]), 2 * np.pi)
+    i_ct = torch.clamp(((ct + 1) / 2 * CHI2_CT).long(), 0, CHI2_CT - 1)
+    i_ph = torch.clamp((phi / (2 * np.pi) * CHI2_PHI).long(), 0,
+                       CHI2_PHI - 1)
+    counts = torch.bincount(i_ct * CHI2_PHI + i_ph,
+                            minlength=CHI2_CT * CHI2_PHI).double()
+    nct, nph = CHI2_CT * CHI2_SUB, CHI2_PHI * CHI2_SUB
+    cts = -1 + 2 * (torch.arange(nct, device=dev) + 0.5) / nct
+    phs = 2 * np.pi * (torch.arange(nph, device=dev) + 0.5) / nph
+    CT, PH = torch.meshgrid(cts, phs, indexing="ij")
+    ST = torch.sqrt(torch.clamp_min(1 - CT ** 2, 0.0))
+    dirs = torch.stack([ST * torch.cos(PH), ST * torch.sin(PH), CT],
+                       -1).reshape(-1, 3).float()
+    K = dirs.shape[0]
+    vals = bsdf.pdf(params(K), wi.expand(K, 3), dirs, kinds).double()
+    dA = (2.0 / nct) * (2 * np.pi / nph)
+    probs = vals.reshape(CHI2_CT, CHI2_SUB, CHI2_PHI, CHI2_SUB).sum(
+        (1, 3)).reshape(-1) * dA
+    total = float(probs.sum())
+    n_keep = int(keep.sum())
+    expected = probs * n_keep / max(total, 1e-9)
+    mask = expected > 8
+    chi2 = float(((counts[mask] - expected[mask]) ** 2 /
+                  expected[mask]).sum())
+    dof = int(mask.sum()) - 1
+    limit = dof + 5.5 * np.sqrt(2.0 * max(dof, 1))
+    share = n_keep / n
+    log(f"  chi2 {label}: {chi2:.1f} (dof {dof}, limit {limit:.1f}); pdf "
+        f"integral {total:.4f} vs smooth share {share:.4f}")
+    check(abs(total - share) < 0.03, f"chi2 {label}: pdf integral")
+    check(chi2 < limit, f"chi2 {label}: sample does not follow pdf")
+    return dict(chi2=chi2, dof=dof, limit=limit, integral=total,
+                share=share)
+
+
+def phase_step_g1(dev, recs):
+    """Step G1 through factory.make_integrator: door.xml (BASELINE config
+    #2) with gpt + L1 and path at 128^2, 32 spp, maxDepth 8, bdpt and
+    gbdpt + L1 at 16 spp; gbdpt + L1 on cbox-mats.xml at 16 spp; the
+    materials board with path and gpt + L1 at 16 spp, maxDepth 6; each
+    after a 1-spp warm-up with the sweeps' launch counters reset just
+    before it (wall, rays, launches, added to the sweep kernels' records),
+    then one profiled render (idle share); G-BDPT = BDPT on door at full
+    width; door gpt, door and cbox-mats gbdpt and the board (path, gpt)
+    at 64^2, 4 spp through the kernels and the plain versions; G-BDPT =
+    BDPT on cbox-mats there, G-PT = path on door at maxDepth 5; each new
+    kind's sample against its pdf at 1M lanes; door's E[dx] against a
+    finite difference (recorded)."""
+    import shutil
+    import tempfile
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    from gradientdomain_mitsuba_tpu_torch.models.bdpt import BDPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    from gradientdomain_mitsuba_tpu_torch.ops import bsdf, common
+    from gradientdomain_mitsuba_tpu_torch.scene import materials as M
+    tmp = tempfile.mkdtemp()
+    summary, full = {}, {}
+    try:
+        board = load_tool("materials_board").write_board(tmp)
+        paths = {BOARD: board}
+        for label, path, fam, spp, depth in STEP_G1:
+            scene, st = load_scene_at(paths.get(path, path), dev, 128, spp,
+                                      depth, fam)
+            tracer = factory.make_integrator(scene, st)
+            check(type(tracer).__name__ == {
+                "gpt": "GPTracer", "path": "PathTracer",
+                "bdpt": "BDPTracer", "gbdpt": "GBDPTracer"}[fam],
+                f"{label}: factory built {type(tracer).__name__}")
+            t0 = time.time()
+            g1_render(tracer, scene, 0, 1)
+            torch.cuda.synchronize()
+            log(f"{label}: warm-up (1 spp) {time.time() - t0:.3f} s")
+            for k in tracer.kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            img, bufs, rays = g1_render(tracer, scene, 1, spp)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            full[label] = img if bufs is None else bufs
+            launches = [k.launches for k in tracer.kernels]
+            for k, n in zip(tracer.kernels, launches):
+                recs[k.name]["launches"] += n
+            finite = bool(torch.isfinite(img).all())
+            mean = float(img.abs().mean())
+            log(f"{label} 128x128 {spp}spp maxDepth {depth}"
+                f"{' + L1' if fam in ('gpt', 'gbdpt') else ''}: wall "
+                f"{wall:.4f} s, rays {rays}, {rays / wall / 1e6:.3f} "
+                f"Mrays/s, sweep launches closest {launches[0]} occluded "
+                f"{launches[1]}, finite {finite}, mean |I| {mean:.5f}")
+            check(tuple(img.shape) == (128, 128, 3), f"{label}: shape")
+            check(finite and mean > 1e-5, f"{label}: not finite or black")
+            check(all(n > 0 for n in launches),
+                  f"{label}: a sweep kernel was not launched: {launches}")
+            prof_spp = G1_PROFILE_SPP[fam]
+            prof = profiled_render(
+                lambda: g1_render(tracer, scene, 2, prof_spp), "sweep_")
+            idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+            log(f"  profiled render (seed 2, {prof_spp} spp): device busy "
+                f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms "
+                f"wall (idle {100 * idle:.1f}%), {prof['device_ops']} "
+                f"device ops; sweeps {prof['kernel_ms']:.3f} ms over "
+                f"{prof['kernel_calls']} launches")
+            summary[label] = dict(wall_s=wall, rays=rays,
+                                  mrays_per_s=rays / wall / 1e6,
+                                  launches=launches, mean=mean, idle=idle,
+                                  profiled=prof)
+
+        # G-BDPT = BDPT on door at full width (both seed 1, 16 spp)
+        comb = (full["gbdpt door"]["primal"] +
+                full["gbdpt door"]["very_direct"])
+        err = float((comb - full["bdpt door"]).abs().max())
+        log(f"gbdpt door 128x128 16spp: primal + very_direct vs BDPT max "
+            f"|diff| {err:.3e}")
+        check(bool(torch.allclose(comb, full["bdpt door"], rtol=2e-4,
+                                  atol=2e-5)),
+              "gbdpt door: G-BDPT primal != BDPT")
+        del full
+        # kernels vs plain at 64^2, 4 spp (same seed); the identities
+        for label, path, fam in (("gpt door", DOOR, "gpt"),
+                                 ("gbdpt door", DOOR, "gbdpt"),
+                                 ("gbdpt cbox-mats", CBOX_MATS, "gbdpt"),
+                                 ("path board", board, "path"),
+                                 ("gpt board", board, "gpt")):
+            depth = 6 if path == board else 8
+            scene, st = load_scene_at(path, dev, 64, 4, depth, fam)
+            outs = {}
+            for mode in ("kernel", "plain"):
+                tracer = factory.make_integrator(scene, st)
+                if mode == "plain":
+                    use_plain(tracer)
+                _, bufs, rays = g1_render(tracer, scene, 3, 4)
+                if bufs is None:
+                    bufs = {"image": _}
+                outs[mode] = bufs, rays
+            (kb, kr), (pb, pr) = outs["kernel"], outs["plain"]
+            log(f"{label} 64x64 4spp kernel vs plain: rays {kr} vs {pr}")
+            check(abs(kr - pr) <= 1e-3 * pr, f"{label}: ray counts differ")
+            for name in kb:
+                _buffers_agree(f"{label} {name}", kb[name], pb[name],
+                               mean_rtol=1e-3)
+                check(bool(torch.isfinite(kb[name]).all()),
+                      f"{label} {name}")
+            if label == "gbdpt cbox-mats":
+                img = BDPTracer(scene, st).render(scene, seed=3, spp=4)
+                comb = kb["primal"] + kb["very_direct"]
+                err = float((comb - img).abs().max())
+                log(f"  G-BDPT primal + very_direct vs BDPT: max |diff| "
+                    f"{err:.3e}")
+                check(bool(torch.allclose(comb, img, rtol=2e-4,
+                                          atol=2e-5)),
+                      f"{label}: G-BDPT primal != BDPT")
+        scene, st = load_scene_at(DOOR, dev, 64, 4, 5, "gpt")
+        _, bufs, _ = step_7a_render(GPTracer(scene, st), scene, 3, 4)
+        img = PathTracer(scene, st).render(scene, seed=3, spp=4)
+        comb = bufs["primal"] + bufs["very_direct"]
+        err = float((comb - img).abs().max())
+        log(f"gpt door 64x64 4spp maxDepth 5: primal + very_direct vs "
+            f"PathTracer max |diff| {err:.3e}")
+        check(bool(torch.allclose(comb, img, rtol=3e-4, atol=3e-5)),
+              "G-PT primal != PathTracer on door")
+
+        # each new kind's sample against its pdf, at 1M lanes: the
+        # board's rows (by kind; the wrappers resolved as the tracers
+        # resolve them) and door's thin glass (delta: the reflection's
+        # share against its pdf)
+        scene, st = load_scene_at(board, dev, 8, 1, 6, "path")
+        kinds = bsdf.scene_kinds(scene)
+        packed = scene.materials.packed
+        kind = packed[:, 0].long()
+        rows = {"roughdiffuse": kind == M.ROUGH_DIFFUSE,
+                "difftrans": kind == M.DIFFTRANS, "phong": kind == M.PHONG,
+                "ward": kind == M.WARD, "hk": kind == M.HK,
+                "mask": packed[:, 22] < 1.0, "blend": kind == M.BLEND,
+                "coating": (kind == M.COATING) & (packed[:, 21] == 0),
+                "roughcoating": (kind == M.COATING) & (packed[:, 21] > 0)}
+        chi2 = {}
+        for name, sel in rows.items():
+            check(int(sel.sum()) == 1, f"board: {name} rows {sel.sum()}")
+            row = int(torch.nonzero(sel)[0])
+
+            def params(n, row=row):
+                return common.material_params(
+                    scene, st.has_textures,
+                    torch.full((n,), row, dtype=torch.int32, device=dev),
+                    torch.zeros((n, 2), device=dev))
+            sides = ([(0.4, -0.2, 0.89), (0.3, 0.5, -0.81)]
+                     if name in ("difftrans", "hk") else [(0.4, -0.2, 0.89)])
+            for wi in sides:
+                key = name + ("" if wi[2] > 0 else " from below")
+                chi2[key] = chi2_on_card(key, params, kinds, wi, dev)
+        scene, st = load_scene_at(DOOR, dev, 8, 1, 8, "path")
+        kinds = bsdf.scene_kinds(scene)
+        row = int(torch.nonzero(scene.materials.packed[:, 0] ==
+                                M.THIN_DIELECTRIC)[0])
+        n = N_CHI2
+        p = common.material_params(
+            scene, st.has_textures,
+            torch.full((n,), row, dtype=torch.int32, device=dev),
+            torch.zeros((n, 2), device=dev))
+        wi = torch.tensor([0.6, 0.3, -0.74], device=dev)
+        wi = (wi / wi.norm()).expand(n, 3)
+        g = torch.Generator(device=dev).manual_seed(7)
+        bs = bsdf.sample(p, wi, torch.rand((n, 2), generator=g, device=dev),
+                         torch.rand((n,), generator=g, device=dev), kinds)
+        refl = bs.wo[:, 2] * wi[:, 2] > 0
+        p_refl = float(bs.pdf[refl][0])
+        sd = np.sqrt(n * p_refl * (1 - p_refl))
+        dev_sd = abs(int(refl.sum()) - n * p_refl) / sd
+        through = bool(torch.equal(bs.wo[~refl], -wi[~refl]))
+        log(f"  thin glass: reflection share {float(refl.float().mean()):.5f}"
+            f" vs its pdf {p_refl:.5f} ({dev_sd:.2f} sd); the rest passes "
+            f"straight through: {through}")
+        check(dev_sd < 5 and through and bool(bs.is_delta.all()),
+              "thin glass: sample does not follow its pdf")
+        chi2["thindielectric"] = dict(share=float(refl.float().mean()),
+                                      pdf=p_refl, sd=dev_sd)
+        summary["chi2"] = chi2
+
+        # door's E[dx] through the thin glass against a finite difference
+        # of a long path render (recorded: the reference's copy refracts
+        # a thin-glass offset, ROADMAP Queue 3)
+        t0 = time.time()
+        scene, st = load_scene_at(DOOR, dev, 32, 8, 8, "gpt")
+        out = GPTracer(scene, st).render(scene, seed=0, spp=256)
+        ref = PathTracer(scene, st).render(scene, seed=777, spp=2048)
+        summary["gpt_door_dx"] = gradient_check(
+            f"G-PT door 32x32 256 vs path 2048 spp "
+            f"({time.time() - t0:.3f} s)", out["dx"],
+            ref - out["very_direct"], out["very_direct"], None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary
+
+
 def build_kernels():
     """Build the three kernel libraries, one nvcc each, all started
     together; prints how much the overlap saves against building them
@@ -2529,10 +2845,12 @@ def build_kernels():
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("step-e", "step-f", "step-7a"),
+    ap.add_argument("--only", choices=("step-e", "step-f", "step-7a",
+                                        "step-g1"),
                     help="build the kernels and run one phase that needs "
                          "no earlier one (step-e: phase 17, step-f: phase "
-                         "18, step-7a: phase 19), without the result line")
+                         "18, step-7a: phase 19, step-g1: phase 20), "
+                         "without the result line")
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2572,6 +2890,9 @@ def main():
     if args.only == "step-7a":
         with Phase("step 7a: specular and glossy shifts"):
             log(json.dumps({"step_7a": phase_step_7a(dev, recs)}))
+    if args.only == "step-g1":
+        with Phase("step G1: door, glossy G-BDPT, the materials board"):
+            log(json.dumps({"step_g1": phase_step_g1(dev, recs)}))
     if args.only:
         log(f"total {time.time() - t_start:.3f} s")
         log(card_line())
@@ -2615,11 +2936,13 @@ def main():
         step_f = phase_step_f(dev, recs)
     with Phase("step 7a: specular and glossy shifts"):
         step_7a = phase_step_7a(dev, recs)
+    with Phase("step G1: door, glossy G-BDPT, the materials board"):
+        step_g1 = phase_step_g1(dev, recs)
     log(json.dumps({"slice": summary, "forest": forest_summary,
                     "forest_v4": v4_summary, "bidir": bidir_summary,
                     "gbdpt_gradients": grad_summary, "step_b": step_b,
                     "step_d": step_d, "step_e": step_e, "step_f": step_f,
-                    "step_7a": step_7a}))
+                    "step_7a": step_7a, "step_g1": step_g1}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

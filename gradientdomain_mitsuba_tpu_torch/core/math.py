@@ -149,3 +149,48 @@ def np_perspective(fov_deg, near, far):
         [0, 0, 1, 0],
     ])
     return m
+
+
+# the Cephes constants of XLA's float32 exp
+_F32_TINY = 2.0 ** -126
+_LOG2E = 1.44269504088896341
+_EXP_C1, _EXP_C2 = 0.693359375, -2.12194440e-4
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+          4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def _f32(v):
+    """A Python float rounded to float32."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def _fma(a, b, c):
+    """float32 a * b + c with one rounding of the sum: the product of two
+    float32s is exact in float64, so this is the fused multiply-add up to
+    double-rounding ties."""
+    return (a.double() * b + c).float()
+
+
+def exp_f32(x):
+    """float32 exp as XLA's CPU backend computes it: the Cephes
+    reduction x = a + n log 2 and degree-5 polynomial, every multiply-add
+    fused.  torch's exp differs from it in the last bit on some inputs;
+    where that bit is amplified, the port takes this one so that it is
+    the reference's bits: the chains' small steps (models/pssmlt.py) and
+    the hk slab's transmission, a difference of two exps that cancels
+    where the outgoing cosine nears the incoming one (ops/bsdf.py)."""
+    x = torch.clamp(x, _f32(-87.8), _f32(88.8))
+    n = torch.floor(_fma(x, _f32(_LOG2E), 0.5))
+    n = torch.clamp(n, -127.0, 127.0)
+    x = _fma(n, -_f32(_EXP_C1), x)
+    x = _fma(n, -_f32(_EXP_C2), x)
+    z = _fma(x, _f32(_EXP_P[0]), _f32(_EXP_P[1]))
+    for p in _EXP_P[2:]:
+        z = _fma(z, x.double(), _f32(p))
+    z = _fma(z, (x * x).double(), x.double())
+    z = 1.0 + z
+    # 2^n, 0 at n = -127 (the reference's flush of the smallest range)
+    pow2 = torch.where(n > -127.0, torch.exp2(n), 0.0)
+    out = z * pow2
+    # denormal results flush to zero, as there
+    return torch.where(out < _F32_TINY, 0.0, out)

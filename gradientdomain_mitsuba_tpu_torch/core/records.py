@@ -29,8 +29,14 @@ class Intersection(NamedTuple):
 
 def tree_map(fn, rec, *rest):
     """Apply fn field-wise over NamedTuple records (None fields stay
-    None) — the counterpart of jax.tree.map over a record."""
+    None, nested records are mapped in turn) — the counterpart of
+    jax.tree.map over a record."""
     out = []
     for vals in zip(rec, *rest):
-        out.append(None if vals[0] is None else fn(*vals))
+        if vals[0] is None:
+            out.append(None)
+        elif hasattr(vals[0], "_fields"):
+            out.append(tree_map(fn, *vals))
+        else:
+            out.append(fn(*vals))
     return type(rec)(*out)

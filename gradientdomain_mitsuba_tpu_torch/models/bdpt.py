@@ -26,12 +26,17 @@ the reference reads it.  The eye image is grid-aligned and accumulates
 through the dense film adds; the light image lands at arbitrary pixels
 and goes through the deterministic scatter (ops/film.splat_unfiltered).
 
-Ported: the scenes the port's ops cover (diffuse, conductor and
-dielectric BSDFs, analytic spheres, area lights, pinhole perspective, no
-textures).  A delta vertex (_is_delta_kind) stores delta, passes a
-forward pdf of 0 (remapped to 1 in the MIS ratios) and is never a
-connection endpoint, as in the reference.  Environment and delta-light
-NEE on the eye walk (item 14), the woven-cloth payload (item 12) and
+Ported: the scenes the port's ops cover (every kind of bsdf.PORTED_KINDS,
+reflectance textures and the blend / coating wrappers at the finest
+mip level in every walk, as in the reference, analytic spheres, area
+lights, pinhole perspective).  A delta vertex (_is_delta_kind:
+conductor, dielectric, thin dielectric) stores delta, passes a forward
+pdf of 0 (remapped to 1 in the MIS ratios) and is never a connection
+endpoint, as in the reference; a lobe that is delta per sample
+(plastic's specular lobe, hk's unscattered transmission, a mask's
+pass-through, a smooth coating's layer) only zeroes the next vertex's
+forward pdf through bs.is_delta, as there.  Environment and
+delta-light NEE on the eye walk (item 14), woven cloth (item 12) and
 every other unported branch raise NotImplementedError naming its
 ROADMAP Queue 1 item.
 """
@@ -52,17 +57,13 @@ from ..ops import bsdf as bsdf_ops
 from ..ops import common, film as film_ops
 from ..ops import sensor as sensor_ops
 from ..ops.emitter import _searchsorted_segment, sample_emitter_triangle
-from ..scene.materials import (CONDUCTOR, DIELECTRIC, DIFFUSE,
-                               THIN_DIELECTRIC)
+from ..scene.materials import CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC
 
 # Depth cap used when maxDepth=-1 (unbounded in the reference's own
 # renderer, bounded here as in the reference); GDMT_MAX_BDPT_DEPTH
 # overrides it, read at import as the reference reads it.
 MAX_BDPT_DEPTH = int(os.environ.get("GDMT_MAX_BDPT_DEPTH", "8"))
 LIGHT_DIM_BASE = 4096  # rng dim offset separating the light-path stream
-# the kinds the bidirectional tracers take: diffuse vertices and the delta
-# vertices of _is_delta_kind (a null medium boundary is neither)
-BIDIR_KINDS = frozenset({DIFFUSE, CONDUCTOR, DIELECTRIC})
 
 
 class SubPath(NamedTuple):
@@ -167,8 +168,9 @@ def _b3(x):
 def check_scene(scene, settings):
     """Raise NotImplementedError naming the ROADMAP Queue 1 item for a
     scene a ported bidirectional tracer cannot render yet: emitters and
-    sensors first, then materials, then textures.  Returns the scene's
-    material kinds."""
+    sensors first, then materials, then the texture bits
+    common.check_texture_bits refuses.  Returns the scene's material
+    kinds."""
     if settings.env_kind != 0 or settings.n_delta > 0:
         raise NotImplementedError(
             "environment / delta-light NEE on the eye walk: ROADMAP "
@@ -179,14 +181,11 @@ def check_scene(scene, settings):
         raise NotImplementedError(
             "woven-cloth (irawan) vertex payload: ROADMAP Queue 1 item 12")
     kinds = bsdf_ops.scene_kinds(scene)
-    if not kinds <= BIDIR_KINDS:
+    if not kinds <= bsdf_ops.PORTED_KINDS:
         raise NotImplementedError(
-            f"material kinds {sorted(kinds)}: only diffuse, conductor and "
-            "dielectric are ported for the bidirectional tracers (ROADMAP "
-            "Queue 1 item 12)")
-    if settings.has_textures:
-        raise NotImplementedError(
-            "textured materials: ROADMAP Queue 1 item 13")
+            f"material kinds {sorted(kinds)}: woven cloth (irawan) is not "
+            "ported (ROADMAP Queue 1 item 12)")
+    common.check_texture_bits(settings.has_textures)
     return kinds
 
 

@@ -17,16 +17,17 @@ all-diffuse scenes, the suffix factorization are the reference's, step
 for step (see its module docstring).  The four offset views evaluate as
 one 4N-lane batch.
 
-Ported: area-lit scenes of the bidirectional kinds (bdpt.BIDIR_KINDS:
-diffuse, conductor, dielectric), with or without specular vertices.
-Other kinds raise item 12 (e.g. cbox-mats.xml's roughconductor and
-door.xml's thindielectric), textures item 13, and environment or delta
-lights item 14 (the reference's aux-only G-PT pass).  The eye images and
-eye-gradient pairs are grid-aligned and go through the dense film adds;
-the light image and its image-space gradient pairs go through the
-deterministic scatter.  The final image is models/poisson.reconstruct on
-the buffers `render` returns (L1 by default), as the reference's CLI
-does.
+Ported: area-lit scenes of every kind of bsdf.PORTED_KINDS (door.xml,
+cbox-mats.xml), with or without specular vertices, reflectance textures
+and the blend / coating wrappers; the offset views read textures at the
+finest mip level (no footprint), as the reference does.  Woven cloth
+raises item 12, textured opacity and blend weights item 13, and
+environment or delta lights item 14 (the reference's aux-only G-PT
+pass).  The eye images and eye-gradient pairs are grid-aligned and go
+through the dense film adds; the light image and its image-space
+gradient pairs go through the deterministic scatter.  The final image
+is models/poisson.reconstruct on the buffers `render` returns (L1 by
+default), as the reference's CLI does.
 """
 from __future__ import annotations
 

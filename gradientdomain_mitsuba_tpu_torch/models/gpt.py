@@ -11,15 +11,18 @@ step for step (see its module docstring); `jit` and `fori_loop` become
 eager code and Python loops, and the scene's device is the tensors'
 device.
 
-Ported: the kinds of bsdf.PORTED_KINDS, delta (conductor, dielectric) and
-glossy vertices through the half-vector copy (half_vector_copy, shared
-with G-BDPT's prefix replay; any_specular selects the branch that runs
-full offsets at every bounce), area lights and the environment map (its
-shift), the perspective and thin-lens cameras, and reflectance textures
-with the primary hits' mip level for the base and the offset paths.
-Other scenes raise NotImplementedError at construction, naming the
-ROADMAP item: other material kinds (item 12, e.g. door.xml's
-thindielectric), other textures (13), other emitters and sensors (14).
+Ported: the kinds of bsdf.PORTED_KINDS, delta (conductor, dielectric,
+thin dielectric) and glossy vertices through the half-vector copy
+(half_vector_copy, shared with G-BDPT's prefix replay; any_specular
+selects the branch that runs full offsets at every bounce), area lights
+and the environment map (its shift), the perspective and thin-lens
+cameras, and reflectance textures with the primary hits' mip level for
+the base and the offset paths.  Like the reference's, the copy treats a
+thin dielectric offset as a solid one: it refracts about the normal
+with the offset's eta where thindielectric.cpp passes straight through
+(ROADMAP Queue 3).  Other scenes raise NotImplementedError at
+construction, naming the ROADMAP item: woven cloth (item 12), other
+textures (13), other emitters and sensors (14).
 The reference's aux_only mode (G-BDPT's env / delta-light family) is
 item 14.
 """
@@ -163,8 +166,8 @@ class GPTracer:
         self.kinds = bsdf_ops.scene_kinds(scene)
         if not self.kinds <= bsdf_ops.PORTED_KINDS:
             raise NotImplementedError(
-                f"material kinds {sorted(self.kinds)}: not all ported "
-                "(ROADMAP Queue 1 item 12)")
+                f"material kinds {sorted(self.kinds)}: woven cloth "
+                "(irawan) is not ported (ROADMAP Queue 1 item 12)")
         p = settings.integrator_props
         self.shift_threshold = float(p.get("shiftThreshold", 0.001))
         # static: does any material classify as specular/glossy for

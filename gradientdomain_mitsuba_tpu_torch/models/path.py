@@ -94,8 +94,8 @@ class PathTracer:
         self.kinds = bsdf_ops.scene_kinds(scene)
         if not self.kinds <= bsdf_ops.PORTED_KINDS:
             raise NotImplementedError(
-                f"material kinds {sorted(self.kinds)}: not all ported "
-                "(ROADMAP Queue 1 item 12)")
+                f"material kinds {sorted(self.kinds)}: woven cloth "
+                "(irawan) is not ported (ROADMAP Queue 1 item 12)")
         check_scene_extras(settings, self.shades_textures_and_env)
         sensor_ops.check_supported(scene.camera)
         self._beval = functools.partial(bsdf_ops.eval, kinds=self.kinds)

@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from ..core.math import exp_f32
 from ..core.rng import DimAllocator as DA
 from ..core.rng import mod1, uniform_float
 from ..core.spectrum import luminance
@@ -37,49 +38,6 @@ S1 = 1.0 / 1024.0
 S2 = 1.0 / 64.0
 # log(S2 / S1) as the reference forms it (float32)
 _LOG_S2_S1 = float(torch.tensor(math.log(S2 / S1), dtype=torch.float32))
-# the Cephes constants of XLA's float32 exp
-_F32_TINY = 2.0 ** -126
-_LOG2E = 1.44269504088896341
-_EXP_C1, _EXP_C2 = 0.693359375, -2.12194440e-4
-_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
-          4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
-
-
-def _f32(v):
-    """A Python float rounded to float32."""
-    return float(torch.tensor(v, dtype=torch.float32))
-
-
-def _fma(a, b, c):
-    """float32 a * b + c with one rounding of the sum: the product of two
-    float32s is exact in float64, so this is the fused multiply-add up to
-    double-rounding ties."""
-    return (a.double() * b + c).float()
-
-
-def exp_f32(x):
-    """float32 exp as XLA's CPU backend computes it: the Cephes
-    reduction x = a + n log 2 and degree-5 polynomial, every multiply-add
-    fused.  The chains' small steps go through it so that they are the
-    reference's bits (torch's exp differs from it in the last bit on
-    some inputs)."""
-    x = torch.clamp(x, _f32(-87.8), _f32(88.8))
-    n = torch.floor(_fma(x, _f32(_LOG2E), 0.5))
-    n = torch.clamp(n, -127.0, 127.0)
-    x = _fma(n, -_f32(_EXP_C1), x)
-    x = _fma(n, -_f32(_EXP_C2), x)
-    z = _fma(x, _f32(_EXP_P[0]), _f32(_EXP_P[1]))
-    for p in _EXP_P[2:]:
-        z = _fma(z, x.double(), _f32(p))
-    z = _fma(z, (x * x).double(), x.double())
-    z = 1.0 + z
-    # 2^n, 0 at n = -127 (the reference's flush of the smallest range)
-    pow2 = torch.where(n > -127.0, torch.exp2(n), 0.0)
-    out = z * pow2
-    # denormal results flush to zero, as there
-    return torch.where(out < _F32_TINY, 0.0, out)
-
-
 def cumsum_f32(x, block=16):
     """Inclusive prefix sum of a 1-D float32 tensor in the association
     order of jnp.cumsum on XLA's CPU backend: sequential float32 sums

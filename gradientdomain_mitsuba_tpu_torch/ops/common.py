@@ -10,9 +10,11 @@ Ported: the small-scene (<= 2048 triangles) traversal through the sweep
 kernels, the large-scene traversal through the pair kernels (or, under
 GDMT_KERNEL=v4, the v4 block kernels), analytic spheres merged by
 closest t (their exact normals and lat-long uv in the hit fill), the
-material gather with reflectance textures, the primary hits' uv
+material gather with reflectance textures and the blend / coating
+wrappers' child rows (has_textures bits 0 and 2), the primary hits' uv
 footprint, and the hit fill without the barycentric payload or normal
-perturbation.  The reference's one-hot
+perturbation.  Textured opacity and blend weights (bits 1 and 3, item
+13) and woven cloth (bit 4, item 12) raise.  The reference's one-hot
 matmul gather (fast_row_gather) is a TPU workaround; here it is plain
 indexing.
 """
@@ -225,7 +227,6 @@ def fill_intersection(scene, o, d, hit) -> Intersection:
 # has_textures bits (scene.compile_scene) the port does not resolve yet,
 # with the ROADMAP Queue 1 item each waits for
 _UNPORTED_TEXTURE_BITS = ((2, "textured mask opacity", 13),
-                          (4, "blend / coating wrapper BSDFs", 12),
                           (8, "textured blend weights", 13),
                           (16, "woven-cloth (irawan) BSDFs", 12))
 
@@ -240,21 +241,41 @@ def check_texture_bits(has_textures):
 
 
 def material_params(scene, has_textures, bsdf_id, uv, uv_footprint=None):
-    """BSDF parameters of a batch of hits, resolving reflectance textures
-    when bit 0 of the static has_textures mask is set (uv_footprint: the
-    primary hits' UV-space footprint for the mip level, None = finest).
-    The other bits (textured opacity, blend / coating wrappers, textured
-    blend weights, woven cloth) raise, naming their ROADMAP Queue 1
-    item."""
+    """BSDF parameters of a batch of hits under the static has_textures
+    mask: bit 0 resolves reflectance textures (uv_footprint: the primary
+    hits' UV-space footprint for the mip level, None = finest), bit 2
+    (BLEND / COATING rows present) resolves the wrapper rows' children
+    one level deep, as the reference does: the params are child0's (the
+    lane's own row where it is not a wrapper), with MatParams.blend the
+    second child's (blend weight 0 off BLEND lanes) and the coat* fields
+    the COATING row's layer.  Textured opacity, textured blend weights
+    and woven cloth raise, naming their ROADMAP Queue 1 item."""
     from . import bsdf as bsdf_ops
+    from ..scene.materials import BLEND, COATING
     check_texture_bits(has_textures)
+    bits = int(has_textures)
     mid = torch.clamp_min(bsdf_id, 0)
-    albedo = None
-    if int(has_textures) & 1:
-        from .texture import resolve_albedo
-        albedo = resolve_albedo(scene, mid, uv, uv_footprint)
-    return bsdf_ops.gather_params(scene.materials, mid,
-                                  albedo_override=albedo)
+
+    def gather(ids):
+        albedo = None
+        if bits & 1:
+            from .texture import resolve_albedo
+            albedo = resolve_albedo(scene, ids, uv, uv_footprint)
+        return bsdf_ops.gather_params(scene.materials, ids,
+                                      albedo_override=albedo)
+
+    p = gather(mid)
+    if not bits & 4:
+        return p
+    is_b = p.kind == BLEND
+    is_c = p.kind == COATING
+    c0 = torch.where(is_b | is_c, p.child0, mid)
+    c1 = torch.where(is_b, p.child1, mid)
+    return gather(c0)._replace(
+        blend=gather(c1), blend_w=torch.where(is_b, p.blend_w, 0.0),
+        coat=is_c, coat_eta=torch.clamp_min(p.eta[..., 0], 1.0 + 1e-4),
+        coat_sigma=p.transmittance, coat_spec=p.specular,
+        coat_alpha=torch.where(is_c, p.alpha_v, 0.0), coat_dist=p.dist)
 
 
 def primary_uv_footprint(scene, W, H, d, its):

@@ -544,7 +544,21 @@ def test_gpt_takes_the_half_vector_shift_at_glossy_threshold():
 
 @pytest.mark.parametrize("bit,item", [(2, 13), (4, 12), (8, 13), (16, 12)])
 def test_unported_texture_bits_raise(scenes, bit, item):
+    """Textured opacity and blend weights (item 13) and woven cloth (item
+    12) raise.  Bit 2 (value 4: blend / coating rows, item 12) is
+    ported: the params resolve their wrapper fields and both tracers
+    build."""
     _, _, ts_scene, st = scenes
+    if bit == 4:
+        p = common.material_params(ts_scene, 1 | bit, torch.zeros(2).int(),
+                                   torch.zeros(2, 2))
+        assert p.blend is not None and not p.coat.any()
+        assert (p.blend_w == 0).all()
+        st2 = copy.deepcopy(st)
+        st2.has_textures = 1 | bit
+        for cls in (GPTracer, PathTracer):
+            cls(ts_scene, st2)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         common.material_params(ts_scene, 1 | bit, torch.zeros(2).int(),
                                torch.zeros(2, 2))

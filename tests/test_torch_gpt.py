@@ -26,6 +26,7 @@ from gradientdomain_mitsuba_tpu.models import poisson as ref_poisson
 from gradientdomain_mitsuba_tpu.ops import common as ref_common
 from gradientdomain_mitsuba_tpu.ops import intersect as ref_isec
 from gradientdomain_mitsuba_tpu.scene import scene as ref_scene
+from gradientdomain_mitsuba_tpu_torch.models import gpt as gpt_mod
 from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
 from gradientdomain_mitsuba_tpu_torch.scene import bridge
 from gradientdomain_mitsuba_tpu_torch.scene import scene as port_scene
@@ -162,12 +163,50 @@ def test_render_is_deterministic():
         assert torch.equal(a[k], b[k]), k
 
 
-def test_unported_scenes_raise():
-    """door.xml's thindielectric and twosided rows are item 12."""
+IRAWAN_XML = """<scene version="0.5.0">
+  <sensor type="perspective">
+    <float name="fov" value="45"/>
+    <transform name="toWorld">
+      <lookat origin="0, 1.2, 2.2" target="0, 0, 0" up="0, 1, 0"/>
+    </transform>
+    <film type="hdrfilm">
+      <integer name="width" value="8"/><integer name="height" value="8"/>
+    </film>
+  </sensor>
+  <shape type="rectangle">
+    <transform name="toWorld"><rotate x="1" angle="-90"/></transform>
+    <bsdf type="irawan">
+      <string name="filename" value="cotton_denim.wif"/>
+    </bsdf>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld">
+      <rotate x="1" angle="90"/><translate y="2.5"/>
+    </transform>
+    <emitter type="area"><rgb name="radiance" value="6, 6, 6"/></emitter>
+  </shape>
+</scene>
+"""
+
+
+def test_unported_scenes_raise(tmp_path, monkeypatch):
+    """Woven cloth (irawan) is item 12, the one BSDF kind left: the
+    loader refuses an irawan XML, and GPTracer a table that holds the
+    kind.  door.xml, which raised here before, renders
+    (tests/test_torch_door.py)."""
+    path = tmp_path / "cloth.xml"
+    path.write_text(IRAWAN_XML)
+    with pytest.raises(NotImplementedError, match="irawan.*item 12"):
+        port_scene.load_scene(str(path), VARS)
     scene, st = port_scene.load_scene(
         os.path.join(ROOT, "data/scenes/door/door.xml"), VARS)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        GPTracer(bridge.to_torch(scene, "cpu"), st)
+    ts = bridge.to_torch(scene, "cpu")
+    GPTracer(ts, st)
+    kinds = gpt_mod.bsdf_ops.scene_kinds(ts)
+    monkeypatch.setattr(gpt_mod.bsdf_ops, "scene_kinds",
+                        lambda s: kinds | {16})
+    with pytest.raises(NotImplementedError, match="woven.*item 12"):
+        GPTracer(ts, st)
 
 
 @pytest.mark.parametrize("lanes", [None, "1", "256", "300", "4096",

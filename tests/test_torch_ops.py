@@ -288,7 +288,7 @@ def test_non_diffuse_kinds_raise(scenes):
     _, ts_scene, _ = scenes
     tp = bsdf.gather_params(ts_scene.materials, torch.zeros(4, dtype=torch.int32))
     with pytest.raises(NotImplementedError):
-        bsdf.eval(tp, torch.ones(4, 3), torch.ones(4, 3), frozenset({0, 7}))
+        bsdf.eval(tp, torch.ones(4, 3), torch.ones(4, 3), frozenset({0, 16}))
 
 
 def test_fill_intersection(scenes):

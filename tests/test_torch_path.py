@@ -28,6 +28,7 @@ from gradientdomain_mitsuba_tpu.models import path as ref_path
 from gradientdomain_mitsuba_tpu.ops import common as ref_common
 from gradientdomain_mitsuba_tpu.ops import intersect as ref_isec
 from gradientdomain_mitsuba_tpu.scene import scene as ref_scene
+from gradientdomain_mitsuba_tpu_torch.models import path as path_mod
 from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
 from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
 from gradientdomain_mitsuba_tpu_torch.parallel import checkpoint as cp
@@ -187,13 +188,22 @@ def test_unported_branches_raise(cbox16):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.trace_rays(scene, 0, torch.zeros(2, dtype=torch.int64),
                       torch.arange(2), o, d, sss_cache=object())
-    # door.xml's thindielectric is not ported (cbox-mats renders since
-    # its roughconductor and checkerboard are)
+    # woven cloth (irawan) is the one BSDF kind left; door.xml, whose
+    # thindielectric raised here before, builds (and renders against the
+    # reference: tests/test_torch_door.py)
     scene_np, st2 = port_scene.load_scene(
         os.path.join(ROOT, "data/scenes/door/door.xml"),
         {"width": "16", "height": "16"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PathTracer(bridge.to_torch(scene_np, "cpu"), st2)
+    ts = bridge.to_torch(scene_np, "cpu")
+    PathTracer(ts, st2)
+    kinds = path_mod.bsdf_ops.scene_kinds(ts)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(path_mod.bsdf_ops, "scene_kinds", lambda s: kinds | {16})
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
+            PathTracer(ts, st2)
+    finally:
+        mp.undo()
 
 
 @pytest.mark.parametrize("lanes", [None, "1", "256", "65536", "3000000"])

@@ -3,7 +3,10 @@ test_torch_sppm.py, test_torch_irrcache.py, test_torch_specular.py, ...):
 one scene rendered through both packages' factories with the reference's
 intersectors pinned to the linear-MT matmul sweeps (the function the
 port's plain sweeps compute, as in test_torch_gpt.py), the image check,
-the lane-share check of an op, and XLA's flush of subnormals."""
+the lane-share check of an op, XLA's flush of subnormals, the L1
+final's check by objective and mean, and the bidirectional renders of
+one scene in both packages (test_torch_gbdpt_glossy.py,
+test_torch_gbdpt_door.py)."""
 import copy
 
 import jax
@@ -159,3 +162,102 @@ def render_chains(rt, rs, pt, ts, seed, spp):
         mp.undo()
     got = pt.render(ts, seed=seed, spp=spp).numpy()
     return ref, got, np.stack(ref_takes), np.stack(port_takes)
+
+
+def frac_close(got, ref):
+    """Share of pixels within rtol 1e-3 / atol 1e-4 (all channels)."""
+    return np.isclose(got, ref, rtol=1e-3, atol=1e-4).all(-1).mean()
+
+
+def rel_mean_diff(got, ref):
+    return abs(got.mean() - ref.mean()) / max(abs(ref.mean()), 1e-12)
+
+
+def assert_l1_final_close(got, ref_bufs, alpha=0.2):
+    """An L1 final against the reference's by mean (5e-3 relative) and by
+    the L1 objective it minimizes on the reference's buffers (1%): the
+    reference's own IRLS moves by more than a pixel tolerance under
+    one-ulp input changes (test_torch_poisson.py)."""
+    assert np.isfinite(got).all()
+    ref = ref_bufs["L1"]
+    assert rel_mean_diff(got, ref) < 5e-3
+    p, gx, gy, vd = (ref_bufs[k] for k in ("primal", "dx", "dy",
+                                           "very_direct"))
+
+    def energy(x):
+        gxm, gym = gx.copy(), gy.copy()
+        gxm[:, -1] = 0.0
+        gym[-1] = 0.0
+        dx = np.pad(x[:, 1:] - x[:, :-1], ((0, 0), (0, 1), (0, 0)))
+        dy = np.pad(x[1:] - x[:-1], ((0, 1), (0, 0), (0, 0)))
+        return (np.abs(dx - gxm).sum() + np.abs(dy - gym).sum() +
+                alpha * np.abs(x - p).sum())
+
+    e_ref, e_got = energy(ref - vd), energy(got - vd)
+    assert abs(e_got - e_ref) <= 0.01 * e_ref, (e_got, e_ref)
+
+
+GBDPT_BUFS = ("primal", "very_direct", "dx", "dy")
+
+
+def bidir_renders(path, size, spp, depth, seed):
+    """BDPT and G-BDPT (+ L1, models/poisson.reconstruct) of one scene
+    through both factories, rays counted, and the port's BDPT image:
+    {"bdpt": {"ref", "port", "ref_rays", "port_rays"}, "gbdpt": {"ref":
+    buffers + "L1" + "rays", "port": the same}}."""
+    from gradientdomain_mitsuba_tpu.models import poisson as ref_poisson
+    from gradientdomain_mitsuba_tpu_torch.models import poisson
+    out = {}
+    scene, st = load(path, "bdpt", size=size, spp=spp, depth=depth)
+    ref, got, rt, pt = render_both(scene, st, [seed], spp, count_rays=True)
+    out["bdpt"] = dict(ref=ref[0], port=got[0], ref_rays=rt.last_ray_count,
+                       port_rays=pt.last_ray_count)
+    scene, st = load(path, "gbdpt", size=size, spp=spp, depth=depth)
+    rt, rs, pt, ts = make_both(scene, st)
+    rt.count_rays = pt.count_rays = True
+    rb = rt.render(rs, seed=seed, spp=spp)
+    pb = pt.render(ts, seed=seed, spp=spp)
+    out["gbdpt"] = {
+        "ref": {k: np.asarray(rb[k]) for k in GBDPT_BUFS},
+        "port": {k: pb[k].numpy() for k in GBDPT_BUFS}}
+    out["gbdpt"]["ref"]["L1"] = np.asarray(
+        ref_poisson.reconstruct(rb, mode="L1"))
+    out["gbdpt"]["port"]["L1"] = poisson.reconstruct(pb, mode="L1").numpy()
+    out["gbdpt"]["ref"]["rays"] = rt.last_ray_count
+    out["gbdpt"]["port"]["rays"] = pt.last_ray_count
+    return out
+
+
+def check_bdpt(renders, size, lit):
+    """The port's BDPT image against the reference's: finite, lit on more
+    than `lit` of the pixels (a rule over pixels needs lit ones), within
+    rtol 1e-3 on >= 99% of pixels, means within 1e-3 relative, equal
+    rays."""
+    b = renders["bdpt"]
+    ref, got = b["ref"], b["port"]
+    assert got.shape == ref.shape == (size, size, 3)
+    assert np.isfinite(got).all()
+    assert (ref.max(-1) > 1e-4).mean() > lit
+    assert frac_close(got, ref) >= 0.99
+    assert rel_mean_diff(got, ref) < 1e-3
+    assert int(b["port_rays"]) == int(b["ref_rays"]) > 0
+
+
+def check_gbdpt_buffer(renders, name, size):
+    got = renders["gbdpt"]["port"][name]
+    ref = renders["gbdpt"]["ref"][name]
+    assert got.shape == ref.shape == (size, size, 3)
+    assert np.isfinite(got).all()
+    assert frac_close(got, ref) >= 0.99
+    assert (rel_mean_diff(got, ref) < 1e-3 or
+            abs(got.mean() - ref.mean()) < 1e-6)
+
+
+def check_gbdpt_primal_is_bdpt(renders):
+    """primal (with the light image) + very_direct == the BDPT image at
+    the same seed (tests/test_bdpt.py's identity, on the port), at
+    test_torch_gbdpt.py's tolerance."""
+    g = renders["gbdpt"]["port"]
+    np.testing.assert_allclose(g["primal"] + g["very_direct"],
+                               renders["bdpt"]["port"], rtol=2e-4,
+                               atol=2e-5)

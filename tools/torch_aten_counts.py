@@ -12,7 +12,9 @@ kind.  The sampler is the scene's at --spp (ldsampler for caustics).
 Counts are of torch.profiler's CPU events without a parent whose name
 starts with aten::; rays are the pass's lanes with maxt > 0 over its
 intersector calls (the device tally), a lane being a pixel sample or a
-chain (photons included in sppm's).
+chain (photons included in sppm's); intersector calls are the pass's
+closest-hit and any-hit queries (on the card: the sweep or traversal
+kernels' launches).  gpt and gbdpt take one trace_pass too.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-FAMILIES = ("path", "bdpt", "sppm", "pssmlt", "erpt", "mlt")
+FAMILIES = ("path", "bdpt", "sppm", "pssmlt", "erpt", "mlt", "gpt", "gbdpt")
 
 
 def one_pass(tracer, scene, st):
@@ -43,20 +45,32 @@ def one_pass(tracer, scene, st):
 
 def count(tracer, fn):
     """(top-level aten calls of fn(), rays it traced: lanes with maxt > 0
-    over its intersector calls, counted by the tracer's device tally)."""
+    over its intersector calls, counted by the tracer's device tally,
+    [closest-hit calls, any-hit calls])."""
     fn()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         fn()
     calls = sum(1 for e in prof.events()
                 if e.cpu_parent is None and e.name.startswith("aten::"))
     walker = getattr(tracer, "inner", tracer)
+    queries = [0, 0]
+
+    def counted(i, f):
+        def call(*a):
+            queries[i] += 1
+            return f(*a)
+        return call
+
+    closest, occluded = walker.closest, walker.occluded
+    walker.closest, walker.occluded = counted(0, closest), counted(1, occluded)
     walker.ray_tally = torch.zeros((), dtype=torch.int64)
     try:
         fn()
         rays = int(walker.ray_tally)
     finally:
         walker.ray_tally = None
-    return calls, rays
+        walker.closest, walker.occluded = closest, occluded
+    return calls, rays, queries
 
 
 def main():
@@ -83,9 +97,10 @@ def main():
         tracer = factory.make_integrator(scene, st)
         lanes = (tracer.n_chains if hasattr(tracer, "n_chains")
                  else args.size * args.size)
-        calls, rays = count(tracer, one_pass(tracer, scene, st))
+        calls, rays, queries = count(tracer, one_pass(tracer, scene, st))
         print(f"{fam:7s} {calls:8d} top-level aten calls a pass, "
-              f"{rays / lanes:.3f} rays a lane ({lanes} lanes; "
+              f"{rays / lanes:.3f} rays a lane, intersector calls "
+              f"{queries[0]} closest / {queries[1]} any hit ({lanes} lanes; "
               f"{args.size}x{args.size}, sampler {st.sampler} at "
               f"{args.spp} spp, maxDepth {args.depth})", flush=True)
 
