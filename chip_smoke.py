@@ -72,7 +72,7 @@ its time):
      call under v7;
  11. the v2 path: the v2 wrappers (make_tri9_intersector / _occluder) on
      the three whole forest batches, launch counters reset just before;
- 12. slice 8: cbox 256x256, 16 spp, maxDepth 6, BDPTracer.render and
+ 12. slice 8: cbox 256x256, 16 spp, maxDepth 4, BDPTracer.render and
      GBDPTracer.render + L1 reconstruct, each timed after a 1-spp warm-up
      with the sweep kernels' launch counters reset just before it (wall,
      rays, Mrays/s, launches), then one more render of each under
@@ -157,9 +157,10 @@ its time):
  20. step G1 through factory.make_integrator: door.xml (BASELINE config
      #2, CONFIGS_r05.json: diffuse, roughconductor, roughplastic and
      thindielectric rows, three two-sided) with G-PT + L1 and path at
-     128x128, 32 spp, maxDepth 8, BDPT and G-BDPT + L1 at 16 spp;
-     G-BDPT + L1 on cbox-mats.xml (textured floor, roughconductor) at
-     128x128, 16 spp, maxDepth 8; tools/materials_board.py's board (one
+     128x128, 32 spp, maxDepth 8, BDPT and G-BDPT + L1 at 16 spp,
+     maxDepth 5; G-BDPT + L1 on cbox-mats.xml (textured floor,
+     roughconductor) at 128x128, 16 spp, maxDepth 5;
+     tools/materials_board.py's board (one
      analytic sphere per new kind: roughdiffuse, difftrans, phong, ward,
      hk, mask, blend, coating, roughcoating) with path and G-PT + L1 at
      128x128, 16 spp, maxDepth 6; each after a 1-spp warm-up with the
@@ -176,6 +177,20 @@ its time):
      passing straight through); door's E[dx] against the finite
      difference of a 2,048-spp path render, recorded (the reference's
      half-vector copy refracts a thin-glass offset: ROADMAP Queue 3).
+ 21. step G2a through factory.make_integrator on tools/cloth_board.py's
+     board (written at run time: woven cloth, denim and charmeuse at two
+     repeats; a bumpmap, a normalmap, a mask with a textured opacity, a
+     blendbsdf with a textured weight, vertexcolors and wireframe on
+     triangle quads; an EWA-filtered striped floor): path and G-PT + L1
+     at 128x128, 32 spp, BDPT and G-BDPT + L1 at 16 spp, maxDepth 8,
+     each as in phase 20 (warm-up, launch counters reset just before
+     it, rays, launches, wall, one profiled render for the idle share);
+     G-BDPT primal + very_direct against the BDPT image at full width;
+     all four at 64x64, 4 spp through the kernels and the plain versions
+     (the bidirectional pair at maxDepth 5; phase 4's tolerance on every
+     buffer, rays within 1e-3); G-PT primal
+     + very_direct against PathTracer at maxDepth 5 there; the woven
+     cloth's sample against its pdf by chi^2 at 1,048,576 lanes.
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -1474,11 +1489,13 @@ def bidir_render(tracer, scene, seed, spp):
 
 
 def phase_bidir_slice(dev):
-    """BDPT and G-BDPT (+ L1) on cbox 256^2, 16 spp, maxDepth 6."""
+    """BDPT and G-BDPT (+ L1) on cbox 256^2, 16 spp, maxDepth 4 (the
+    walls are host dispatch, which grows with the strategies, ~depth^2
+    / 2, and the script has a time limit)."""
     from gradientdomain_mitsuba_tpu_torch.models.bdpt import BDPTracer
     from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
     from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
-    size, spp, depth = 256, 16, 6
+    size, spp, depth = 256, 16, 4
     t0 = time.time()
     scene, st = load_scene_at(CBOX, dev, size, spp, depth, "bdpt")
     torch.cuda.synchronize()
@@ -2006,8 +2023,10 @@ STEP_E_SPP = {"mlt": 1}
 # samples and mutations.  A chain image's mean is its b, a plain Monte
 # Carlo estimate over luminanceSamples fresh states; caustic paths
 # through the glass make the integrand heavy-tailed, so each side takes
-# 1-4M samples, 65,536 chains a pass
-EXPECT_CHAINS = 65536
+# 1-4M samples.  The host's cost is per pass, so each side runs 262,144
+# lanes a pass (chains; the path reference through GDMT_LANES): 4x fewer
+# passes than at 65,536 for the same samples
+EXPECT_CHAINS = 1 << 18
 
 
 def record_takes(tracer):
@@ -2038,8 +2057,16 @@ def expectation_check(dev, label, ref, family, size, mutations,
     if ref_img is None:
         scene, st = load_scene_at(CAUSTICS, dev, ref_size, ref_spp, 8,
                                   ref_family)
-        ref_img = factory.make_integrator(scene, st).render(
-            scene, seed=3, spp=ref_spp)
+        lanes = os.environ.get("GDMT_LANES")
+        os.environ["GDMT_LANES"] = str(EXPECT_CHAINS)
+        try:
+            ref_img = factory.make_integrator(scene, st).render(
+                scene, seed=3, spp=ref_spp)
+        finally:
+            if lanes is None:
+                del os.environ["GDMT_LANES"]
+            else:
+                os.environ["GDMT_LANES"] = lanes
     n = size * size * mutations
     scene, st = load_scene_at(CAUSTICS, dev, size, mutations, 8, family, {
         "chains": EXPECT_CHAINS, "luminanceSamples": bootstrap})
@@ -2535,11 +2562,15 @@ DOOR = os.path.join(ROOT, "data", "scenes", "door", "door.xml")
 # step G1's full-width renders: (label, scene, integrator, spp, maxDepth);
 # BOARD stands for tools/materials_board.py's XML, written at run time
 BOARD = "materials board"
+# The bidirectional ones run at maxDepth 5: their walls are host
+# dispatch, which grows with the strategies (~depth^2 / 2), and the
+# script has a time limit; their checks hold at any depth.
+G1_BIDIR_DEPTH = 5
 STEP_G1 = (("gpt door", DOOR, "gpt", 32, 8),
            ("path door", DOOR, "path", 32, 8),
-           ("bdpt door", DOOR, "bdpt", 16, 8),
-           ("gbdpt door", DOOR, "gbdpt", 16, 8),
-           ("gbdpt cbox-mats", CBOX_MATS, "gbdpt", 16, 8),
+           ("bdpt door", DOOR, "bdpt", 16, G1_BIDIR_DEPTH),
+           ("gbdpt door", DOOR, "gbdpt", 16, G1_BIDIR_DEPTH),
+           ("gbdpt cbox-mats", CBOX_MATS, "gbdpt", 16, G1_BIDIR_DEPTH),
            ("path board", BOARD, "path", 16, 6),
            ("gpt board", BOARD, "gpt", 16, 6))
 # samples a pixel of the profiled render that reads a render's idle
@@ -2614,10 +2645,94 @@ def chi2_on_card(label, params, kinds, wi, dev):
                 share=share)
 
 
+def full_width_renders(dev, recs, renders):
+    """renders [(label, scene path, integrator, spp, maxDepth)] at 128^2
+    through factory.make_integrator, each after a 1-spp warm-up with the
+    sweeps' launch counters reset just before it (wall, rays, launches,
+    added to the sweep kernels' records; every sweep must launch), then
+    one profiled render (idle share; G1_PROFILE_SPP).  Returns (summary,
+    {label: image or G-PT / G-BDPT buffers})."""
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    summary, full = {}, {}
+    for label, path, fam, spp, depth in renders:
+        scene, st = load_scene_at(path, dev, 128, spp, depth, fam)
+        tracer = factory.make_integrator(scene, st)
+        check(type(tracer).__name__ == {
+            "gpt": "GPTracer", "path": "PathTracer",
+            "bdpt": "BDPTracer", "gbdpt": "GBDPTracer"}[fam],
+            f"{label}: factory built {type(tracer).__name__}")
+        t0 = time.time()
+        g1_render(tracer, scene, 0, 1)
+        torch.cuda.synchronize()
+        log(f"{label}: warm-up (1 spp) {time.time() - t0:.3f} s")
+        for k in tracer.kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img, bufs, rays = g1_render(tracer, scene, 1, spp)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        full[label] = img if bufs is None else bufs
+        launches = [k.launches for k in tracer.kernels]
+        for k, n in zip(tracer.kernels, launches):
+            recs[k.name]["launches"] += n
+        finite = bool(torch.isfinite(img).all())
+        mean = float(img.abs().mean())
+        log(f"{label} 128x128 {spp}spp maxDepth {depth}"
+            f"{' + L1' if fam in ('gpt', 'gbdpt') else ''}: wall "
+            f"{wall:.4f} s, rays {rays}, {rays / wall / 1e6:.3f} "
+            f"Mrays/s, sweep launches closest {launches[0]} occluded "
+            f"{launches[1]}, finite {finite}, mean |I| {mean:.5f}")
+        check(tuple(img.shape) == (128, 128, 3), f"{label}: shape")
+        check(finite and mean > 1e-5, f"{label}: not finite or black")
+        check(all(n > 0 for n in launches),
+              f"{label}: a sweep kernel was not launched: {launches}")
+        prof_spp = G1_PROFILE_SPP[fam]
+        prof = profiled_render(
+            lambda: g1_render(tracer, scene, 2, prof_spp), "sweep_")
+        idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+        log(f"  profiled render (seed 2, {prof_spp} spp): device busy "
+            f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms "
+            f"wall (idle {100 * idle:.1f}%), {prof['device_ops']} "
+            f"device ops; sweeps {prof['kernel_ms']:.3f} ms over "
+            f"{prof['kernel_calls']} launches")
+        summary[label] = dict(wall_s=wall, rays=rays,
+                              mrays_per_s=rays / wall / 1e6,
+                              launches=launches, mean=mean, idle=idle,
+                              profiled=prof)
+    return summary, full
+
+
+def kernel_vs_plain(dev, label, path, fam, depth, size=64, spp=4):
+    """`fam` at size^2, spp through the kernels and through the plain
+    versions (same seed): rays within 1e-3, every buffer within phase
+    4's tolerance (means within 1e-3), finite.  Returns the kernel
+    render's buffers and the scene and settings."""
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    scene, st = load_scene_at(path, dev, size, spp, depth, fam)
+    outs = {}
+    for mode in ("kernel", "plain"):
+        tracer = factory.make_integrator(scene, st)
+        if mode == "plain":
+            use_plain(tracer)
+        img, bufs, rays = g1_render(tracer, scene, 3, spp)
+        outs[mode] = (bufs if bufs is not None else {"image": img}), rays
+    (kb, kr), (pb, pr) = outs["kernel"], outs["plain"]
+    log(f"{label} {size}x{size} {spp}spp kernel vs plain: rays {kr} vs "
+        f"{pr}")
+    check(abs(kr - pr) <= 1e-3 * pr, f"{label}: ray counts differ")
+    for name in kb:
+        _buffers_agree(f"{label} {name}", kb[name], pb[name],
+                       mean_rtol=1e-3)
+        check(bool(torch.isfinite(kb[name]).all()), f"{label} {name}")
+    return kb, scene, st
+
+
 def phase_step_g1(dev, recs):
     """Step G1 through factory.make_integrator: door.xml (BASELINE config
     #2) with gpt + L1 and path at 128^2, 32 spp, maxDepth 8, bdpt and
-    gbdpt + L1 at 16 spp; gbdpt + L1 on cbox-mats.xml at 16 spp; the
+    gbdpt + L1 at 16 spp, maxDepth 5 (G1_BIDIR_DEPTH); gbdpt + L1 on
+    cbox-mats.xml at 16 spp, maxDepth 5; the
     materials board with path and gpt + L1 at 16 spp, maxDepth 6; each
     after a 1-spp warm-up with the sweeps' launch counters reset just
     before it (wall, rays, launches, added to the sweep kernels' records),
@@ -2629,65 +2744,18 @@ def phase_step_g1(dev, recs):
     finite difference (recorded)."""
     import shutil
     import tempfile
-    from gradientdomain_mitsuba_tpu_torch.models import factory
     from gradientdomain_mitsuba_tpu_torch.models.bdpt import BDPTracer
-    from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
     from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
     from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
     from gradientdomain_mitsuba_tpu_torch.ops import bsdf, common
     from gradientdomain_mitsuba_tpu_torch.scene import materials as M
     tmp = tempfile.mkdtemp()
-    summary, full = {}, {}
     try:
         board = load_tool("materials_board").write_board(tmp)
         paths = {BOARD: board}
-        for label, path, fam, spp, depth in STEP_G1:
-            scene, st = load_scene_at(paths.get(path, path), dev, 128, spp,
-                                      depth, fam)
-            tracer = factory.make_integrator(scene, st)
-            check(type(tracer).__name__ == {
-                "gpt": "GPTracer", "path": "PathTracer",
-                "bdpt": "BDPTracer", "gbdpt": "GBDPTracer"}[fam],
-                f"{label}: factory built {type(tracer).__name__}")
-            t0 = time.time()
-            g1_render(tracer, scene, 0, 1)
-            torch.cuda.synchronize()
-            log(f"{label}: warm-up (1 spp) {time.time() - t0:.3f} s")
-            for k in tracer.kernels:
-                k.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.time()
-            img, bufs, rays = g1_render(tracer, scene, 1, spp)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-            full[label] = img if bufs is None else bufs
-            launches = [k.launches for k in tracer.kernels]
-            for k, n in zip(tracer.kernels, launches):
-                recs[k.name]["launches"] += n
-            finite = bool(torch.isfinite(img).all())
-            mean = float(img.abs().mean())
-            log(f"{label} 128x128 {spp}spp maxDepth {depth}"
-                f"{' + L1' if fam in ('gpt', 'gbdpt') else ''}: wall "
-                f"{wall:.4f} s, rays {rays}, {rays / wall / 1e6:.3f} "
-                f"Mrays/s, sweep launches closest {launches[0]} occluded "
-                f"{launches[1]}, finite {finite}, mean |I| {mean:.5f}")
-            check(tuple(img.shape) == (128, 128, 3), f"{label}: shape")
-            check(finite and mean > 1e-5, f"{label}: not finite or black")
-            check(all(n > 0 for n in launches),
-                  f"{label}: a sweep kernel was not launched: {launches}")
-            prof_spp = G1_PROFILE_SPP[fam]
-            prof = profiled_render(
-                lambda: g1_render(tracer, scene, 2, prof_spp), "sweep_")
-            idle = 1 - prof["busy_ms"] / prof["wall_ms"]
-            log(f"  profiled render (seed 2, {prof_spp} spp): device busy "
-                f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms "
-                f"wall (idle {100 * idle:.1f}%), {prof['device_ops']} "
-                f"device ops; sweeps {prof['kernel_ms']:.3f} ms over "
-                f"{prof['kernel_calls']} launches")
-            summary[label] = dict(wall_s=wall, rays=rays,
-                                  mrays_per_s=rays / wall / 1e6,
-                                  launches=launches, mean=mean, idle=idle,
-                                  profiled=prof)
+        summary, full = full_width_renders(
+            dev, recs, [(label, paths.get(path, path), fam, spp, depth)
+                        for label, path, fam, spp, depth in STEP_G1])
 
         # G-BDPT = BDPT on door at full width (both seed 1, 16 spp)
         comb = (full["gbdpt door"]["primal"] +
@@ -2705,25 +2773,9 @@ def phase_step_g1(dev, recs):
                                  ("gbdpt cbox-mats", CBOX_MATS, "gbdpt"),
                                  ("path board", board, "path"),
                                  ("gpt board", board, "gpt")):
-            depth = 6 if path == board else 8
-            scene, st = load_scene_at(path, dev, 64, 4, depth, fam)
-            outs = {}
-            for mode in ("kernel", "plain"):
-                tracer = factory.make_integrator(scene, st)
-                if mode == "plain":
-                    use_plain(tracer)
-                _, bufs, rays = g1_render(tracer, scene, 3, 4)
-                if bufs is None:
-                    bufs = {"image": _}
-                outs[mode] = bufs, rays
-            (kb, kr), (pb, pr) = outs["kernel"], outs["plain"]
-            log(f"{label} 64x64 4spp kernel vs plain: rays {kr} vs {pr}")
-            check(abs(kr - pr) <= 1e-3 * pr, f"{label}: ray counts differ")
-            for name in kb:
-                _buffers_agree(f"{label} {name}", kb[name], pb[name],
-                               mean_rtol=1e-3)
-                check(bool(torch.isfinite(kb[name]).all()),
-                      f"{label} {name}")
+            depth = (6 if path == board else 8 if fam == "gpt"
+                     else G1_BIDIR_DEPTH)
+            kb, scene, st = kernel_vs_plain(dev, label, path, fam, depth)
             if label == "gbdpt cbox-mats":
                 img = BDPTracer(scene, st).render(scene, seed=3, spp=4)
                 comb = kb["primal"] + kb["very_direct"]
@@ -2816,6 +2868,86 @@ def phase_step_g1(dev, recs):
     return summary
 
 
+# step G2a's full-width renders on the cloth board: (label, integrator,
+# spp), all at 128^2, maxDepth 8, as CONFIGS_r05.json #2 and #3 render
+STEP_G2A = (("path cloth board", "path", 32),
+            ("gpt cloth board", "gpt", 32),
+            ("bdpt cloth board", "bdpt", 16),
+            ("gbdpt cloth board", "gbdpt", 16))
+
+
+def phase_step_g2a(dev, recs):
+    """Step G2a through factory.make_integrator on the cloth board: the
+    four STEP_G2A renders (full_width_renders: launches added to the
+    sweep kernels' records); G-BDPT = BDPT at full width; all four at
+    64^2, 4 spp through the kernels and the plain versions (BDPT and
+    G-BDPT at maxDepth 5); G-PT = path
+    at maxDepth 5 there; woven cloth's sample against its pdf at 1M
+    lanes (the denim row, its yarn features resolved at a fixed uv and
+    azimuth)."""
+    import shutil
+    import tempfile
+    from gradientdomain_mitsuba_tpu_torch.models.bdpt import synth_bary_from_az
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    from gradientdomain_mitsuba_tpu_torch.ops import bsdf, common
+    from gradientdomain_mitsuba_tpu_torch.scene import materials as M
+    tmp = tempfile.mkdtemp()
+    try:
+        board = load_tool("cloth_board").write_board(tmp)
+        summary, full = full_width_renders(
+            dev, recs, [(label, board, fam, spp, 8)
+                        for label, fam, spp in STEP_G2A])
+
+        # G-BDPT = BDPT at full width (both seed 1, 16 spp)
+        comb = (full["gbdpt cloth board"]["primal"] +
+                full["gbdpt cloth board"]["very_direct"])
+        err = float((comb - full["bdpt cloth board"]).abs().max())
+        log(f"gbdpt cloth board 128x128 16spp: primal + very_direct vs "
+            f"BDPT max |diff| {err:.3e}")
+        check(bool(torch.allclose(comb, full["bdpt cloth board"],
+                                  rtol=2e-4, atol=2e-5)),
+              "gbdpt cloth board: G-BDPT primal != BDPT")
+        summary["gbdpt_vs_bdpt_max_diff"] = err
+        del full
+
+        # kernels vs plain at 64^2, 4 spp (same seed; the bidirectional
+        # tracers at phase 20's maxDepth 5: a pass a sample, all host
+        # dispatch); G-PT = path
+        for _, fam, _ in STEP_G2A:
+            kernel_vs_plain(dev, f"{fam} cloth board", board, fam,
+                            G1_BIDIR_DEPTH if "bdpt" in fam else 8)
+        scene, st = load_scene_at(board, dev, 64, 4, 5, "gpt")
+        _, bufs, _ = step_7a_render(GPTracer(scene, st), scene, 3, 4)
+        img = PathTracer(scene, st).render(scene, seed=3, spp=4)
+        comb = bufs["primal"] + bufs["very_direct"]
+        err = float((comb - img).abs().max())
+        log(f"gpt cloth board 64x64 4spp maxDepth 5: primal + very_direct "
+            f"vs PathTracer max |diff| {err:.3e}")
+        check(bool(torch.allclose(comb, img, rtol=3e-4, atol=3e-5)),
+              "G-PT primal != PathTracer on the cloth board")
+        summary["gpt_vs_path_max_diff"] = err
+
+        # woven cloth's sample against its pdf at 1M lanes
+        kinds = bsdf.scene_kinds(scene)
+        row = int(torch.nonzero(scene.materials.packed[:, 0] ==
+                                M.IRAWAN)[0])
+        az = torch.tensor([0.6, 0.8], device=dev)
+
+        def params(n):
+            return common.material_params(
+                scene, st.has_textures,
+                torch.full((n,), row, dtype=torch.int32, device=dev),
+                torch.tensor([0.37, 0.61], device=dev).expand(n, 2),
+                bary=synth_bary_from_az(az.expand(n, 2)))
+        check(params(1).cloth is not None, "irawan: no yarn features")
+        summary["chi2_irawan"] = chi2_on_card(
+            "irawan (denim)", params, kinds, (0.4, -0.2, 0.89), dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary
+
+
 def build_kernels():
     """Build the three kernel libraries, one nvcc each, all started
     together; prints how much the overlap saves against building them
@@ -2846,11 +2978,11 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("step-e", "step-f", "step-7a",
-                                        "step-g1"),
+                                        "step-g1", "step-g2a"),
                     help="build the kernels and run one phase that needs "
                          "no earlier one (step-e: phase 17, step-f: phase "
-                         "18, step-7a: phase 19, step-g1: phase 20), "
-                         "without the result line")
+                         "18, step-7a: phase 19, step-g1: phase 20, "
+                         "step-g2a: phase 21), without the result line")
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2893,6 +3025,9 @@ def main():
     if args.only == "step-g1":
         with Phase("step G1: door, glossy G-BDPT, the materials board"):
             log(json.dumps({"step_g1": phase_step_g1(dev, recs)}))
+    if args.only == "step-g2a":
+        with Phase("step G2a: the cloth board"):
+            log(json.dumps({"step_g2a": phase_step_g2a(dev, recs)}))
     if args.only:
         log(f"total {time.time() - t_start:.3f} s")
         log(card_line())
@@ -2938,11 +3073,14 @@ def main():
         step_7a = phase_step_7a(dev, recs)
     with Phase("step G1: door, glossy G-BDPT, the materials board"):
         step_g1 = phase_step_g1(dev, recs)
+    with Phase("step G2a: the cloth board"):
+        step_g2a = phase_step_g2a(dev, recs)
     log(json.dumps({"slice": summary, "forest": forest_summary,
                     "forest_v4": v4_summary, "bidir": bidir_summary,
                     "gbdpt_gradients": grad_summary, "step_b": step_b,
                     "step_d": step_d, "step_e": step_e, "step_f": step_f,
-                    "step_7a": step_7a, "step_g1": step_g1}))
+                    "step_7a": step_7a, "step_g1": step_g1,
+                    "step_g2a": step_g2a}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

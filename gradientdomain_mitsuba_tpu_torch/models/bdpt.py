@@ -27,18 +27,21 @@ through the dense film adds; the light image lands at arbitrary pixels
 and goes through the deterministic scatter (ops/film.splat_unfiltered).
 
 Ported: the scenes the port's ops cover (every kind of bsdf.PORTED_KINDS,
-reflectance textures and the blend / coating wrappers at the finest
-mip level in every walk, as in the reference, analytic spheres, area
-lights, pinhole perspective).  A delta vertex (_is_delta_kind:
+woven cloth included, every texture and the blend / coating wrappers at
+the finest mip level in every walk, as in the reference, analytic
+spheres, area lights, pinhole perspective).  The walks store each
+vertex's yarn azimuth (SubPath.aux) where the scene has woven cloth, so
+the strategies' re-evaluations keep its specular lobe; the other
+payload columns replay neutral there (synth_bary_from_az), as in the
+reference.  A delta vertex (_is_delta_kind:
 conductor, dielectric, thin dielectric) stores delta, passes a forward
 pdf of 0 (remapped to 1 in the MIS ratios) and is never a connection
 endpoint, as in the reference; a lobe that is delta per sample
 (plastic's specular lobe, hk's unscattered transmission, a mask's
 pass-through, a smooth coating's layer) only zeroes the next vertex's
 forward pdf through bs.is_delta, as there.  Environment and
-delta-light NEE on the eye walk (item 14), woven cloth (item 12) and
-every other unported branch raise NotImplementedError naming its
-ROADMAP Queue 1 item.
+delta-light NEE on the eye walk and other sensors (item 14) raise
+NotImplementedError naming the ROADMAP Queue 1 item.
 """
 from __future__ import annotations
 
@@ -82,8 +85,9 @@ class SubPath(NamedTuple):
     #                         from its successor (walk's own reverse pdf)
     delta: torch.Tensor     # [N, D] vertex BSDF is pure delta
     valid: torch.Tensor     # [N, D]
-    # the reference's woven-cloth (irawan) yarn azimuth payload; not
-    # ported (ROADMAP Queue 1 item 12), always None here
+    # [N, D, 2] the vertex's shading-frame azimuth of dp/du (the hit
+    # payload's columns 4:6), stored only when the scene has woven cloth
+    # (irawan) so strategy re-evaluations keep the yarn's specular lobe
     aux: torch.Tensor = None
 
 
@@ -165,28 +169,43 @@ def _b3(x):
     return x[..., None]
 
 
+def synth_bary_from_az(az):
+    """A neutral barycentric payload (white vertex color, no edge) that
+    carries only the yarn azimuth az [..., 2] in columns 4:6, the layout
+    of common.fill_intersection: woven cloth evaluated at a stored or
+    replayed vertex keeps its specular lobe."""
+    one = torch.ones_like(az[..., 0])
+    return torch.stack([one, one, one, torch.full_like(one, 3.4e38),
+                        az[..., 0], az[..., 1]], -1)
+
+
+def one_pass(trace_pass):
+    """trace_pass with a memo of the stored vertices' material params
+    (BDPTracer._vertex_params), dropped when the pass ends: the
+    strategies re-read the same vertices many times, which the
+    reference's compiled program shares by common-subexpression
+    elimination and eager code would recompute."""
+    @functools.wraps(trace_pass)
+    def run(self, *args, **kwargs):
+        self._params_memo = {}
+        try:
+            return trace_pass(self, *args, **kwargs)
+        finally:
+            self._params_memo = None
+    return run
+
+
 def check_scene(scene, settings):
     """Raise NotImplementedError naming the ROADMAP Queue 1 item for a
-    scene a ported bidirectional tracer cannot render yet: emitters and
-    sensors first, then materials, then the texture bits
-    common.check_texture_bits refuses.  Returns the scene's material
-    kinds."""
+    scene a ported bidirectional tracer cannot render yet (emitters and
+    sensors).  Returns the scene's material kinds."""
     if settings.env_kind != 0 or settings.n_delta > 0:
         raise NotImplementedError(
             "environment / delta-light NEE on the eye walk: ROADMAP "
             "Queue 1 item 14")
     # light tracing needs the pinhole's importance
     sensor_ops.check_supported(scene.camera, lens=False)
-    if bool(int(settings.has_textures) & 16):
-        raise NotImplementedError(
-            "woven-cloth (irawan) vertex payload: ROADMAP Queue 1 item 12")
-    kinds = bsdf_ops.scene_kinds(scene)
-    if not kinds <= bsdf_ops.PORTED_KINDS:
-        raise NotImplementedError(
-            f"material kinds {sorted(kinds)}: woven cloth (irawan) is not "
-            "ported (ROADMAP Queue 1 item 12)")
-    common.check_texture_bits(settings.has_textures)
-    return kinds
+    return bsdf_ops.scene_kinds(scene)
 
 
 class BDPTracer:
@@ -218,6 +237,9 @@ class BDPTracer:
         self.SM = self.depth                 # max s (y_0..y_{SM-1})
         self.filter_kind = film_ops.FILTERS.get(settings.rfilter, 0)
         self.has_textures = settings.has_textures
+        # woven cloth present: the walks store the yarn azimuth
+        self.has_cloth = bool(int(settings.has_textures) & 16)
+        self._params_memo = None   # set by one_pass
         self._u1, self._u2 = make_sampler(settings.sampler, settings.spp)
         self.light_image = bool(
             settings.integrator_props.get("lightImage", True))
@@ -268,7 +290,9 @@ class BDPTracer:
             emitter_id=empty((), -1, torch.int32),
             beta=empty((3,)), pdf_fwd=empty(()), pdf_rev=empty(()),
             delta=empty((), False, torch.bool),
-            valid=empty((), False, torch.bool))
+            valid=empty((), False, torch.bool),
+            aux=(torch.stack([empty(()) + 1.0, empty(())], -1)
+                 if self.has_cloth else None))
 
         o, d, beta, pdf_sa = o0, d0, beta0, pdf_sa0
         alive = torch.ones(N, dtype=torch.bool, device=dev)
@@ -299,12 +323,17 @@ class BDPTracer:
             put(sp.pdf_fwd, pdf_fwd)
             put(sp.delta, delta, False)
             sp.valid[:, k] = alive
+            if sp.aux is not None and its.bary is not None:
+                # dead lanes keep the neutral azimuth (1, 0)
+                sp.aux[:, k] = torch.where(alive[:, None],
+                                           its.bary[..., 4:6], sp.aux[:, k])
 
             # sample continuation at vertex k
             ss, ts = m.build_frame(its.ns)
             wi = m.to_local(-d, ss, ts, its.ns)
             par = common.material_params(scene, self.has_textures,
-                                         its.bsdf_id, its.uv)
+                                         its.bsdf_id, its.uv,
+                                         bary=its.bary)
             u2 = self._u2(seed, pixel_id, sample_idx,
                           dim_base + DA.bounce_dim(k, DA.D_BSDF_UV))
             uc = self._u1(
@@ -406,9 +435,21 @@ class BDPTracer:
 
     # -- BSDF evaluation at a stored vertex ---------------------------------
     def _vertex_params(self, scene, sp, k):
-        return common.material_params(scene, self.has_textures,
-                                      _col(sp, "bsdf_id", k),
-                                      _col(sp, "uv", k))
+        """Material params at stored vertex k (memoized within a pass:
+        one_pass); woven cloth replays the stored yarn azimuth
+        (SubPath.aux)."""
+        memo = self._params_memo
+        key = (id(sp), int(k))
+        if memo is not None and key in memo and memo[key][0] is sp:
+            return memo[key][1]
+        aux = _col(sp, "aux", k)
+        par = common.material_params(
+            scene, self.has_textures, _col(sp, "bsdf_id", k),
+            _col(sp, "uv", k),
+            bary=None if aux is None else synth_bary_from_az(aux))
+        if memo is not None:
+            memo[key] = (sp, par)   # sp kept alive: its id stays unique
+        return par
 
     def _eval_at(self, scene, sp, k, wo_world):
         """(f*cos, pdf_sa) at vertex k toward world direction wo."""
@@ -725,6 +766,7 @@ class BDPTracer:
                 if s + t - 1 <= self.depth]
 
     # -- per-sample evaluation ---------------------------------------------
+    @one_pass
     def trace_pass(self, scene, seed, sample_idx, pixel_id=None):
         """One sample for a batch of pixels (default: the whole frame).
         Returns (film positions [N,2], eye radiance [N,3], light-image

@@ -179,7 +179,7 @@ class FieldIntegrator(_FirstHitIntegrator):
                 [its.uv, torch.zeros((N, 1), device=self.device)], -1))
         if f == "albedo":
             par = common.material_params(scene, self.has_textures,
-                                         its.bsdf_id, its.uv)
+                                         its.bsdf_id, its.uv, bary=its.bary)
             return pos_film, v3(par.reflectance)
         if f == "shapeIndex":
             return pos_film, index3(its.shape_id)

@@ -18,13 +18,17 @@ for step (see its module docstring).  The four offset views evaluate as
 one 4N-lane batch.
 
 Ported: area-lit scenes of every kind of bsdf.PORTED_KINDS (door.xml,
-cbox-mats.xml), with or without specular vertices, reflectance textures
-and the blend / coating wrappers; the offset views read textures at the
-finest mip level (no footprint), as the reference does.  Woven cloth
-raises item 12, textured opacity and blend weights item 13, and
-environment or delta lights item 14 (the reference's aux-only G-PT
-pass).  The eye images and eye-gradient pairs are grid-aligned and go
-through the dense film adds; the light image and its image-space
+cbox-mats.xml, the cloth board of tools/cloth_board.py), with or
+without specular vertices, every texture and the blend / coating
+wrappers; the offset views read textures at the finest mip level (no
+footprint), as the reference does, and replay woven cloth's yarn
+azimuth at the offset camera vertex, along the half-vector replay and at
+the t=1 shift's retraced vertex (the reference's junction fixups at
+the base vertex z_{k+2} and the replayed base bounce read the cloth
+without it: its diffuse term).  Environment or delta lights raise item
+14 (the reference's aux-only G-PT pass).  The eye images and
+eye-gradient pairs are grid-aligned and go through the dense film
+adds; the light image and its image-space
 gradient pairs go through the deterministic scatter.  The final image
 is models/poisson.reconstruct on the buffers `render` returns (L1 by
 default), as the reference's CLI does.
@@ -40,7 +44,7 @@ from ..ops import bsdf as bsdf_ops
 from ..ops import common, film as film_ops
 from ..ops import sensor as sensor_ops
 from .bdpt import (BDPTracer, SlotOverlay, SubPath, _b3, _dir_to_area,
-                   _is_delta_kind, _remap0)
+                   _is_delta_kind, _remap0, one_pass, synth_bary_from_az)
 from .gpt import OFFSETS, half_vector_copy
 
 
@@ -132,6 +136,7 @@ class GBDPTracer(BDPTracer):
         v = {name: getattr(eye, name).clone() for name in
              ("p", "ng", "ns", "uv", "wi", "bsdf_id", "emitter_id", "beta",
               "pdf_fwd", "pdf_rev", "delta")}
+        v["aux"] = None if eye.aux is None else eye.aux.clone()
         rfac = torch.ones((N, TE), device=dev)
         no = torch.zeros(N, dtype=torch.bool, device=dev)
         prefix_ok = [no] * TE
@@ -153,10 +158,15 @@ class GBDPTracer(BDPTracer):
         v["beta"][:, 0] = 1.0
         set_(v["pdf_fwd"], 0, pf0_off, ok0)
         v["delta"][:, 0] = _is_delta_kind(scene.materials, its1.bsdf_id)
+        if v["aux"] is not None and its1.bary is not None:
+            v["aux"][:, 0] = its1.bary[..., 4:6]
 
-        # the replay head z'_{k+1} and its throughput
+        # the replay head z'_{k+1} (with woven cloth, its yarn azimuth)
+        # and its throughput
         cur = dict(p=its1.p, ng=its1.ng, ns=its1.ns, uv=its1.uv,
                    bsdf_id=its1.bsdf_id, wi=-d_cam)
+        if self.has_cloth and its1.bary is not None:
+            cur["az"] = its1.bary[..., 4:6]
         beta_cur = torch.ones((N, 3), device=dev)
         replaying = ok0
 
@@ -171,8 +181,10 @@ class GBDPTracer(BDPTracer):
             # frames/params at the current offset vertex
             ssc, tsc = m.build_frame(cur["ns"])
             wi_c = m.to_local(cur["wi"], ssc, tsc, cur["ns"])
-            par_c = common.material_params(scene, self.has_textures,
-                                           cur["bsdf_id"], cur["uv"])
+            par_c = common.material_params(
+                scene, self.has_textures, cur["bsdf_id"], cur["uv"],
+                bary=(synth_bary_from_az(cur["az"]) if "az" in cur
+                      else None))
 
             # base bounce z_{k+1} -> z_{k+2}: geometry + solid-angle pdf
             dir_b = -eye.wi[:, kn]
@@ -301,9 +313,15 @@ class GBDPTracer(BDPTracer):
                      self._pdf_to_prev(v, k, cur, pr_sa), adv)
 
             # advance the replay head
-            for key, val in (("p", its_n.p), ("ng", its_n.ng),
-                             ("ns", its_n.ns), ("uv", its_n.uv),
-                             ("bsdf_id", its_n.bsdf_id), ("wi", -wo_w)):
+            repl = [("p", its_n.p), ("ng", its_n.ng), ("ns", its_n.ns),
+                    ("uv", its_n.uv), ("bsdf_id", its_n.bsdf_id),
+                    ("wi", -wo_w)]
+            if its_n.bary is not None:
+                if v["aux"] is not None:
+                    set_(v["aux"], kn, its_n.bary[..., 4:6], adv)
+                if "az" in cur:
+                    repl.append(("az", its_n.bary[..., 4:6]))
+            for key, val in repl:
                 mk = adv.reshape(adv.shape + (1,) * (val.dim() - 1))
                 cur[key] = torch.where(mk, val, cur[key])
             beta_cur = torch.where(_b3(adv), beta_hv, beta_cur)
@@ -456,6 +474,8 @@ class GBDPTracer(BDPTracer):
         elif s == 3:
             y0_view = y04._replace(pdf_rev=self._pdf_toward_prev(
                 scene, light4, kl - 1, dirp, y04.p, y04.ng))
+        if light4.aux is not None and its1.bary is not None:
+            over[("aux", kl)] = its1.bary[..., 4:6]
         view = SlotOverlay(light4, over)
 
         # the eye side of _mis_sum is empty for t=1: pass the light view.
@@ -470,6 +490,7 @@ class GBDPTracer(BDPTracer):
         return (val.reshape(4, N, 3), sri.reshape(4, N), r.reshape(4, N))
 
     # ------------------------------------------------------------------
+    @one_pass
     def trace_pass(self, scene, seed, sample_idx, pixel_id=None):
         """One sample for a batch of pixels (default: the whole frame).
         Returns (film positions [N,2], primal [N,3], very_direct [N,3],

@@ -16,13 +16,14 @@ thin dielectric) and glossy vertices through the half-vector copy
 (half_vector_copy, shared with G-BDPT's prefix replay; any_specular
 selects the branch that runs full offsets at every bounce), area lights
 and the environment map (its shift), the perspective and thin-lens
-cameras, and reflectance textures with the primary hits' mip level for
+cameras, and every texture of the reference (the primary hits' mip
+level and anisotropic filter, the barycentric payload, woven cloth) for
 the base and the offset paths.  Like the reference's, the copy treats a
 thin dielectric offset as a solid one: it refracts about the normal
 with the offset's eta where thindielectric.cpp passes straight through
 (ROADMAP Queue 3).  Other scenes raise NotImplementedError at
-construction, naming the ROADMAP item: woven cloth (item 12), other
-textures (13), other emitters and sensors (14).
+construction, naming the ROADMAP item: other emitters and sensors
+(item 14).
 The reference's aux_only mode (G-BDPT's env / delta-light family) is
 item 14.
 """
@@ -43,7 +44,8 @@ from ..ops import common, emitter as em_ops
 from ..ops import film as film_ops
 from ..ops import sensor as sensor_ops
 from ..scene.materials import CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC
-from .path import MAX_BOUNCES_UNLIMITED, check_scene_extras, mis_weight
+from .path import (MAX_BOUNCES_UNLIMITED, check_scene_extras, mis_weight,
+                   primary_footprint)
 
 # film-space shifts: +x, -x, +y, -y
 OFFSETS = ((1.0, 0.0), (-1.0, 0.0), (0.0, 1.0), (0.0, -1.0))
@@ -164,10 +166,6 @@ class GPTracer:
     def __init__(self, scene, settings):
         configure()
         self.kinds = bsdf_ops.scene_kinds(scene)
-        if not self.kinds <= bsdf_ops.PORTED_KINDS:
-            raise NotImplementedError(
-                f"material kinds {sorted(self.kinds)}: woven cloth "
-                "(irawan) is not ported (ROADMAP Queue 1 item 12)")
         p = settings.integrator_props
         self.shift_threshold = float(p.get("shiftThreshold", 0.001))
         # static: does any material classify as specular/glossy for
@@ -188,6 +186,7 @@ class GPTracer:
         # emitters NEE picks among: the area lights and the environment
         self.n_lights = self.n_area + (1 if self.has_env else 0)
         self.has_textures = settings.has_textures
+        self.has_ewa = settings.has_ewa
         self.n_delta = 0
         n_tris = int(scene.geom.indices.shape[0])
         closest, occluded = common.choose_intersector(
@@ -289,8 +288,8 @@ class GPTracer:
         # mip level: primary hits only (bounce 0), as in the reference
         fp_m = fp_o = None
         if self.has_textures and self.n_bounces > 0:
-            fp_m = common.primary_uv_footprint(scene, W, H, d_m, its_m)
-            fp_o = common.primary_uv_footprint(scene, W, H, d_o, its_o)
+            fp_m = primary_footprint(self, scene, d_m, its_m)
+            fp_o = primary_footprint(self, scene, d_o, its_o)
 
         if self.n_bounces > 0:
             state = self._bounce(scene, state, 0, seed, sample_idx,
@@ -358,7 +357,7 @@ class GPTracer:
         wi_m = m.to_local(wi_w, ss_m, ts_m, its.ns)
         par_m = common.material_params(scene, self.has_textures,
                                        its.bsdf_id, its.uv,
-                                       uv_footprint=fp_main)
+                                       uv_footprint=fp_main, bary=its.bary)
         c_main = self._classify_diffuse(scene, its.bsdf_id, its.valid)
 
         if with_offsets:
@@ -367,7 +366,8 @@ class GPTracer:
             wi_o_loc = m.to_local(o_wi, ss_o, ts_o, o_its.ns)
             par_o = common.material_params(scene, self.has_textures,
                                            o_its.bsdf_id, o_its.uv,
-                                           uv_footprint=fp_off)
+                                           uv_footprint=fp_off,
+                                           bary=o_its.bary)
             c_off = self._classify_diffuse(scene, o_its.bsdf_id,
                                            o_its.valid)
             # wi of offsets expressed in MAIN frame (conn>=1 states)

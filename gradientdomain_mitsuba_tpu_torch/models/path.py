@@ -14,12 +14,13 @@ Semantics are the reference's:
 
 `jit` and `fori_loop` become eager code and Python loops on the scene's
 device.  Ported: the scenes the port's BSDFs, emitters and sensors cover
-(the kinds of bsdf.PORTED_KINDS, analytic spheres, area lights and the
-environment map, perspective and thin-lens cameras, reflectance
-textures with the primary hits' mip level).  At a delta vertex the NEE
-shadow ray is still traced, as in the reference; eval's delta mask
-makes its contribution 0.  The anisotropic texture filter, constant
-environments, delta lights and the subsurface branch raise
+(every BSDF kind and texture of the reference, woven cloth and the
+barycentric payload included, analytic spheres, area lights and the
+environment map, perspective and thin-lens cameras; the primary hits
+read textures at their footprint's mip level, anisotropically where a
+bitmap asks for EWA).  At a delta vertex the NEE shadow ray is still
+traced, as in the reference; eval's delta mask makes its contribution
+0.  Constant environments, delta lights and the subsurface branch raise
 NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -62,13 +63,15 @@ def _b3(x):
 
 def check_scene_extras(settings, textures_and_env=True):
     """Raise NotImplementedError naming the ROADMAP Queue 1 item for the
-    texture and emitter features a ported tracer cannot render yet.
-    textures_and_env=False also refuses reflectance textures and the
-    environment map (tracers whose own loops do not shade them yet)."""
+    emitter features a ported tracer cannot render yet.
+    textures_and_env=False also refuses textured materials and the
+    environment map (tracers whose own loops do not shade them yet:
+    ROADMAP step G2b)."""
     if not textures_and_env:
         if settings.has_textures:
             raise NotImplementedError(
-                "textured materials (uv footprint): ROADMAP Queue 1 item 13")
+                "textured materials in a tracer with its own loop: ROADMAP "
+                "Queue 1 item 13 (step G2b)")
         if settings.env_kind != 0:
             raise NotImplementedError(
                 "environment emitters: ROADMAP Queue 1 item 14")
@@ -76,10 +79,18 @@ def check_scene_extras(settings, textures_and_env=True):
         raise NotImplementedError(
             "delta-light emitters: ROADMAP Queue 1 item 14")
     em_ops.check_env(settings.env_kind)
-    common.check_texture_bits(settings.has_textures)
-    if settings.has_ewa:
-        raise NotImplementedError(
-            "anisotropic (EWA) texture filtering: ROADMAP Queue 1 item 13")
+
+
+def primary_footprint(tracer, scene, d, its):
+    """The primary hits' texture footprint: its uv area, with the
+    ellipse's axes (common.primary_uv_jacobian) when a bitmap of the
+    scene filters anisotropically (settings.has_ewa)."""
+    st = tracer.settings
+    fp = common.primary_uv_footprint(scene, st.width, st.height, d, its)
+    if not tracer.has_ewa:
+        return fp
+    return fp, common.primary_uv_jacobian(scene, st.width, st.height, d,
+                                          its)
 
 
 class PathTracer:
@@ -92,10 +103,6 @@ class PathTracer:
     def __init__(self, scene, settings):
         configure()
         self.kinds = bsdf_ops.scene_kinds(scene)
-        if not self.kinds <= bsdf_ops.PORTED_KINDS:
-            raise NotImplementedError(
-                f"material kinds {sorted(self.kinds)}: woven cloth "
-                "(irawan) is not ported (ROADMAP Queue 1 item 12)")
         check_scene_extras(settings, self.shades_textures_and_env)
         sensor_ops.check_supported(scene.camera)
         self._beval = functools.partial(bsdf_ops.eval, kinds=self.kinds)
@@ -107,6 +114,7 @@ class PathTracer:
         self.has_env = settings.has_env
         self.env_kind = settings.env_kind
         self.has_textures = settings.has_textures
+        self.has_ewa = settings.has_ewa
         self.n_delta = 0
         n_tris = int(scene.geom.indices.shape[0])
         closest, occluded = common.choose_intersector(
@@ -207,8 +215,7 @@ class PathTracer:
             # footprint); later bounces sample the finest level
             fp = None
             if b == 0 and self.has_textures:
-                fp = common.primary_uv_footprint(scene, st.width, st.height,
-                                                 d, its)
+                fp = primary_footprint(self, scene, d, its)
             s = self._bounce(scene, s, b, seed, sample_idx, pixel_id, N,
                              eps, fp)
 
@@ -241,7 +248,7 @@ class PathTracer:
         wi = m.to_local(wi_world, ss, ts, its.ns)
         params = common.material_params(scene, self.has_textures,
                                         its.bsdf_id, its.uv,
-                                        uv_footprint=fp)
+                                        uv_footprint=fp, bary=its.bary)
 
         # ---- NEE ------------------------------------------------------------
         u_sel = self._u1(seed, pixel_id, sample_idx,

@@ -7,8 +7,8 @@ f(wi,wo)*|cos(theta_o)|; pdf() is the solid-angle density of sample();
 sample() returns (wo, weight = f*cos/pdf, pdf, is_delta, eta, valid).
 
 `kinds` is the static set of material kinds in the scene (scene_kinds),
-as in the reference.  Ported: every kind of the reference but woven
-cloth.  The single-lobe kinds: DIFFUSE (src/bsdfs/diffuse.cpp),
+as in the reference.  Ported: every kind of the reference.  The
+single-lobe kinds: DIFFUSE (src/bsdfs/diffuse.cpp),
 ROUGH_DIFFUSE (roughdiffuse.cpp, Oren-Nayar), DIFFTRANS
 (difftrans.cpp), PHONG (phong.cpp), WARD (ward.cpp) and HK (hk.cpp, a
 single-scattering slab with a delta pass-through); the delta kinds
@@ -23,8 +23,10 @@ wrappers: a mask with a constant opacity (mask.cpp, the OPACITY
 pseudo-kind), BLEND (blendbsdf.cpp / mixturebsdf.cpp) and COATING
 (coating.cpp, roughcoating.cpp: the ROUGH_COAT pseudo-kind), the last
 two on the child rows common.material_params resolves one level deep
-(MatParams.blend / coat*).  Delta lobes evaluate to 0 in eval and pdf.
-IRAWAN (woven cloth) raises (ROADMAP Queue 1 item 12).
+(MatParams.blend / coat*).  IRAWAN (irawan.cpp, woven cloth:
+ops/irawan.py's yarn-segment lobe over a diffuse term, sampled by the
+cosine hemisphere with eval / pdf weights, MatParams.cloth filled by
+common.material_params).  Delta lobes evaluate to 0 in eval and pdf.
 """
 from __future__ import annotations
 
@@ -36,10 +38,11 @@ import torch
 
 from ..core import math as m
 from ..core import warp
+from ..core.records import tree_map
 from ..core.spectrum import luminance
 from ..scene.materials import (BLEND, COATING, CONDUCTOR, DIELECTRIC,
                                DIFFTRANS, DIFFUSE, DIST_GGX, FLAG_TWOSIDED,
-                               HK, NULL_BSDF, PHONG, PLASTIC,
+                               HK, IRAWAN, NULL_BSDF, PHONG, PLASTIC,
                                ROUGH_CONDUCTOR, ROUGH_DIELECTRIC,
                                ROUGH_DIFFUSE, ROUGH_PLASTIC,
                                THIN_DIELECTRIC, WARD)
@@ -53,7 +56,7 @@ _ROUGH_LAYER_MIN = 1e-5  # coat_alpha above this = microfacet layer lobe
 PORTED_KINDS = frozenset({
     DIFFUSE, CONDUCTOR, DIELECTRIC, ROUGH_CONDUCTOR, PLASTIC, ROUGH_PLASTIC,
     ROUGH_DIELECTRIC, THIN_DIELECTRIC, ROUGH_DIFFUSE, PHONG, WARD,
-    NULL_BSDF, BLEND, COATING, DIFFTRANS, HK, OPACITY, ROUGH_COAT})
+    NULL_BSDF, BLEND, COATING, DIFFTRANS, HK, IRAWAN, OPACITY, ROUGH_COAT})
 # the ported kinds whose every lobe is a delta: 0 in eval and pdf
 _DELTA_ONLY = (CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC, NULL_BSDF)
 
@@ -86,18 +89,26 @@ class MatParams(NamedTuple):
     coat_spec: torch.Tensor = None   # [N, 3] layer specularReflectance
     coat_alpha: torch.Tensor = None  # [N] layer roughness (0 = smooth)
     coat_dist: torch.Tensor = None   # [N] i32 layer distribution
+    # [N, 6] IRAWAN yarn-segment features (irawan.resolve_features; None
+    # where the caller has no barycentric payload: the diffuse term only)
+    cloth: torch.Tensor = None
 
 
-def gather_params(materials, mid, albedo_override=None) -> MatParams:
+def gather_params(materials, mid, albedo_override=None,
+                  opacity_override=None) -> MatParams:
     """Material parameters for a batch of ids — ONE gather of the packed
     [M, 28] row table (Materials.packed); fields are slices of the row.
     albedo_override (texture-resolved reflectance, [N, 3]) replaces the
     row's reflectance before the specular sampling weight is taken from
-    it, as in the reference."""
+    it, as in the reference; opacity_override ([N], a textured mask's
+    opacity) replaces the row's opacity."""
     row = materials.packed[mid.long()]
     refl = row[..., 2:5]
     if albedo_override is not None:
         refl = albedo_override
+    opacity = row[..., 22]
+    if opacity_override is not None:
+        opacity = opacity_override
     spec = row[..., 5:8]
     # Mitsuba's specularSamplingWeight: sAvg / (sAvg + dAvg) by luminance
     s_lum = luminance(spec)
@@ -110,17 +121,18 @@ def gather_params(materials, mid, albedo_override=None) -> MatParams:
         alpha=row[..., 11], eta=row[..., 12:15], k=row[..., 15:18],
         dist=row[..., 18].to(torch.int32), fdr_int=row[..., 19],
         spec_weight=s_lum / torch.clamp_min(s_lum + d_lum, 1e-9),
-        alpha_v=row[..., 21], opacity=row[..., 22],
+        alpha_v=row[..., 21], opacity=opacity,
         child0=row[..., 24].to(torch.int32),
         child1=row[..., 25].to(torch.int32),
         blend_w=row[..., 26])
 
 
 def _check_kinds(kinds):
+    """The static kinds must be given (scene_kinds) and known."""
     if kinds is None or not set(kinds) <= PORTED_KINDS:
-        raise NotImplementedError(
-            f"BSDF kinds {sorted(kinds) if kinds is not None else 'all'}: "
-            "woven cloth (irawan) is not ported (ROADMAP Queue 1 item 12)")
+        raise ValueError(
+            f"BSDF kinds {sorted(kinds) if kinds is not None else 'None'}: "
+            f"the static set must be a subset of {sorted(PORTED_KINDS)}")
 
 
 def fresnel_dielectric(cos_i, eta):
@@ -606,6 +618,34 @@ def _bare(p: MatParams):
     return p._replace(blend=None, coat=None)
 
 
+def _children(p: MatParams, shape):
+    """A blend's two children as one record of lanes (the lane's own
+    params, then MatParams.blend) concatenated along the first axis, each
+    broadcast to the call's lane shape: one dispatch evaluates both, so
+    the host issues each kind's operations once instead of twice, and
+    every lane computes what it computed alone."""
+    nd = p.kind.dim()
+    bare = p._replace(blend=None, coat=None, coat_eta=None,
+                      coat_sigma=None, coat_spec=None, coat_alpha=None,
+                      coat_dist=None)
+    return tree_map(lambda a, b: torch.cat([a.expand(shape + a.shape[nd:]),
+                                            b.expand(shape + b.shape[nd:])]),
+                    bare, p.blend)
+
+
+def _twice(x, shape, trailing=1):
+    """x broadcast to the lane shape (its last `trailing` axes kept) and
+    repeated along the first axis, beside _children."""
+    x = x.expand(shape + x.shape[x.dim() - trailing:])
+    return torch.cat([x, x])
+
+
+def _lanes(p: MatParams, *xs):
+    """The lane shape of a call: p's broadcast against the direction /
+    sample tensors xs (each with one trailing axis)."""
+    return torch.broadcast_shapes(p.kind.shape, *(x.shape[:-1] for x in xs))
+
+
 # ---------------------------------------------------------------------------
 # Coating layer (coating.cpp / roughcoating.cpp): a dielectric slab with
 # absorption over the child row.  Directions refract into the layer
@@ -785,6 +825,11 @@ def _coating_sample(p, wi, u2, u_comp, kinds):
         eta=torch.ones_like(Fi), valid=valid)
 
 
+def _irawan_eval(p, wi, wo):
+    from .irawan import eval_cloth
+    return eval_cloth(p, wi, wo)
+
+
 # smooth-lobe eval / pdf of each non-diffuse kind, in the reference's
 # dispatch order (rough diffuse samples and has the diffuse pdf)
 _EVALS = ((ROUGH_DIFFUSE, _roughdiffuse_eval),
@@ -795,7 +840,8 @@ _EVALS = ((ROUGH_DIFFUSE, _roughdiffuse_eval),
           (PLASTIC, _plastic_eval_diffuse),
           (ROUGH_DIELECTRIC, _roughdielectric_eval),
           (DIFFTRANS, _difftrans_eval),
-          (HK, _hk_eval))
+          (HK, _hk_eval),
+          (IRAWAN, _irawan_eval))
 _PDFS = ((ROUGH_CONDUCTOR, _roughconductor_pdf),
          (ROUGH_PLASTIC, _roughplastic_pdf),
          (PHONG, _phong_pdf),
@@ -815,9 +861,11 @@ def eval(p: MatParams, wi, wo, kinds=None):
     _check_kinds(kinds)
     if p.blend is not None:
         w = p.blend_w[..., None]
-        f = ((1.0 - w) * eval(_bare(p), wi, wo, kinds) +
-             w * eval(p.blend, wi, wo, kinds))
-        if p.coat is not None:
+        sh = _lanes(p, wi, wo)
+        f0, f1 = eval(_children(p, sh), _twice(wi, sh), _twice(wo, sh),
+                      kinds).chunk(2)
+        f = (1.0 - w) * f0 + w * f1
+        if p.coat is not None and COATING in kinds:
             f = torch.where(p.coat[..., None],
                             _coating_eval(p, wi, wo, kinds), f)
         return f
@@ -841,9 +889,11 @@ def pdf(p: MatParams, wi, wo, kinds=None):
     _check_kinds(kinds)
     if p.blend is not None:
         w = p.blend_w
-        out = ((1.0 - w) * pdf(_bare(p), wi, wo, kinds) +
-               w * pdf(p.blend, wi, wo, kinds))
-        if p.coat is not None:
+        sh = _lanes(p, wi, wo)
+        p0, p1 = pdf(_children(p, sh), _twice(wi, sh), _twice(wo, sh),
+                     kinds).chunk(2)
+        out = (1.0 - w) * p0 + w * p1
+        if p.coat is not None and COATING in kinds:
             out = torch.where(p.coat, _coating_pdf(p, wi, wo, kinds), out)
         return out
     sign = _flip_sign(p, wi)
@@ -879,8 +929,11 @@ def _blend_sample(p: MatParams, wi, u2, u_comp, kinds):
     u_re = torch.clamp(torch.where(
         pick1, u_comp / torch.clamp_min(w, 1e-9),
         (u_comp - w) / torch.clamp_min(1.0 - w, 1e-9)), 0.0, 1.0)
-    s0 = sample(_bare(p), wi, u2, u_re, kinds)
-    s1 = sample(p.blend, wi, u2, u_re, kinds)
+    sh = _lanes(p, wi, u2)
+    s2 = sample(_children(p, sh), _twice(wi, sh), _twice(u2, sh),
+                _twice(u_re, sh, 0), kinds)
+    s0 = BSDFSample(*(a.chunk(2)[0] for a in s2))
+    s1 = BSDFSample(*(a.chunk(2)[1] for a in s2))
     pick3 = pick1[..., None]
     wo = torch.where(pick3, s1.wo, s0.wo)
     is_delta = torch.where(pick1, s1.is_delta, s0.is_delta)
@@ -917,7 +970,7 @@ def sample(p: MatParams, wi, u2, u_comp, kinds=None) -> BSDFSample:
     _check_kinds(kinds)
     if p.blend is not None:
         out = _blend_sample(p, wi, u2, u_comp, kinds)
-        if p.coat is not None:
+        if p.coat is not None and COATING in kinds:
             sc = _coating_sample(p, wi, u2, u_comp, kinds)
             out = BSDFSample(*(
                 torch.where(p.coat.reshape(p.coat.shape + (1,) *
@@ -965,6 +1018,12 @@ def sample(p: MatParams, wi, u2, u_comp, kinds=None) -> BSDFSample:
     if ROUGH_DIFFUSE in kinds:
         pick(ROUGH_DIFFUSE, wo_d,
              _roughdiffuse_eval(p, wif, wo_d) /
+             torch.clamp_min(pdf_d, 1e-12)[..., None], pdf_d,
+             (wif[..., 2] > 0) & (wo_d[..., 2] > 0), delta_k=False)
+    if IRAWAN in kinds:
+        # irawan.cpp samples the cosine hemisphere
+        pick(IRAWAN, wo_d,
+             _irawan_eval(p, wif, wo_d) /
              torch.clamp_min(pdf_d, 1e-12)[..., None], pdf_d,
              (wif[..., 2] > 0) & (wo_d[..., 2] > 0), delta_k=False)
     if CONDUCTOR in kinds:

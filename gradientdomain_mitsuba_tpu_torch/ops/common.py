@@ -10,13 +10,14 @@ Ported: the small-scene (<= 2048 triangles) traversal through the sweep
 kernels, the large-scene traversal through the pair kernels (or, under
 GDMT_KERNEL=v4, the v4 block kernels), analytic spheres merged by
 closest t (their exact normals and lat-long uv in the hit fill), the
-material gather with reflectance textures and the blend / coating
-wrappers' child rows (has_textures bits 0 and 2), the primary hits' uv
-footprint, and the hit fill without the barycentric payload or normal
-perturbation.  Textured opacity and blend weights (bits 1 and 3, item
-13) and woven cloth (bit 4, item 12) raise.  The reference's one-hot
-matmul gather (fast_row_gather) is a TPU workaround; here it is plain
-indexing.
+hit fill with the barycentric payload (vertex colors, wireframe edge
+distance, the yarn azimuth of woven cloth) and the bump / normal map
+perturbation, the material gather under every has_textures bit
+(reflectance textures, textured mask opacity, the blend / coating
+wrappers' child rows, textured blend weights, woven cloth's yarn
+segment), and the primary hits' uv footprint and its ellipse for the
+anisotropic filter.  The reference's one-hot matmul gather
+(fast_row_gather) is a TPU workaround; here it is plain indexing.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import os
 import torch
 
 from ..core import math as m
-from ..core.records import Intersection
+from ..core.spectrum import luminance
+from ..core.records import Intersection, tree_map
 from . import intersect as isec
 from . import sweep, trace
 
@@ -154,16 +156,14 @@ def fast_row_gather(table, idx):
 
 def fill_intersection(scene, o, d, hit) -> Intersection:
     """Shading data for Hit records via ONE packed-row gather of the
-    BVH-ordered tri_shade table (see scene.Geometry)."""
+    BVH-ordered tri_shade table (see scene.Geometry).  Two branches are
+    chosen by the tables' static widths, as in the reference: the bump /
+    normal map perturbation when the material table has its 32 columns,
+    the barycentric payload (Intersection.bary [N, 6]) when tri_shade
+    has its 41; otherwise bary is None."""
     g = scene.geom
-    if scene.materials.packed.shape[1] >= 32:
-        raise NotImplementedError(
-            "bump/normal maps: ROADMAP Queue 1 item 13")
-    if g.tri_shade.shape[-1] >= 41:
-        raise NotImplementedError(
-            "barycentric payload: ROADMAP Queue 1 item 13")
     prim = torch.clamp(hit.prim, 0, g.tri_shade.shape[0] - 1)
-    row = g.tri_shade[prim.long()]     # [N, 29]
+    row = g.tri_shade[prim.long()]     # [N, 29] or [N, 41]
 
     u = hit.u[..., None]
     v = hit.v[..., None]
@@ -184,7 +184,8 @@ def fill_intersection(scene, o, d, hit) -> Intersection:
     emitter_id = row[..., 19].to(torch.int32)
     shape_id = row[..., 20].to(torch.int32)
 
-    if g.sph_center.shape[0] > 0:
+    has_sph = g.sph_center.shape[0] > 0
+    if has_sph:
         # analytic-sphere lanes: exact quadric normals + lat-long uv
         # (z-up, matching meshes.make_sphere / sphere.cpp)
         is_sph = hit.prim >= SPHERE_PRIM_BASE
@@ -199,7 +200,8 @@ def fill_intersection(scene, o, d, hit) -> Intersection:
         uv_s = torch.stack([phi / (2 * math.pi), 1.0 - theta / math.pi], -1)
         s3 = is_sph[..., None]
         # sphere lanes must not inherit the clamped triangle row's
-        # tangents (columns 23 and up)
+        # tangents (columns 23 and up: the perturbation and the payload
+        # read them)
         keep = (torch.arange(row.shape[-1], device=row.device) < 23).to(
             row.dtype)
         row = torch.where(s3, row * keep, row)
@@ -209,6 +211,43 @@ def fill_intersection(scene, o, d, hit) -> Intersection:
         bsdf_id = torch.where(is_sph, g.sph_bsdf[sid], bsdf_id)
         emitter_id = torch.where(is_sph, -1, emitter_id)
         shape_id = torch.where(is_sph, g.sph_shape[sid], shape_id)
+
+    if scene.materials.packed.shape[1] >= 32:
+        # bumpmap / normalmap (src/bsdfs/{bumpmap,normalmap}.cpp)
+        ns = _perturb_normal(scene, row, bsdf_id, uv, ns)
+
+    bary = None
+    if g.tri_shade.shape[-1] >= 41:
+        # the barycentric payload (scene.py widens tri_shade when a
+        # vertexcolors / wireframe texture or a woven-cloth BSDF is
+        # bound): columns 29:38 the vertex colors, 38:41 the triangle's
+        # heights 2A / |opposite edge|, so bary_i * h_i is the world
+        # distance to edge i and their min the wireframe edge distance
+        hu, hv = hit.u, hit.v
+        wb = 1.0 - hu - hv
+        vc = (row[..., 29:32] * wb[..., None] + row[..., 32:35] *
+              hu[..., None] + row[..., 35:38] * hv[..., None])
+        edist = torch.minimum(
+            torch.minimum(wb * row[..., 38], hu * row[..., 39]),
+            hv * row[..., 40])
+        # the azimuth of dp/du in the canonical shading frame built from
+        # ns (the yarn orientation of woven cloth, ops/irawan.py)
+        ss_f, ts_f = m.build_frame(ns)
+        dpdu = row[..., 23:26]
+        fc = torch.sum(dpdu * ss_f, -1)
+        fs = torch.sum(dpdu * ts_f, -1)
+        flen = torch.sqrt(fc * fc + fs * fs)
+        ok_f = flen > 1e-12
+        fl_safe = torch.where(ok_f, flen, 1.0)
+        fc = torch.where(ok_f, fc / fl_safe, 1.0)
+        fs = torch.where(ok_f, fs / fl_safe, 0.0)
+        if has_sph:
+            # sphere lanes: white, no edge, the frame's own s
+            vc = torch.where(is_sph[..., None], 1.0, vc)
+            edist = torch.where(is_sph, 3.4e38, edist)
+            fc = torch.where(is_sph, 1.0, fc)
+            fs = torch.where(is_sph, 0.0, fs)
+        bary = torch.cat([vc, torch.stack([edist, fc, fs], -1)], -1)
     return Intersection(
         valid=hit.valid,
         t=hit.t,
@@ -220,62 +259,138 @@ def fill_intersection(scene, o, d, hit) -> Intersection:
         shape_id=torch.where(hit.valid, shape_id, -1),
         bsdf_id=torch.where(hit.valid, bsdf_id, -1),
         emitter_id=torch.where(hit.valid, emitter_id, -1),
-        bary=None,
+        bary=bary,
     )
 
 
-# has_textures bits (scene.compile_scene) the port does not resolve yet,
-# with the ROADMAP Queue 1 item each waits for
-_UNPORTED_TEXTURE_BITS = ((2, "textured mask opacity", 13),
-                          (8, "textured blend weights", 13),
-                          (16, "woven-cloth (irawan) BSDFs", 12))
+def _perturb_normal(scene, row, bsdf_id, uv, ns):
+    """The shading normal of bumpmap / normalmap lanes (packed column 28:
+    mode 1 bump, 2 normal; 29 the texture id; 30 the bump scale).
+
+    row: the tri_shade gather (columns 23:26 dp/du, 26:29 dp/dv).  A
+    normal map rotates the tangent-space normal 2 rgb - 1 into the
+    UV-aligned TBN frame; a bump map displaces the tangents by the
+    finite-differenced height (luminance, step 5e-4 in uv) and crosses
+    them (bumpmap.cpp's getFrame).  Lanes without both tangents (analytic
+    spheres, degenerate uv) keep ns."""
+    from .texture import eval_texture
+    mrow = scene.materials.packed[torch.clamp_min(bsdf_id, 0).long()]
+    mode = mrow[..., 28].to(torch.int32)
+    ptex = torch.clamp_min(mrow[..., 29].to(torch.int32), 0)
+    scale = mrow[..., 30]
+
+    dpdu = row[..., 23:26]
+    dpdv = row[..., 26:29]
+    ok_tb = ((m.squared_length(dpdu) > 1e-20) &
+             (m.squared_length(dpdv) > 1e-20))
+
+    # normalmap: ns' = TBN (2 rgb - 1)
+    tex0 = eval_texture(scene.textures, ptex, uv)
+    tval = 2.0 * tex0 - 1.0
+    su_raw = dpdu - ns * m.dot(ns, dpdu, keepdims=True)
+    su = m.normalize(torch.where(ok_tb[..., None], su_raw, ns))
+    sv = m.cross(ns, su)
+    n_nm = m.normalize(su * tval[..., 0:1] + sv * tval[..., 1:2] +
+                       ns * torch.clamp_min(tval[..., 2:3], 1e-3))
+
+    # bumpmap: displaced tangents, finite-differenced height gradient
+    e = 5e-4
+    h0 = luminance(tex0)
+    zero = torch.zeros_like(h0)
+    eu = torch.stack([torch.full_like(h0, e), zero], -1)
+    ev = torch.stack([zero, torch.full_like(h0, e)], -1)
+    hu = luminance(eval_texture(scene.textures, ptex, uv + eu))
+    hv = luminance(eval_texture(scene.textures, ptex, uv + ev))
+    e32 = torch.tensor(e, dtype=torch.float32, device=uv.device)
+    dhdu = (hu - h0) / e32 * scale
+    dhdv = (hv - h0) / e32 * scale
+    n_bm = m.normalize(m.cross(dpdu + ns * dhdu[..., None],
+                               dpdv + ns * dhdv[..., None]))
+    n_bm = n_bm * torch.sign(m.dot(n_bm, ns, keepdims=True))
+
+    use_nm = ((mode == 2) & ok_tb)[..., None]
+    use_bm = ((mode == 1) & ok_tb)[..., None]
+    return torch.where(use_nm, n_nm, torch.where(use_bm, n_bm, ns))
 
 
-def check_texture_bits(has_textures):
-    """Raise for the has_textures bits the port does not resolve yet."""
-    for bit, what, item in _UNPORTED_TEXTURE_BITS:
-        if int(has_textures) & bit:
-            raise NotImplementedError(
-                f"{what} (has_textures bit {bit.bit_length() - 1}): "
-                f"ROADMAP Queue 1 item {item}")
+def _twice(x):
+    """x (a tensor, an (area, ellipse) footprint or None) repeated along
+    its first axis."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(torch.cat([a, a]) for a in x)
+    return torch.cat([x, x])
 
 
-def material_params(scene, has_textures, bsdf_id, uv, uv_footprint=None):
+def material_params(scene, has_textures, bsdf_id, uv, uv_footprint=None,
+                    bary=None):
     """BSDF parameters of a batch of hits under the static has_textures
-    mask: bit 0 resolves reflectance textures (uv_footprint: the primary
-    hits' UV-space footprint for the mip level, None = finest), bit 2
-    (BLEND / COATING rows present) resolves the wrapper rows' children
-    one level deep, as the reference does: the params are child0's (the
-    lane's own row where it is not a wrapper), with MatParams.blend the
-    second child's (blend weight 0 off BLEND lanes) and the coat* fields
-    the COATING row's layer.  Textured opacity, textured blend weights
-    and woven cloth raise, naming their ROADMAP Queue 1 item."""
+    mask (scene.compile_scene), as the reference resolves them: bit 0
+    reflectance textures (uv_footprint: the primary hits' footprint for
+    the mip level, or (area, ellipse) for the anisotropic filter; None =
+    finest), bit 1 the mask's textured opacity, bit 2 (BLEND / COATING
+    rows present) the wrapper rows' children one level deep (the params
+    are child0's, the lane's own row where it is not a wrapper, with
+    MatParams.blend the second child's, blend weight 0 off BLEND lanes,
+    and the coat* fields the COATING row's layer), bit 3 the BLEND rows'
+    textured weight, bit 4 woven cloth's yarn segment (MatParams.cloth,
+    from bary's azimuth; without bary cloth stays None and eval falls
+    back to its diffuse term, as in the reference).  bary: the hits'
+    barycentric payload (Intersection.bary) for vertexcolors,
+    wireframe and cloth.
+
+    The wrapper's own fields are raw row columns, so its two children
+    resolve as ONE batch of 2N lanes, and the textures of a batch (albedo
+    without a footprint, opacity, blend weight) as one lookup
+    (texture.resolve): each lane computes what it computes alone, with
+    a fraction of the host's calls."""
     from . import bsdf as bsdf_ops
+    from . import texture
     from ..scene.materials import BLEND, COATING
-    check_texture_bits(has_textures)
     bits = int(has_textures)
     mid = torch.clamp_min(bsdf_id, 0)
+    ids, uv_c, bary_c, fp_c = mid, uv, bary, uv_footprint
+    wrap = None
+    if bits & 4:
+        wrap = bsdf_ops.gather_params(scene.materials, mid)
+        is_b = wrap.kind == BLEND
+        is_c = wrap.kind == COATING
+        ids = torch.cat([torch.where(is_b | is_c, wrap.child0, mid),
+                         torch.where(is_b, wrap.child1, mid)])
+        uv_c, bary_c, fp_c = _twice(uv), _twice(bary), _twice(uv_footprint)
 
-    def gather(ids):
-        albedo = None
-        if bits & 1:
-            from .texture import resolve_albedo
-            albedo = resolve_albedo(scene, ids, uv, uv_footprint)
-        return bsdf_ops.gather_params(scene.materials, ids,
-                                      albedo_override=albedo)
-
-    p = gather(mid)
-    if not bits & 4:
+    lookups = []
+    if bits & 1:
+        lookups.append(("albedo", ids, uv_c, bary_c))
+    if bits & 2:
+        lookups.append(("opacity", ids, uv_c, bary_c))
+    if wrap is not None and bits & 8:
+        lookups.append(("blend_weight", mid, uv, bary))
+    vals = {}
+    if bits & 1 and fp_c is not None:
+        vals["albedo"] = texture.resolve(scene, lookups[:1], fp_c)[0]
+        lookups = lookups[1:]
+    vals.update(zip([what for what, *_ in lookups],
+                    texture.resolve(scene, lookups)))
+    p = bsdf_ops.gather_params(scene.materials, ids,
+                               albedo_override=vals.get("albedo"),
+                               opacity_override=vals.get("opacity"))
+    if bits & 16 and bary is not None:
+        from .irawan import resolve_features
+        p = p._replace(cloth=resolve_features(scene, ids, uv_c, bary_c))
+    if wrap is None:
         return p
-    is_b = p.kind == BLEND
-    is_c = p.kind == COATING
-    c0 = torch.where(is_b | is_c, p.child0, mid)
-    c1 = torch.where(is_b, p.child1, mid)
-    return gather(c0)._replace(
-        blend=gather(c1), blend_w=torch.where(is_b, p.blend_w, 0.0),
-        coat=is_c, coat_eta=torch.clamp_min(p.eta[..., 0], 1.0 + 1e-4),
-        coat_sigma=p.transmittance, coat_spec=p.specular,
-        coat_alpha=torch.where(is_c, p.alpha_v, 0.0), coat_dist=p.dist)
+    pa, pb = (tree_map(lambda a, h=h: a.chunk(2)[h], p) for h in (0, 1))
+    w = torch.where(is_b, wrap.blend_w, 0.0)
+    if "blend_weight" in vals:
+        w = torch.where(is_b, vals["blend_weight"], w)
+    return pa._replace(
+        blend=pb, blend_w=w,
+        coat=is_c, coat_eta=torch.clamp_min(wrap.eta[..., 0], 1.0 + 1e-4),
+        coat_sigma=wrap.transmittance, coat_spec=wrap.specular,
+        coat_alpha=torch.where(is_c, wrap.alpha_v, 0.0),
+        coat_dist=wrap.dist)
 
 
 def primary_uv_footprint(scene, W, H, d, its):
@@ -286,18 +401,72 @@ def primary_uv_footprint(scene, W, H, d, its):
     surface area = t^2 omega / |cos(ng, d)|; converted to UV with the
     hit triangle's uv-per-world-area density (tri_shade column 22).
     Analytic-sphere lanes have no density row: 0, the finest level."""
-    from .sensor import image_area
-    cam = scene.camera
-    fwd = cam.to_world[:3, 2]
-    cos_cam = torch.clamp_min(m.dot(d, fwd.expand(d.shape)), 1e-6)
-    omega = (image_area(cam) / (W * H)) * cos_cam ** 3
     cos_hit = torch.clamp_min(torch.abs(m.dot(its.ng, d)), 1e-4)
-    area = torch.where(its.valid, its.t, 0.0) ** 2 * omega / cos_hit
+    area = (torch.where(its.valid, its.t, 0.0) ** 2 *
+            _pixel_solid_angle(scene, W, H, d) / cos_hit)
     tri_shade = scene.geom.tri_shade
     prim = torch.clamp(its.prim_id, 0, tri_shade.shape[0] - 1)
     uvd = tri_shade[prim.long(), 22]
     uvd = torch.where(its.prim_id >= SPHERE_PRIM_BASE, 0.0, uvd)
     return area * uvd
+
+
+def _pixel_solid_angle(scene, W, H, d):
+    """Solid angle of one pixel around camera direction d:
+    (A_img / (W H)) cos^3(theta_cam)."""
+    from .sensor import image_area
+    cam = scene.camera
+    fwd = cam.to_world[:3, 2]
+    cos_cam = torch.clamp_min(m.dot(d, fwd.expand(d.shape)), 1e-6)
+    return (image_area(cam) / (W * H)) * cos_cam ** 3
+
+
+def primary_uv_jacobian(scene, W, H, d, its):
+    """The footprint ellipse's axes in uv at primary hits [..., 2, 2]
+    (columns the axes), the anisotropic filter's input (ops/texture.py).
+
+    The pixel's solid-angle disk projects onto the hit's tangent plane:
+    the major axis along the in-plane projection of the view ray
+    (elongated by 1 / |cos|), the minor axis across it; both go to uv
+    through the dual basis of the triangle's dp/du, dp/dv.  As in the
+    reference, perspective divergence within a pixel is ignored (a
+    deviation from mipmap.h's ray-differential EWA)."""
+    cos_hit = torch.clamp_min(torch.abs(m.dot(its.ng, d)), 1e-2)
+    area_w = (torch.where(its.valid, its.t, 0.0) ** 2 *
+              _pixel_solid_angle(scene, W, H, d) / cos_hit)
+    r = torch.sqrt(area_w * cos_hit / math.pi)
+
+    ng = its.ng
+    dir_t = d - ng * m.dot(ng, d, keepdims=True)
+    lt = torch.sqrt(m.squared_length(dir_t))
+    # normal incidence: any tangent direction works
+    dir_maj = torch.where((lt > 1e-6)[..., None],
+                          dir_t / torch.clamp_min(lt, 1e-6)[..., None],
+                          m.build_frame(ng)[0])
+    a1 = dir_maj * (r / cos_hit)[..., None]
+    a2 = m.cross(ng, dir_maj) * r[..., None]
+
+    tri_shade = scene.geom.tri_shade
+    row = tri_shade[torch.clamp(its.prim_id, 0,
+                                tri_shade.shape[0] - 1).long()]
+    dpdu = row[..., 23:26]
+    dpdv = row[..., 26:29]
+    E = m.dot(dpdu, dpdu)
+    F = m.dot(dpdu, dpdv)
+    G2 = m.dot(dpdv, dpdv)
+    det = E * G2 - F * F
+    inv_det = torch.where(torch.abs(det) > 1e-20, 1.0 / det, 0.0)
+
+    def to_uv(a):
+        bu = m.dot(dpdu, a)
+        bv = m.dot(dpdv, a)
+        return ((G2 * bu - F * bv) * inv_det,
+                (E * bv - F * bu) * inv_det)
+
+    du1, dv1 = to_uv(a1)
+    du2, dv2 = to_uv(a2)
+    return torch.stack([torch.stack([du1, du2], -1),
+                        torch.stack([dv1, dv2], -1)], -2)
 
 
 def offset_ray_origin(p, ng, d, eps):

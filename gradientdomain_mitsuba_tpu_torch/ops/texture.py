@@ -8,10 +8,12 @@ pyramid packed into one padded atlas stack [T, Hmax, Wmax, 3]) and the
 lookups on the device (gathers + bilinear weights; trilinear filtering
 lerps between the two levels that straddle the primary hit's footprint).
 
-Not ported yet (ROADMAP Queue 1 item 13): the anisotropic (EWA-class)
-filter, the barycentric payload of vertexcolor / wireframe (without it
-they evaluate to their flat color0, as the reference's callers without
-a payload get), and the opacity and blend-weight textures.
+The anisotropic (EWA-class) filter takes fixed Gaussian-weighted
+trilinear taps along the primary hit's footprint ellipse
+(_aniso_sample); vertexcolors and wireframe read the hit's barycentric
+payload (ops/common.fill_intersection), and a caller without one gets
+their flat color0, as in the reference; the mask's opacity and the
+blendbsdf's weight resolve their textures by luminance.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..core.spectrum import luminance
 
 TEX_BITMAP = 0
 TEX_CHECKERBOARD = 1
@@ -264,17 +268,74 @@ def _bilinear(tex: TextureTable, tid, lvl, u, v):
             tap(y1i, x0i) * (1 - fx) * fy + tap(y1i, x1i) * fx * fy)
 
 
-def eval_texture(tex: TextureTable, tex_id, uv, uv_footprint=None):
+N_ANISO_TAPS = 8   # the reference's fixed tap count
+MAX_ANISO = 8.0
+
+
+def _levels(tex, tid, lod):
+    """The two mip levels straddling lod (clamped to the texture's
+    levels) and the lerp weight of the upper one."""
+    top = tex.n_levels[tid] - 1
+    lod = torch.clamp(lod, min=torch.zeros_like(lod),
+                      max=top.to(torch.float32))
+    l0 = torch.floor(lod).to(torch.int32)
+    l1 = torch.minimum(l0 + 1, top)
+    return l0.long(), l1.long(), (lod - l0.to(torch.float32))[..., None]
+
+
+def _trilinear(tex, tid, levels, u, v):
+    l0, l1, fl = levels
+    return (_bilinear(tex, tid, l0, u, v) * (1 - fl) +
+            _bilinear(tex, tid, l1, u, v) * fl)
+
+
+def _aniso_sample(tex, tid, u, v, jac):
+    """Anisotropic (EWA-class) filtering, the reference's bounded form of
+    mipmap.h's EWA lookup: the mip level from the footprint ellipse's
+    MINOR axis (widened to at least major / MAX_ANISO), N_ANISO_TAPS
+    Gaussian-weighted trilinear taps spread along the MAJOR axis.
+
+    jac: [..., 2, 2], columns the ellipse's two axes in scaled uv."""
+    h0 = tex.img_size[tid, 0].to(torch.float32)
+    w0 = tex.img_size[tid, 1].to(torch.float32)
+    wh = torch.stack([w0, h0], -1)
+    # axis lengths in texel units
+    ax = jac[..., 0] * wh
+    ay = jac[..., 1] * wh
+    la = torch.sqrt(torch.sum(ax * ax, -1) + 1e-20)
+    lb = torch.sqrt(torch.sum(ay * ay, -1) + 1e-20)
+    major_uv = torch.where((lb > la)[..., None], jac[..., 1], jac[..., 0])
+    l_maj = torch.maximum(la, lb)
+    l_min = torch.maximum(torch.minimum(la, lb), l_maj / MAX_ANISO)
+    levels = _levels(tex, tid, torch.log2(torch.clamp_min(l_min, 1e-6)))
+
+    acc = 0.0
+    wsum = 0.0
+    for i in range(N_ANISO_TAPS):
+        t = (i + 0.5) / N_ANISO_TAPS - 0.5          # in (-0.5, 0.5)
+        w = float(np.exp(-2.0 * (2.0 * t) ** 2))     # Gaussian falloff
+        acc = acc + w * _trilinear(tex, tid, levels,
+                                   u + major_uv[..., 0] * t,
+                                   v + major_uv[..., 1] * t)
+        wsum = wsum + w
+    return acc / wsum
+
+
+def eval_texture(tex: TextureTable, tex_id, uv, uv_footprint=None,
+                 bary=None):
     """Evaluate textures for a batch: tex_id [N] (>= 0), uv [N, 2].
 
     uv_footprint (optional): the UV-space footprint area [N] of a
-    primary hit (trilinear level selection); None is the finest level,
-    the behavior for secondary bounces.  A (area, jacobian) tuple asks
-    for the anisotropic filter, which raises (ROADMAP Queue 1 item 13).
-    Vertexcolor and wireframe rows evaluate to their flat color0."""
+    primary hit (trilinear level selection), or a tuple (area [N],
+    jacobian [N, 2, 2]) whose columns are the footprint ellipse's axes
+    in uv, which textures flagged filter_ewa filter anisotropically;
+    None is the finest level, the behavior for secondary bounces.
+    bary: the hit's barycentric payload ([N, >= 4]: vertex color, edge
+    distance) for vertexcolors and wireframe; without it they evaluate
+    to their flat color0."""
+    uv_jac = None
     if isinstance(uv_footprint, tuple):
-        raise NotImplementedError(
-            "anisotropic (EWA) texture filtering: ROADMAP Queue 1 item 13")
+        uv_footprint, uv_jac = uv_footprint
     tid = torch.clamp_min(tex_id, 0).long()
     scale = tex.uv_scale[tid]
     off = tex.uv_offset[tid]
@@ -298,14 +359,14 @@ def eval_texture(tex: TextureTable, tex_id, uv, uv_footprint=None):
         w0 = tex.img_size[tid, 1].to(torch.float32)
         texels = uv_footprint * scale[..., 0] * scale[..., 1] * h0 * w0
         lod = 0.5 * torch.log2(torch.clamp_min(texels, 1e-20))
-        top = tex.n_levels[tid] - 1
-        lod = torch.clamp(lod, min=torch.zeros_like(lod),
-                          max=top.to(torch.float32))
-        l0 = torch.floor(lod).to(torch.int32)
-        l1 = torch.minimum(l0 + 1, top)
-        fl = (lod - l0.to(torch.float32))[..., None]
-        bmp = (_bilinear(tex, tid, l0.long(), u, v) * (1 - fl) +
-               _bilinear(tex, tid, l1.long(), u, v) * fl)
+        bmp = _trilinear(tex, tid, _levels(tex, tid, lod), u, v)
+        if uv_jac is not None:
+            # ellipse axes into SCALED uv: row 0 (du) by uscale, row 1
+            # (dv) by vscale
+            aniso = _aniso_sample(tex, tid, u, v,
+                                  uv_jac * scale[..., :, None])
+            bmp = torch.where((tex.filter_ewa[tid] > 0)[..., None], aniso,
+                              bmp)
     bmp = bmp * c0
 
     # gridtexture (src/textures/gridtexture.cpp): lines of color1 at
@@ -319,14 +380,78 @@ def eval_texture(tex: TextureTable, tex_id, uv, uv_footprint=None):
     kind = tex.kind[tid]
     out = torch.where((kind == TEX_CHECKERBOARD)[..., None], checker,
                       torch.where((kind == TEX_GRID)[..., None], grid, bmp))
-    flat = (kind == TEX_VERTEXCOLOR) | (kind == TEX_WIREFRAME)
-    return torch.where(flat[..., None], c0, out)
+    if bary is None:
+        flat = (kind == TEX_VERTEXCOLOR) | (kind == TEX_WIREFRAME)
+        return torch.where(flat[..., None], c0, out)
+    # vertexcolors: the interpolated vertex color; wireframe: color1
+    # within lineWidth (world units) of the nearest triangle edge
+    wire = torch.where((bary[..., 3] < lw)[..., None], c1, c0)
+    out = torch.where((kind == TEX_VERTEXCOLOR)[..., None],
+                      bary[..., 0:3] * c0, out)
+    return torch.where((kind == TEX_WIREFRAME)[..., None], wire, out)
 
 
-def resolve_albedo(scene, mid, uv, uv_footprint=None):
+def _albedo(row, tex_id, val):
+    return torch.where((tex_id >= 0)[..., None], val, row[..., 2:5])
+
+
+def _opacity(row, tex_id, val):
+    return torch.where(tex_id >= 0, luminance(val), row[..., 22])
+
+
+def _blend_weight(row, tex_id, val):
+    return torch.clamp(torch.where(tex_id >= 0, luminance(val),
+                                   row[..., 26]), 0.0, 1.0)
+
+
+# what a material row's texture resolves: (packed column of its texture
+# id, the value from (row, texture id, texture value))
+RESOLVE = {"albedo": (20, _albedo), "opacity": (23, _opacity),
+           "blend_weight": (27, _blend_weight)}
+
+
+def resolve(scene, lookups, uv_footprint=None):
+    """Texture-resolved material values for lookups [(what, mid, uv,
+    bary)] (what a key of RESOLVE; bary None or given for all), with ONE
+    eval_texture call over all of them, concatenated along the first
+    axis: each lane computes what it computes alone, and the host issues
+    the lookup's operations once.  uv_footprint applies to every lane
+    (so a primary hit's albedo is looked up alone)."""
+    if not lookups:
+        return []
+    packed = scene.materials.packed
+    rows = [packed[mid.long()] for _, mid, _, _ in lookups]
+    tex_ids = [row[..., RESOLVE[what][0]].to(torch.int32)
+               for (what, _, _, _), row in zip(lookups, rows)]
+    bary = [b for _, _, _, b in lookups]
+    if len(lookups) == 1:
+        vals = [eval_texture(scene.textures, tex_ids[0], lookups[0][2],
+                             uv_footprint, bary=bary[0])]
+    else:
+        val = eval_texture(scene.textures, torch.cat(tex_ids),
+                           torch.cat([uv for _, _, uv, _ in lookups]),
+                           uv_footprint,
+                           bary=None if bary[0] is None else torch.cat(bary))
+        vals = torch.split(val, [t.shape[0] for t in tex_ids])
+    return [RESOLVE[what][1](row, tex_id, val) for (what, _, _, _), row,
+            tex_id, val in zip(lookups, rows, tex_ids, vals)]
+
+
+def resolve_albedo(scene, mid, uv, uv_footprint=None, bary=None):
     """Material reflectance with the texture override where one is bound
-    (packed column 20 holds the reflectance texture id, -1 for none)."""
-    row = scene.materials.packed[mid.long()]
-    tex_id = row[..., 20].to(torch.int32)
-    tex_val = eval_texture(scene.textures, tex_id, uv, uv_footprint)
-    return torch.where((tex_id >= 0)[..., None], tex_val, row[..., 2:5])
+    (packed column 20), else the row's (columns 2:5)."""
+    return resolve(scene, [("albedo", mid, uv, bary)], uv_footprint)[0]
+
+
+def resolve_opacity(scene, mid, uv, bary=None):
+    """The mask's opacity: the luminance of its opacity texture where one
+    is bound (packed column 23), else the row's constant (column 22),
+    mask.cpp's semantics."""
+    return resolve(scene, [("opacity", mid, uv, bary)])[0]
+
+
+def resolve_blend_weight(scene, mid, uv, bary=None):
+    """blendbsdf's weight: the luminance of its weight texture where one
+    is bound (packed column 27), else the row's scalar (column 26),
+    clamped to [0, 1] (blendbsdf.cpp)."""
+    return resolve(scene, [("blend_weight", mid, uv, bary)])[0]

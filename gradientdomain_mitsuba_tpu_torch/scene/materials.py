@@ -438,10 +438,20 @@ class MaterialBuilder:
                                 reflectance=sig_s, transmittance=sig_a,
                                 alpha=thickness, alpha_v=g_hg)
         if kind == IRAWAN:
-            # irawan.cpp rows need the weave presets of the reference's
-            # ops/irawan.py, which the port does not have yet
-            raise NotImplementedError(
-                "irawan BSDF: ROADMAP Queue 1 item 12")
+            # irawan.cpp: the weave pattern by file name (matched to the
+            # built-in presets of ops/irawan.py), repeatU / V, kd and ks
+            # (the preset's colors unless given) times their multipliers
+            from ..ops import irawan as irw
+            pid = irw.preset_from_name(str(node.get("filename", "plain")))
+            kd = spectrum_value(node.get("kd"), irw.PRESET_KD[pid]) * \
+                float(node.get("kdMultiplier", 1.0))
+            ks = spectrum_value(node.get("ks"), irw.PRESET_KS[pid]) * \
+                float(node.get("ksMultiplier", 1.0))
+            return self.add_row(
+                kind=kind, flags=flags, reflectance=kd, specular=ks,
+                alpha=float(node.get("repeatU", 10.0)),
+                alpha_v=float(node.get("repeatV", 10.0)),
+                dist=pid, eta=(1.345, 1.345, 1.345))
         if kind == NULL_BSDF:
             return self.add_row(kind=kind, flags=flags,
                                 reflectance=(0, 0, 0))

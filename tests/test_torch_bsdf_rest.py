@@ -403,11 +403,26 @@ def test_two_sided_flip_skips_the_sign_handling_kinds():
 
 
 def test_irawan_still_raises():
-    """Woven cloth is the one kind left (ROADMAP Queue 1 item 12)."""
-    with pytest.raises(NotImplementedError, match="woven cloth.*item 12"):
-        bsdf.eval(None, None, None, frozenset({PM.DIFFUSE, PM.IRAWAN}))
-    assert PM.IRAWAN not in bsdf.PORTED_KINDS
-    assert {k for k in range(PM.IRAWAN)} <= bsdf.PORTED_KINDS
+    """Woven cloth, the one kind that raised here (ROADMAP Queue 1 item
+    12), is ported (its parity: tests/test_torch_irawan.py): every kind
+    of the reference is in PORTED_KINDS, and only a static set that
+    names no kind or an unknown one raises."""
+    assert {k for k in range(PM.IRAWAN + 1)} <= bsdf.PORTED_KINDS
+    n = 4
+    z = torch.zeros(n)
+    v3 = torch.full((n, 3), 0.5)
+    p = bsdf.MatParams(
+        kind=torch.full((n,), PM.IRAWAN, dtype=torch.int32),
+        twosided=torch.zeros(n, dtype=torch.bool), reflectance=v3,
+        specular=v3, transmittance=v3, alpha=z + 10, eta=v3 + 1,
+        k=v3 * 0, dist=torch.zeros(n, dtype=torch.int32), fdr_int=z,
+        spec_weight=z, alpha_v=z + 10, opacity=z + 1)
+    wi = torch.tensor([[0.0, 0.0, 1.0]]).expand(n, 3)
+    f = bsdf.eval(p, wi, wi, frozenset({PM.DIFFUSE, PM.IRAWAN}))
+    torch.testing.assert_close(f, v3 / np.pi)   # no cloth: the kd term
+    for kinds in (None, frozenset({PM.DIFFUSE, 99})):
+        with pytest.raises(ValueError, match="static set"):
+            bsdf.eval(p, wi, wi, kinds)
 
 
 def test_materials_board_path_matches_reference(tmp_path):

@@ -544,46 +544,52 @@ def test_gpt_takes_the_half_vector_shift_at_glossy_threshold():
 
 @pytest.mark.parametrize("bit,item", [(2, 13), (4, 12), (8, 13), (16, 12)])
 def test_unported_texture_bits_raise(scenes, bit, item):
-    """Textured opacity and blend weights (item 13) and woven cloth (item
-    12) raise.  Bit 2 (value 4: blend / coating rows, item 12) is
-    ported: the params resolve their wrapper fields and both tracers
+    """Every has_textures bit resolves (textured opacity and blend
+    weights were item 13, woven cloth item 12; their parity:
+    tests/test_torch_texture_rest.py, tests/test_torch_irawan.py): the
+    params fill their fields on the envmap scene's rows, which bind no
+    such texture (the rows' scalars come back), and both tracers
     build."""
     _, _, ts_scene, st = scenes
+    ids = torch.zeros(2).int()
+    bary = torch.tensor([[1.0, 1.0, 1.0, 3.4e38, 1.0, 0.0]]).expand(2, 6)
+    p = common.material_params(ts_scene, 1 | bit, ids, torch.zeros(2, 2),
+                               bary=bary)
+    row = ts_scene.materials.packed[0]
     if bit == 4:
-        p = common.material_params(ts_scene, 1 | bit, torch.zeros(2).int(),
-                                   torch.zeros(2, 2))
         assert p.blend is not None and not p.coat.any()
         assert (p.blend_w == 0).all()
-        st2 = copy.deepcopy(st)
-        st2.has_textures = 1 | bit
-        for cls in (GPTracer, PathTracer):
-            cls(ts_scene, st2)
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        common.material_params(ts_scene, 1 | bit, torch.zeros(2).int(),
-                               torch.zeros(2, 2))
+    if bit == 2:
+        assert (p.opacity == row[22]).all()
+    if bit == 16:
+        assert p.cloth is not None and p.cloth.shape == (2, 6)
+    else:
+        assert p.cloth is None
     st2 = copy.deepcopy(st)
     st2.has_textures = 1 | bit
     for cls in (GPTracer, PathTracer):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            cls(ts_scene, st2)
+        cls(ts_scene, st2)
 
 
 def test_ewa_and_other_envs_raise(scenes):
-    """EWA filtering is item 13; constant / sun-sky environments and
-    delta lights are item 14."""
+    """EWA filtering (item 13 before) builds and filters (its parity:
+    tests/test_torch_texture_rest.py); constant / sun-sky environments
+    and delta lights are item 14."""
     _, _, ts_scene, st = scenes
-    for field, value, item in (("has_ewa", True, 13), ("env_kind", 1, 14),
-                               ("n_delta", 1, 14)):
+    st2 = copy.deepcopy(st)
+    st2.has_ewa = True
+    for cls in (GPTracer, PathTracer):
+        assert cls(ts_scene, st2).has_ewa
+    for field, value, item in (("env_kind", 1, 14), ("n_delta", 1, 14)):
         st2 = copy.deepcopy(st)
         setattr(st2, field, value)
         for cls in (GPTracer, PathTracer):
             with pytest.raises(NotImplementedError, match=f"item {item}"):
                 cls(ts_scene, st2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tex.eval_texture(ts_scene.textures, torch.zeros(2).int(),
-                         torch.zeros(2, 2),
-                         (torch.ones(2), torch.zeros(2, 2, 2)))
+    out = tex.eval_texture(ts_scene.textures, torch.zeros(2).int(),
+                           torch.zeros(2, 2),
+                           (torch.ones(2), torch.zeros(2, 2, 2)))
+    assert out.shape == (2, 3) and torch.isfinite(out).all()
     for fn in (lambda: em.eval_env(ts_scene, em.ENV_CONSTANT,
                                    torch.zeros(2, 3)),
                lambda: em.sample_direct(ts_scene, 0, em.ENV_CONSTANT,

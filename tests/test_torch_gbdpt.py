@@ -176,7 +176,8 @@ def test_unported_scenes_raise(scene_file, item, cls):
     """envmap.xml's environment emitter is item 14.  cbox-mats.xml (a
     roughconductor and a textured floor), which raised item 12 before,
     builds and renders (against the reference:
-    tests/test_torch_gbdpt_glossy.py)."""
+    tests/test_torch_gbdpt_glossy.py), as woven cloth, item 12's last
+    kind, now does (tests/test_torch_irawan.py)."""
     scene, st = port_scene.load_scene(
         os.path.join(ROOT, "data/scenes", scene_file),
         {"width": "8", "height": "8", "integrator": "gbdpt",

@@ -189,24 +189,26 @@ IRAWAN_XML = """<scene version="0.5.0">
 """
 
 
-def test_unported_scenes_raise(tmp_path, monkeypatch):
-    """Woven cloth (irawan) is item 12, the one BSDF kind left: the
-    loader refuses an irawan XML, and GPTracer a table that holds the
-    kind.  door.xml, which raised here before, renders
-    (tests/test_torch_door.py)."""
+def test_unported_scenes_raise(tmp_path):
+    """Woven cloth (irawan), item 12 and the one BSDF kind that raised
+    here, is ported: the loader builds the irawan XML and GPTracer
+    renders it (its parity with the reference:
+    tests/test_torch_irawan.py, tests/test_torch_texture_rest.py), as it
+    renders door.xml.  Delta lights still raise item 14."""
     path = tmp_path / "cloth.xml"
     path.write_text(IRAWAN_XML)
-    with pytest.raises(NotImplementedError, match="irawan.*item 12"):
-        port_scene.load_scene(str(path), VARS)
+    scene, st = port_scene.load_scene(str(path), VARS)
+    ts = bridge.to_torch(scene, "cpu")
+    assert 16 in gpt_mod.bsdf_ops.scene_kinds(ts)
+    bufs = GPTracer(ts, st).render(ts, seed=0, spp=1)
+    assert all(torch.isfinite(v).all() for v in bufs.values())
+    assert bufs["primal"].sum() > 0
     scene, st = port_scene.load_scene(
         os.path.join(ROOT, "data/scenes/door/door.xml"), VARS)
-    ts = bridge.to_torch(scene, "cpu")
-    GPTracer(ts, st)
-    kinds = gpt_mod.bsdf_ops.scene_kinds(ts)
-    monkeypatch.setattr(gpt_mod.bsdf_ops, "scene_kinds",
-                        lambda s: kinds | {16})
-    with pytest.raises(NotImplementedError, match="woven.*item 12"):
-        GPTracer(ts, st)
+    GPTracer(bridge.to_torch(scene, "cpu"), st)
+    st.n_delta = 1
+    with pytest.raises(NotImplementedError, match="item 14"):
+        GPTracer(bridge.to_torch(scene, "cpu"), st)
 
 
 @pytest.mark.parametrize("lanes", [None, "1", "256", "300", "4096",

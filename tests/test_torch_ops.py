@@ -285,10 +285,15 @@ def test_diffuse_bsdf(scenes, twosided):
 
 
 def test_non_diffuse_kinds_raise(scenes):
+    """Every kind of the reference dispatches (woven cloth, 16, the last
+    one that raised here, is ported); a static set naming an unknown
+    kind raises."""
     _, ts_scene, _ = scenes
     tp = bsdf.gather_params(ts_scene.materials, torch.zeros(4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        bsdf.eval(tp, torch.ones(4, 3), torch.ones(4, 3), frozenset({0, 16}))
+    f = bsdf.eval(tp, torch.ones(4, 3), torch.ones(4, 3), frozenset({0, 16}))
+    assert torch.isfinite(f).all()
+    with pytest.raises(ValueError):
+        bsdf.eval(tp, torch.ones(4, 3), torch.ones(4, 3), frozenset({0, 99}))
 
 
 def test_fill_intersection(scenes):

@@ -188,9 +188,10 @@ def test_unported_branches_raise(cbox16):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.trace_rays(scene, 0, torch.zeros(2, dtype=torch.int64),
                       torch.arange(2), o, d, sss_cache=object())
-    # woven cloth (irawan) is the one BSDF kind left; door.xml, whose
-    # thindielectric raised here before, builds (and renders against the
-    # reference: tests/test_torch_door.py)
+    # door.xml, whose thindielectric raised here before, builds (and
+    # renders against the reference: tests/test_torch_door.py); so does a
+    # table with woven cloth (irawan), item 12 and the last BSDF kind
+    # that raised (tests/test_torch_irawan.py); delta lights raise item 14
     scene_np, st2 = port_scene.load_scene(
         os.path.join(ROOT, "data/scenes/door/door.xml"),
         {"width": "16", "height": "16"})
@@ -200,10 +201,12 @@ def test_unported_branches_raise(cbox16):
     mp = pytest.MonkeyPatch()
     mp.setattr(path_mod.bsdf_ops, "scene_kinds", lambda s: kinds | {16})
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-            PathTracer(ts, st2)
+        assert 16 in PathTracer(ts, st2).kinds
     finally:
         mp.undo()
+    st2.n_delta = 1
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        PathTracer(ts, st2)
 
 
 @pytest.mark.parametrize("lanes", [None, "1", "256", "65536", "3000000"])
