@@ -88,11 +88,13 @@ its time):
      (the light image's deterministic scatter);
  14. G-BDPT gradients: E[dx] at 64x64, maxDepth 2, 48 spp against the
      finite difference of a 256-spp primal (tests/test_bdpt.py's
-     thresholds: rms ratio < 0.55, correlation > 0.85);
+     thresholds: rms ratio < 0.55, correlation > 0.85), 16 samples a
+     pixel a pass;
  15. step B families through factory.make_integrator: direct, ao, field
      (shNormal), multichannel (path + ao) at 256x256, 16 spp, maxDepth 5,
      and adaptive at 64x64, 4 spp, maxDepth 3 (finite pixels, mean |I| >
-     1e-5, sweeps launched);
+     1e-5, sweeps launched; adaptive's refine rounds as wide as the
+     film, refineFraction 1);
      adaptive once more through the plain versions, same seed: the
      sample maps equal and the images within phase 4's tolerance on >= 99%
      of pixels, means within 1e-3;
@@ -191,6 +193,38 @@ its time):
      buffer, rays within 1e-3); G-PT primal
      + very_direct against PathTracer at maxDepth 5 there; the woven
      cloth's sample against its pdf by chi^2 at 1,048,576 lanes.
+ 22. step G2b through factory.make_integrator: envmap.xml (BASELINE
+     config #4) at its own 128x96 with BDPT and G-BDPT + L1 (16 spp,
+     maxDepth 5: the eye walk's environment NEE, the aux-only G-PT
+     pass); tools/lights_board.py's board (written at run time: an area,
+     a point, a spot and a directional light, a constant environment, a
+     roughconductor and a dielectric sphere) at 128^2 with path and G-PT
+     + L1 (32 spp, maxDepth 8), BDPT and G-BDPT + L1 (16 spp, maxDepth
+     5), SPPM (65,536 photons) and VPL (1,024 walks, chunks of 256) at 16
+     spp, maxDepth 5, and its sunsky variant with path and G-PT + L1;
+     each as in phase 20 (warm-up, launch counters reset just before it,
+     rays, launches, wall, one profiled render for the idle share);
+     G-BDPT primal + very_direct against the BDPT image on envmap and the
+     board at full width; every family and volpath, irrcache and pssmlt
+     on the board at 64x64, 4 spp through the kernels and the plain
+     versions (phase 4's tolerance, rays within 1e-3, pssmlt's acceptance
+     decisions); G-PT = path at maxDepth 5; E[BDPT] against E[path] on
+     tests/test_bdpt_env.py's open boxes (environment + area light 3%,
+     point light at maxDepth 2 1%) and on envmap (3%), and G-BDPT's
+     E[dx] on its constant-environment box (0.3 < slope < 1.7, corr >
+     0.45, 0.5 < rms ratio < 1.7), the bidirectional samples traced
+     several a pass; path on tools/sensor_scenes.py's orthographic,
+     telecentric, spherical, rdist (128^2) and meter (1x1, 256 spp)
+     scenes and BDPT on the orthographic, spherical and rdist ones (64^2)
+     through the kernels and the plain versions, with the reference
+     tests' readings (spherical 2 on >= 95% of pixels, radiancemeter
+     (3, 2, 1), fluencemeter 2 within 2%, rdist at kc 0 = perspective);
+     every sweep call of one pass on the new ray families against the
+     plain versions (the board's NEE with the directional light's 1e7
+     shadow rays, the board seen by orthographic, spherical and
+     fluencemeter sensors, SPPM's photon walks from the delta lights);
+     the collimated beam's spot under SPPM (centre > 20x border); the
+     uniform sphere and cone warps' chi^2 at 1,048,576 lanes.
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -205,6 +239,7 @@ null.  Prints one JSON line describing the kernels, then as the last line
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -344,7 +379,8 @@ def compare(kernels, args):
     check(torch.equal(got.valid, ref.valid), "closest: valid differs")
     n_valid = int(ref.valid.sum())
     same = ref.valid & (got.prim == ref.prim)
-    prim_frac = int(same.sum()) / max(n_valid, 1)
+    # a batch that hits nothing (valid equal, checked above) agrees
+    prim_frac = int(same.sum()) / n_valid if n_valid else 1.0
     terr = (got.t[same] - ref.t[same]).abs()
     max_abs = float(terr.max()) if n_valid else 0.0
     max_rel = float((terr / ref.t[same].abs()).max()) if n_valid else 0.0
@@ -432,7 +468,7 @@ def cbox_rays(scene, settings, n, dev, seed=0):
     W, H = settings.width, settings.height
     pos = torch.rand((n, 2), generator=g, device=dev) * torch.tensor(
         [W, H], dtype=torch.float32, device=dev)
-    o, d = sensor.sample_ray(scene.camera, W, H, pos,
+    o, d = sensor.sample_ray(sensor.describe(scene.camera), W, H, pos,
                              torch.zeros((n, 2), device=dev))
     mint = torch.zeros(n, device=dev)
     maxt = torch.full((n,), 3e38, device=dev)
@@ -447,10 +483,10 @@ def cbox_rays(scene, settings, n, dev, seed=0):
     return (o, d, mint, maxt), (so, ds.d.contiguous(), mint, smaxt)
 
 
-def render_calls(tracer, scene, n_samples):
+def render_calls(tracer, scene, n_samples, run=None):
     """The sweep calls of one render_chunk of `tracer` (n_samples samples
-    a pixel from sample 0, seed 0): [(any_hit, (o, d, mint, maxt))],
-    inputs cloned, dead lanes included."""
+    a pixel from sample 0, seed 0), or of run() if given: [(any_hit, (o,
+    d, mint, maxt))], inputs cloned, dead lanes included."""
     from gradientdomain_mitsuba_tpu_torch.ops import sweep
     calls = []
     launch = sweep.SweepKernel._launch
@@ -462,7 +498,10 @@ def render_calls(tracer, scene, n_samples):
 
     sweep.SweepKernel._launch = capture
     try:
-        tracer.render_chunk(scene, 0, 0, n_samples)
+        if run is None:
+            tracer.render_chunk(scene, 0, 0, n_samples)
+        else:
+            run()
         torch.cuda.synchronize()
     finally:
         sweep.SweepKernel._launch = launch
@@ -483,7 +522,8 @@ def check_render_calls(label, calls, linC):
         check(pf >= PRIM_FRAC and mr <= T_RTOL and of >= OCC_FRAC,
               f"{label}: kernel vs plain disagree on a "
               f"{rays[0].shape[0]}-lane {'any-hit' if any_hit else 'closest'}"
-              f" call")
+              f" call (prim agree {pf:.6f}, t rel {mr:.3e}, occluded "
+              f"agree {of:.6f})")
         exact += pf == 1.0 and mr == 0.0 and of == 1.0
         worst = (min(worst[0], pf), max(worst[1], mr), min(worst[2], of))
     for any_hit in (False, True):
@@ -877,7 +917,7 @@ def forest_rays(scene, st, n, dev, seed=0, raster=False):
         pos = pos + torch.stack([ids % W, ids // W], 1)
     else:
         pos = pos * torch.tensor([W, H], dtype=torch.float32, device=dev)
-    o, d = sensor.sample_ray(scene.camera, W, H, pos,
+    o, d = sensor.sample_ray(sensor.describe(scene.camera), W, H, pos,
                              torch.zeros((n, 2), device=dev))
     o, d = o.contiguous(), d.contiguous()
     mint = torch.zeros(n, device=dev)
@@ -1637,17 +1677,19 @@ def phase_bidir_vs_plain(dev):
 
 def phase_gbdpt_gradients(dev):
     """E[dx] of G-BDPT against the finite difference of a high-spp primal
-    (tests/test_bdpt.py's consistency check) at 64^2, maxDepth 2."""
+    (tests/test_bdpt.py's consistency check) at 64^2, maxDepth 2: the
+    48 and 256 samples a pixel of render's, 16 a pass (gbdpt_batched)."""
     from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
     scene, st = load_scene_at(CBOX, dev, 64, 8, 2, "gbdpt")
     g = GBDPTracer(scene, st)
     t0 = time.time()
-    out = g.render(scene, seed=0, spp=48)
-    ref = g.render(scene, seed=555, spp=256)
+    out = gbdpt_batched(g, scene, 0, 48, 16)
+    ref = gbdpt_batched(g, scene, 555, 256, 16)
     torch.cuda.synchronize()
     return gradient_check(
-        f"G-BDPT 64x64 maxDepth 2, 48 vs 256 spp ({time.time() - t0:.3f} s)",
-        out["dx"], ref["primal"], out["very_direct"], (0.55, 0.85, None))
+        f"G-BDPT 64x64 maxDepth 2, 48 vs 256 spp, 16 a pass "
+        f"({time.time() - t0:.3f} s)", out["dx"], ref["primal"],
+        out["very_direct"], (0.55, 0.85, None))
 
 
 def phase_step_b(dev):
@@ -1660,11 +1702,14 @@ def phase_step_b(dev):
     from gradientdomain_mitsuba_tpu_torch.models import factory
     summary, images = {}, {}
     # adaptive's rounds are host-paced and run twice (kernels, plain):
-    # maxDepth 3 keeps the whole script inside its time limit
+    # maxDepth 3 and rounds as wide as the film (refineFraction 1: every
+    # unconverged pixel refines each round, 124 rounds at most instead
+    # of 496) keep the whole script inside its time limit
     for name, size, spp, depth, props in (
             ("direct", 256, 16, 5, {}), ("ao", 256, 16, 5, {}),
             ("field", 256, 16, 5, {"field": "shNormal"}),
-            ("multichannel", 256, 16, 5, {}), ("adaptive", 64, 4, 3, {})):
+            ("multichannel", 256, 16, 5, {}),
+            ("adaptive", 64, 4, 3, {"refineFraction": 1.0})):
         scene, st = load_scene_at(CBOX, dev, size, spp, depth, name)
         st.integrator_props.update(props)
         if name == "multichannel":
@@ -1735,13 +1780,16 @@ STEP_D_PROPS = {"sppm": {"photonCount": 65536}}
 
 def load_scene_at(path, dev, size, spp, depth, integrator, props=None):
     """A scene loaded with the loader's variables (cbox.xml takes its
-    integrator type from $integrator) and moved to the card; the
-    settings' integrator type and properties set as given."""
+    integrator type from $integrator) at size^2 (None: its own film) and
+    moved to the card; the settings' integrator type and properties set
+    as given."""
     from gradientdomain_mitsuba_tpu_torch.scene import bridge
     from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
-    scene_np, st = sc.load_scene(path, {
-        "width": str(size), "height": str(size), "spp": str(spp),
-        "maxDepth": str(depth), "integrator": integrator})
+    over = {"spp": str(spp), "maxDepth": str(depth),
+            "integrator": integrator}
+    if size is not None:
+        over.update(width=str(size), height=str(size))
+    scene_np, st = sc.load_scene(path, over)
     st.integrator = integrator
     st.integrator_props.update(props or {})
     return bridge.to_torch(scene_np, dev), st
@@ -2029,6 +2077,23 @@ STEP_E_SPP = {"mlt": 1}
 EXPECT_CHAINS = 1 << 18
 
 
+@contextlib.contextmanager
+def wide_passes(lanes):
+    """GDMT_LANES set to `lanes` inside the block: the path and G-PT
+    tracers then trace up to that many lanes a pass (within a render's
+    chunk), the same samples in fewer host-paced passes (only the film's
+    summation order changes)."""
+    old = os.environ.get("GDMT_LANES")
+    os.environ["GDMT_LANES"] = str(lanes)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GDMT_LANES"]
+        else:
+            os.environ["GDMT_LANES"] = old
+
+
 def record_takes(tracer):
     """Record a chain tracer's acceptance decisions: returns the list its
     _mstep appends each step's [C] bool tensor to (a chain accepted where
@@ -2057,16 +2122,9 @@ def expectation_check(dev, label, ref, family, size, mutations,
     if ref_img is None:
         scene, st = load_scene_at(CAUSTICS, dev, ref_size, ref_spp, 8,
                                   ref_family)
-        lanes = os.environ.get("GDMT_LANES")
-        os.environ["GDMT_LANES"] = str(EXPECT_CHAINS)
-        try:
+        with wide_passes(EXPECT_CHAINS):
             ref_img = factory.make_integrator(scene, st).render(
                 scene, seed=3, spp=ref_spp)
-        finally:
-            if lanes is None:
-                del os.environ["GDMT_LANES"]
-            else:
-                os.environ["GDMT_LANES"] = lanes
     n = size * size * mutations
     scene, st = load_scene_at(CAUSTICS, dev, size, mutations, 8, family, {
         "chains": EXPECT_CHAINS, "luminanceSamples": bootstrap})
@@ -2134,7 +2192,11 @@ def phase_step_e(dev):
                     use_plain(t)
             if fam in CHAIN_FAMILIES:
                 takes[mode] = record_takes(tracer)
-            outs[mode] = counted_render(tracer, scene, 5, 4)
+            if fam == "bdpt":
+                img, _, rays = bidir_batched(tracer, scene, 5, 4)
+                outs[mode] = img, rays
+            else:
+                outs[mode] = counted_render(tracer, scene, 5, 4)
         (ok, rk), (op, rp) = outs["kernel"], outs["plain"]
         log(f"{fam} 64x64 4spp kernel vs plain ({time.time() - t0:.3f} s): "
             f"rays {rk} vs {rp}")
@@ -2385,11 +2447,12 @@ def gradient_check(label, dx, primal_ref, very, limits):
 
 
 def gbdpt_batched(tracer, scene, seed, spp, per_pass):
-    """G-BDPT buffers (primal, very_direct, dx normalized as finalize
-    does) of `spp` samples a pixel traced `per_pass` samples a pass: the
-    same lanes, sample indices and arithmetic as render's one sample a
-    pass (trace_pass takes a sample index a lane), without the host cost
-    of a pass a sample.  The light image is off (lightImage false)."""
+    """G-BDPT buffers {primal (with the light image), very_direct, dx,
+    dy}, normalized as finalize does, of `spp` samples a pixel traced
+    `per_pass` samples a pass: the same lanes, sample indices and
+    arithmetic as render's one sample a pass (trace_pass takes a sample
+    index a lane), without the host cost of a pass a sample."""
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import OFFSETS
     from gradientdomain_mitsuba_tpu_torch.ops import film as film_ops
     st = tracer.settings
     H, W = st.height, st.width
@@ -2398,12 +2461,16 @@ def gbdpt_batched(tracer, scene, seed, spp, per_pass):
     fb = torch.zeros((H, W, 3), device=dev)
     vb = torch.zeros_like(fb)
     dx = torch.zeros_like(fb)
+    dy = torch.zeros_like(fb)
+    li = torch.zeros_like(fb)
     wb = torch.zeros((H, W), device=dev)
+    off_x = torch.tensor(OFFSETS[1], device=dev)
+    off_y = torch.tensor(OFFSETS[3], device=dev)
     ids = torch.arange(N, device=dev).repeat(per_pass)
     for start in range(0, spp, per_pass):
         sidx = start + torch.arange(per_pass, device=dev).repeat_interleave(N)
-        pos, primal, very, grad = tracer.trace_pass(
-            scene, seed, sidx, pixel_id=ids)[:4]
+        (pos, primal, very, grad, spos, sval, t1p,
+         t1g) = tracer.trace_pass(scene, seed, sidx, pixel_id=ids)
         jit = (pos % 1.0).reshape(per_pass, N, 2)
         fb, wb = film_ops.splat_grid(fb, wb, jit,
                                      primal.reshape(per_pass, N, 3),
@@ -2414,8 +2481,16 @@ def gbdpt_batched(tracer, scene, seed, spp, per_pass):
         g = grad.reshape(4, per_pass, N, 3)
         dx = film_ops.add_grid_shifted(dx, g[0], 0, 0)
         dx = film_ops.add_grid_shifted(dx, -g[1], -1, 0)
+        dy = film_ops.add_grid_shifted(dy, g[2], 0, 0)
+        dy = film_ops.add_grid_shifted(dy, -g[3], 0, -1)
+        li = film_ops.splat_unfiltered(li, spos, sval)
+        dx = film_ops.splat_unfiltered(dx, torch.cat([t1p, t1p + off_x]),
+                                       torch.cat([t1g[0], -t1g[1]]))
+        dy = film_ops.splat_unfiltered(dy, torch.cat([t1p, t1p + off_y]),
+                                       torch.cat([t1g[2], -t1g[3]]))
     w = torch.clamp_min(wb, 1e-12)[..., None]
-    return fb / w, vb / w, dx / spp
+    return dict(primal=fb / w + li / spp, very_direct=vb / w, dx=dx / spp,
+                dy=dy / spp)
 
 
 def phase_step_7a(dev, recs):
@@ -2537,7 +2612,9 @@ def phase_step_7a(dev, recs):
         t0 = time.time()
         scene, st = load_scene_at(xml, dev, 20, 8, 4, "gpt")
         out = GPTracer(scene, st).render(scene, seed=0, spp=128)
-        ref = PathTracer(scene, st).render(scene, seed=777, spp=3072)
+        with wide_passes(20 * 20 * 3072):
+            ref = PathTracer(scene, st).render(scene, seed=777, spp=3072,
+                                               chunk=3072)
         summary["gpt_glass_dx"] = gradient_check(
             f"G-PT glass 20x20 128 vs 3072 spp ({time.time() - t0:.3f} s)",
             out["dx"], ref - out["very_direct"], out["very_direct"],
@@ -2546,12 +2623,12 @@ def phase_step_7a(dev, recs):
         scene, st = load_scene_at(xml, dev, 16, 8, 4, "gbdpt",
                                   {"lightImage": False})
         g = GBDPTracer(scene, st)
-        _, very, dx = gbdpt_batched(g, scene, 0, 256, 128)
-        primal_ref, _, _ = gbdpt_batched(g, scene, 555, 384, 128)
+        out = gbdpt_batched(g, scene, 0, 256, 128)
+        ref = gbdpt_batched(g, scene, 555, 384, 128)
         summary["gbdpt_glass_dx"] = gradient_check(
             f"G-BDPT glass 16x16 lightImage false, 256 vs 384 spp "
-            f"({time.time() - t0:.3f} s)", dx, primal_ref, very,
-            (0.85, 0.7, (0.8, 1.2)))
+            f"({time.time() - t0:.3f} s)", out["dx"], ref["primal"],
+            out["very_direct"], (0.85, 0.7, (0.8, 1.2)))
     finally:
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2576,7 +2653,8 @@ STEP_G1 = (("gpt door", DOOR, "gpt", 32, 8),
 # samples a pixel of the profiled render that reads a render's idle
 # share: one pass of each tracer (G-PT 16 samples a pixel a pass, path
 # 4 at 128^2, the bidirectional tracers 1)
-G1_PROFILE_SPP = {"gpt": 16, "path": 4, "bdpt": 1, "gbdpt": 1}
+G1_PROFILE_SPP = {"gpt": 16, "path": 4, "bdpt": 1, "gbdpt": 1, "sppm": 1,
+                  "vpl": 1}
 N_CHI2 = 1 << 20
 CHI2_CT, CHI2_PHI, CHI2_SUB = 12, 24, 24
 
@@ -2645,22 +2723,30 @@ def chi2_on_card(label, params, kinds, wi, dev):
                 share=share)
 
 
-def full_width_renders(dev, recs, renders):
+FACTORY_CLASS = {"gpt": "GPTracer", "path": "PathTracer",
+                 "bdpt": "BDPTracer", "gbdpt": "GBDPTracer",
+                 "sppm": "SPPMTracer", "vpl": "VPLTracer"}
+
+
+def full_width_renders(dev, recs, renders, load=None):
     """renders [(label, scene path, integrator, spp, maxDepth)] at 128^2
+    (or as load(label, path, integrator, spp, maxDepth) loads them)
     through factory.make_integrator, each after a 1-spp warm-up with the
     sweeps' launch counters reset just before it (wall, rays, launches,
-    added to the sweep kernels' records; every sweep must launch), then
-    one profiled render (idle share; G1_PROFILE_SPP).  Returns (summary,
-    {label: image or G-PT / G-BDPT buffers})."""
+    added to the sweep kernels' records; every sweep must launch, sppm's
+    closest-hit one), then one profiled render (idle share;
+    G1_PROFILE_SPP).  Returns (summary, {label: image or G-PT / G-BDPT
+    buffers})."""
     from gradientdomain_mitsuba_tpu_torch.models import factory
     summary, full = {}, {}
     for label, path, fam, spp, depth in renders:
-        scene, st = load_scene_at(path, dev, 128, spp, depth, fam)
+        if load is None:
+            scene, st = load_scene_at(path, dev, 128, spp, depth, fam)
+        else:
+            scene, st = load(label, path, fam, spp, depth)
         tracer = factory.make_integrator(scene, st)
-        check(type(tracer).__name__ == {
-            "gpt": "GPTracer", "path": "PathTracer",
-            "bdpt": "BDPTracer", "gbdpt": "GBDPTracer"}[fam],
-            f"{label}: factory built {type(tracer).__name__}")
+        check(type(tracer).__name__ == FACTORY_CLASS[fam],
+              f"{label}: factory built {type(tracer).__name__}")
         t0 = time.time()
         g1_render(tracer, scene, 0, 1)
         torch.cuda.synchronize()
@@ -2678,14 +2764,17 @@ def full_width_renders(dev, recs, renders):
             recs[k.name]["launches"] += n
         finite = bool(torch.isfinite(img).all())
         mean = float(img.abs().mean())
-        log(f"{label} 128x128 {spp}spp maxDepth {depth}"
+        log(f"{label} {st.width}x{st.height} {spp}spp maxDepth {depth}"
             f"{' + L1' if fam in ('gpt', 'gbdpt') else ''}: wall "
             f"{wall:.4f} s, rays {rays}, {rays / wall / 1e6:.3f} "
             f"Mrays/s, sweep launches closest {launches[0]} occluded "
             f"{launches[1]}, finite {finite}, mean |I| {mean:.5f}")
-        check(tuple(img.shape) == (128, 128, 3), f"{label}: shape")
+        check(tuple(img.shape) == (st.height, st.width, 3),
+              f"{label}: shape")
         check(finite and mean > 1e-5, f"{label}: not finite or black")
-        check(all(n > 0 for n in launches),
+        # sppm's gather tests no visibility: no any-hit query
+        check(all(n > 0 for n in (launches[:1] if fam == "sppm"
+                                  else launches)),
               f"{label}: a sweep kernel was not launched: {launches}")
         prof_spp = G1_PROFILE_SPP[fam]
         prof = profiled_render(
@@ -2703,24 +2792,40 @@ def full_width_renders(dev, recs, renders):
     return summary, full
 
 
-def kernel_vs_plain(dev, label, path, fam, depth, size=64, spp=4):
-    """`fam` at size^2, spp through the kernels and through the plain
-    versions (same seed): rays within 1e-3, every buffer within phase
-    4's tolerance (means within 1e-3), finite.  Returns the kernel
-    render's buffers and the scene and settings."""
+def kernel_vs_plain(dev, label, path, fam, depth, size=64, spp=4,
+                    props=None):
+    """`fam` at size^2 (None: the scene's own film), spp through the
+    kernels and through the plain
+    versions (same seed; every tracer that traces for it, tracers_of):
+    rays within 1e-3, every buffer within phase 4's tolerance (means
+    within 1e-3), finite; for a chain family also the share of
+    acceptance decisions that agree (>= IMG_FRAC).  Returns the kernel
+    render's buffers and the scene and settings.  BDPT and G-BDPT trace
+    all `spp` samples in one pass (bidir_batched)."""
     from gradientdomain_mitsuba_tpu_torch.models import factory
-    scene, st = load_scene_at(path, dev, size, spp, depth, fam)
-    outs = {}
+    scene, st = load_scene_at(path, dev, size, spp, depth, fam, props)
+    outs, takes = {}, {}
     for mode in ("kernel", "plain"):
         tracer = factory.make_integrator(scene, st)
         if mode == "plain":
-            use_plain(tracer)
-        img, bufs, rays = g1_render(tracer, scene, 3, spp)
+            for t in tracers_of(tracer):
+                use_plain(t)
+        if fam in CHAIN_FAMILIES:
+            takes[mode] = record_takes(tracer)
+        if fam in ("bdpt", "gbdpt"):
+            img, bufs, rays = bidir_batched(tracer, scene, 3, spp)
+        else:
+            img, bufs, rays = g1_render(tracer, scene, 3, spp)
         outs[mode] = (bufs if bufs is not None else {"image": img}), rays
     (kb, kr), (pb, pr) = outs["kernel"], outs["plain"]
-    log(f"{label} {size}x{size} {spp}spp kernel vs plain: rays {kr} vs "
-        f"{pr}")
+    log(f"{label} {st.width}x{st.height} {spp}spp kernel vs plain: rays "
+        f"{kr} vs {pr}")
     check(abs(kr - pr) <= 1e-3 * pr, f"{label}: ray counts differ")
+    if takes:
+        share = float((torch.stack(takes["kernel"]) ==
+                       torch.stack(takes["plain"])).float().mean())
+        log(f"  {label}: acceptance decisions agree {share:.6f}")
+        check(share >= IMG_FRAC, f"{label}: acceptance decisions differ")
     for name in kb:
         _buffers_agree(f"{label} {name}", kb[name], pb[name],
                        mean_rtol=1e-3)
@@ -2858,7 +2963,9 @@ def phase_step_g1(dev, recs):
         t0 = time.time()
         scene, st = load_scene_at(DOOR, dev, 32, 8, 8, "gpt")
         out = GPTracer(scene, st).render(scene, seed=0, spp=256)
-        ref = PathTracer(scene, st).render(scene, seed=777, spp=2048)
+        with wide_passes(32 * 32 * 2048):
+            ref = PathTracer(scene, st).render(scene, seed=777, spp=2048,
+                                               chunk=2048)
         summary["gpt_door_dx"] = gradient_check(
             f"G-PT door 32x32 256 vs path 2048 spp "
             f"({time.time() - t0:.3f} s)", out["dx"],
@@ -2948,6 +3055,343 @@ def phase_step_g2a(dev, recs):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# step G2b: every emitter and sensor of the reference (delta lights, the
+# constant and sunsky environments, BDPT's aux NEE and G-BDPT's aux-only
+# G-PT pass, the other sensors) through factory.make_integrator
+
+# LIGHTS / SUNSKY stand for tools/lights_board.py's two XMLs, written at
+# run time; envmap.xml renders at its own 128x96
+LIGHTS, SUNSKY = "lights board", "sunsky board"
+STEP_G2B_PROPS = {"sppm": {"photonCount": 65536},
+                  "vpl": {"vplCount": 1024, "vplChunk": 256}}
+# (label, scene, integrator, spp, maxDepth)
+STEP_G2B = (("bdpt envmap", ENVMAP, "bdpt", 16, G1_BIDIR_DEPTH),
+            ("gbdpt envmap", ENVMAP, "gbdpt", 16, G1_BIDIR_DEPTH),
+            ("path lights board", LIGHTS, "path", 32, 8),
+            ("gpt lights board", LIGHTS, "gpt", 32, 8),
+            ("bdpt lights board", LIGHTS, "bdpt", 16, G1_BIDIR_DEPTH),
+            ("gbdpt lights board", LIGHTS, "gbdpt", 16, G1_BIDIR_DEPTH),
+            ("path sunsky board", SUNSKY, "path", 32, 8),
+            ("gpt sunsky board", SUNSKY, "gpt", 32, 8),
+            ("sppm lights board", LIGHTS, "sppm", 16, 5),
+            ("vpl lights board", LIGHTS, "vpl", 16, 5))
+# the new sensors through path at 128^2 (the meters at their 1x1, 256
+# spp) and BDPT on three of them at 64^2: (scene, integrator)
+G2B_SENSORS = (("spherical", "path"), ("orthographic", "path"),
+               ("telecentric", "path"), ("radiancemeter", "path"),
+               ("fluencemeter", "path"), ("rdist", "path"),
+               ("orthographic", "bdpt"), ("spherical", "bdpt"),
+               ("rdist", "bdpt"))
+
+
+def bidir_batched(tracer, scene, seed, spp):
+    """(image, buffers or None, rays) of a BDPT or G-BDPT render of `spp`
+    samples a pixel traced in one pass (bdpt_batched / gbdpt_batched),
+    rays from the intersectors' device tally."""
+    from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
+    tracer.ray_tally = torch.zeros((), dtype=torch.int64,
+                                   device=tracer.device)
+    try:
+        if isinstance(tracer, GBDPTracer):
+            bufs = gbdpt_batched(tracer, scene, seed, spp, spp)
+            img = bufs["primal"]
+        else:
+            bufs, img = None, bdpt_batched(tracer, scene, seed, spp, spp)
+        rays = int(tracer.ray_tally)
+    finally:
+        tracer.ray_tally = None
+    return img, bufs, rays
+
+
+def bdpt_batched(tracer, scene, seed, spp, per_pass):
+    """A BDPT image (eye image and light image / spp, as render makes it)
+    of `spp` samples a pixel traced `per_pass` samples a pass: the same
+    lanes, sample indices and arithmetic as render's one sample a pass."""
+    from gradientdomain_mitsuba_tpu_torch.ops import film as film_ops
+    st = tracer.settings
+    H, W = st.height, st.width
+    N = H * W
+    dev = tracer.device
+    fb = torch.zeros((H, W, 3), device=dev)
+    li = torch.zeros_like(fb)
+    wb = torch.zeros((H, W), device=dev)
+    ids = torch.arange(N, device=dev).repeat(per_pass)
+    for start in range(0, spp, per_pass):
+        sidx = start + torch.arange(per_pass, device=dev).repeat_interleave(N)
+        pos, L, spos, sval = tracer.trace_pass(scene, seed, sidx,
+                                               pixel_id=ids)
+        fb, wb = film_ops.splat_grid(fb, wb,
+                                     (pos % 1.0).reshape(per_pass, N, 2),
+                                     L.reshape(per_pass, N, 3),
+                                     tracer.filter_kind)
+        li = film_ops.splat_unfiltered(li, spos, sval)
+    return film_ops.develop(fb, wb) + li / spp
+
+
+def bdpt_vs_path(dev, label, path, over, spp, tol):
+    """tests/test_bdpt_env.py's _compare on the card: BDPT (seed 3) and
+    path (seed 11) at `spp` each, finite, means within `tol` relative,
+    the median per-pixel residual |b - p| / (p + 0.05 mean) below 3 tol
+    where the path image is lit.  BDPT traces all its samples in one
+    pass (bdpt_batched)."""
+    from gradientdomain_mitsuba_tpu_torch.models.bdpt import BDPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    from gradientdomain_mitsuba_tpu_torch.scene import bridge
+    from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
+    t0 = time.time()
+    scene_np, st = sc.load_scene(path, over.get("vars"), over.get("over"))
+    scene = bridge.to_torch(scene_np, dev)
+    b = bdpt_batched(BDPTracer(scene, st), scene, 3, spp, spp)
+    p = PathTracer(scene, st).render(scene, seed=11, spp=spp)
+    check(bool(torch.isfinite(b).all() and torch.isfinite(p).all()),
+          f"{label}: not finite")
+    denom = max(float(p.mean()), 1e-9)
+    rel = abs(float(b.mean()) - float(p.mean())) / denom
+    lit = p.sum(-1) > 1e-4
+    rr = float(((b[lit] - p[lit]).abs() / (p[lit] + 0.05 * denom))
+               .median())
+    log(f"  E[BDPT] vs E[path] {label} {st.width}x{st.height} maxDepth "
+        f"{st.max_depth}, {spp} spp each: means {float(b.mean()):.5f} vs "
+        f"{float(p.mean()):.5f} (rel {rel:.4f} < {tol}), median residual "
+        f"{rr:.4f} (< {3 * tol}) ({time.time() - t0:.3f} s)")
+    check(rel < tol, f"{label}: E[BDPT] != E[path]")
+    check(rr < 3 * tol, f"{label}: per-pixel residual")
+    return dict(rel=rel, median_residual=rr)
+
+
+def env_gradient_check(dev, path):
+    """tests/test_bdpt_env.py's G-BDPT E[dx] check on the constant-env
+    open box with the small box (maxDepth 2): 64 spp (seed 0) against the
+    finite difference of a 256-spp primal (seed 777), interior pixels;
+    slope in (0.3, 1.7), correlation > 0.45, rms ratio in (0.5, 1.7);
+    primal + very_direct against a 32-spp BDPT mean within 5%.  Traced 64
+    samples a pass (gbdpt_batched, bdpt_batched)."""
+    from gradientdomain_mitsuba_tpu_torch.models.bdpt import BDPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
+    from gradientdomain_mitsuba_tpu_torch.scene import bridge
+    from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
+    t0 = time.time()
+    scene_np, st = sc.load_scene(path, None, {"max_depth": 2})
+    scene = bridge.to_torch(scene_np, dev)
+    g = GBDPTracer(scene, st)
+    check(g.aux_via_gpt, "env box: G-BDPT without its aux-only G-PT")
+    out = gbdpt_batched(g, scene, 0, 64, 64)
+    primal, very, dx = out["primal"], out["very_direct"], out["dx"]
+    ref = gbdpt_batched(g, scene, 777, 256, 64)["primal"]
+    fd_x = (ref[:, 1:] - ref[:, :-1]).sum(-1)
+    d = dx[:, :-1].sum(-1)
+    vd = very.sum(-1)
+    mx = (vd[:, 1:] + vd[:, :-1]) == 0
+    a, b = d[mx].double(), fd_x[mx].double()
+    slope = float((a * b).sum() / (b * b).sum().clamp_min(1e-12))
+    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    rms = float(torch.sqrt((a * a).mean() / (b * b).mean().clamp_min(
+        1e-12)))
+    bd = bdpt_batched(BDPTracer(scene, st), scene, 5, 32, 32)
+    rel = abs(float((primal + very).mean()) - float(bd.mean())) / float(
+        bd.mean())
+    log(f"  G-BDPT env box E[dx] ({int(mx.sum())} pixel pairs): slope "
+        f"{slope:.4f} (0.3-1.7), corr {corr:.4f} (> 0.45), rms ratio "
+        f"{rms:.4f} (0.5-1.7); primal + very_direct vs BDPT mean rel "
+        f"{rel:.4f} (< 0.05) ({time.time() - t0:.3f} s)")
+    check(int(mx.sum()) >= 32, "env box: too few interior pixels")
+    check(0.3 < slope < 1.7 and corr > 0.45 and 0.5 < rms < 1.7,
+          "env box: G-BDPT E[dx] off the finite difference")
+    check(rel < 0.05, "env box: G-BDPT != BDPT in expectation")
+    return dict(slope=slope, corr=corr, rms_ratio=rms, vs_bdpt=rel)
+
+
+def warp_chi2(dev):
+    """The uniform sphere and cone (cos 0.6) warps' samples against their
+    own pdfs at N_CHI2 lanes: uniform in (z, phi) over 8 x 16 bins,
+    chi^2 below dof + 5.5 sqrt(2 dof) as chi2_on_card."""
+    from gradientdomain_mitsuba_tpu_torch.core import warp
+    g = torch.Generator(device=dev).manual_seed(11)
+    u = torch.rand((N_CHI2, 2), generator=g, device=dev)
+    out = {}
+    for name, d, lo in (
+            ("sphere", warp.square_to_uniform_sphere(u), -1.0),
+            ("cone", warp.square_to_uniform_cone(u, 0.6), 0.6)):
+        iz = torch.clamp(((d[:, 2] - lo) / (1 - lo) * 8).long(), 0, 7)
+        phi = torch.remainder(torch.atan2(d[:, 1], d[:, 0]), 2 * np.pi)
+        ip = torch.clamp((phi / (2 * np.pi) * 16).long(), 0, 15)
+        counts = torch.bincount(iz * 16 + ip, minlength=128).double()
+        expect = N_CHI2 / 128
+        chi2 = float(((counts - expect) ** 2 / expect).sum())
+        limit = 127 + 5.5 * np.sqrt(2.0 * 127)
+        norm = float((d.norm(dim=-1) - 1).abs().max())
+        log(f"  chi2 uniform {name}: {chi2:.1f} (dof 127, limit "
+            f"{limit:.1f}); max |norm - 1| {norm:.2e}")
+        check(chi2 < limit and norm < 1e-5,
+              f"uniform {name}: sample does not follow its pdf")
+        out[name] = chi2
+    return out
+
+
+def phase_step_g2b(dev, recs):
+    """Step G2b through factory.make_integrator: the STEP_G2B renders
+    (full_width_renders; envmap.xml at its own 128x96, the boards at
+    128^2; launches added to the sweep kernels' records); G-BDPT = BDPT
+    on envmap and the lights board at full width; every STEP_G2B family
+    and volpath, irrcache and pssmlt on the lights board at 64^2, 4 spp
+    through the kernels and the plain versions; G-PT = path at maxDepth
+    5; E[BDPT] = E[path] on the env-plus-area and point-light open boxes
+    and on envmap; G-BDPT's E[dx] on the constant-env box; the sensors
+    through path (and BDPT) against plain, with their expectations; the
+    sweeps against plain on the new ray families; the collimated beam
+    under SPPM; the uniform warps' chi^2."""
+    import shutil
+    import tempfile
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    from gradientdomain_mitsuba_tpu_torch.models.sppm import SPPMTracer
+    tmp = tempfile.mkdtemp()
+    try:
+        lb = load_tool("lights_board")
+        ss = load_tool("sensor_scenes")
+        paths = {LIGHTS: lb.write_board(tmp, "constant"),
+                 SUNSKY: lb.write_board(tmp, "sunsky")}
+        board = paths[LIGHTS]
+
+        def load(label, path, fam, spp, depth):
+            return load_scene_at(path, dev, None if path == ENVMAP else 128,
+                                 spp, depth, fam, STEP_G2B_PROPS.get(fam))
+        summary, full = full_width_renders(
+            dev, recs, [(label, paths.get(path, path), fam, spp, depth)
+                        for label, path, fam, spp, depth in STEP_G2B],
+            load)
+
+        # G-BDPT = BDPT at full width (both seed 1, 16 spp)
+        for name in ("envmap", "lights board"):
+            comb = (full[f"gbdpt {name}"]["primal"] +
+                    full[f"gbdpt {name}"]["very_direct"])
+            err = float((comb - full[f"bdpt {name}"]).abs().max())
+            log(f"gbdpt {name} 16spp: primal + very_direct vs BDPT max "
+                f"|diff| {err:.3e}")
+            check(bool(torch.allclose(comb, full[f"bdpt {name}"],
+                                      rtol=2e-4, atol=2e-5)),
+                  f"gbdpt {name}: G-BDPT primal != BDPT")
+            summary[f"gbdpt_vs_bdpt_{name}"] = err
+        del full
+
+        # kernels vs plain at 64^2, 4 spp (same seed)
+        for label, path, fam, _, depth in STEP_G2B + (
+                ("volpath lights board", LIGHTS, "volpath", 4, 5),
+                ("irrcache lights board", LIGHTS, "irrcache", 4, 5),
+                ("pssmlt lights board", LIGHTS, "pssmlt", 4, 5)):
+            props = dict(STEP_G2B_PROPS.get(fam, {}))
+            if fam == "pssmlt":
+                props.update(chains=4096, luminanceSamples=16384)
+            kernel_vs_plain(dev, label, paths.get(path, path), fam, depth,
+                            props=props)
+        scene, st = load_scene_at(board, dev, 64, 4, 5, "gpt")
+        _, bufs, _ = step_7a_render(GPTracer(scene, st), scene, 3, 4)
+        img = PathTracer(scene, st).render(scene, seed=3, spp=4)
+        comb = bufs["primal"] + bufs["very_direct"]
+        err = float((comb - img).abs().max())
+        log(f"gpt lights board 64x64 4spp maxDepth 5: primal + "
+            f"very_direct vs PathTracer max |diff| {err:.3e}")
+        check(bool(torch.allclose(comb, img, rtol=3e-4, atol=3e-5)),
+              "G-PT primal != PathTracer on the lights board")
+        summary["gpt_vs_path_max_diff"] = err
+
+        # E[BDPT] = E[path] (tests/test_bdpt_env.py's scenes, sample
+        # counts and tolerances); G-BDPT's gradients of the env family
+        summary["bdpt_vs_path"] = {
+            "env_area": bdpt_vs_path(
+                dev, "env + area box", lb.write_open_box(tmp, "env_area"),
+                {}, 128, 0.03),
+            "point": bdpt_vs_path(
+                dev, "point-light box", lb.write_open_box(tmp, "point"),
+                {"over": {"max_depth": 2}}, 64, 0.01),
+            "envmap": bdpt_vs_path(
+                dev, "envmap", ENVMAP, {"vars": {
+                    "width": "24", "height": "24", "spp": "8",
+                    "maxDepth": "3"}}, 64, 0.03)}
+        summary["env_box_dx"] = env_gradient_check(
+            dev, lb.write_open_box(tmp, "env_smallbox"))
+
+        # the sensors: path at 128^2 (meters 1x1, 256 spp) and BDPT at
+        # 64^2 through kernels and plain, with the reference tests'
+        # expectations
+        sens = {}
+        for name, fam in G2B_SENSORS:
+            path = ss.write_scene(tmp, name)
+            meter = name in ss.METERS
+            size = None if meter else (128 if fam == "path" else 64)
+            spp = 256 if meter else 4
+            kb, _, st = kernel_vs_plain(dev, f"{fam} {name}", path, fam,
+                                        3, size=size, spp=spp)
+            img = kb["image"]
+            if fam != "path":
+                continue
+            if name == "spherical":
+                frac = float(((img - 2.0).abs() < 1e-4).all(-1).float()
+                             .mean())
+                check(frac > 0.95, f"spherical: {frac} of pixels read 2")
+                sens[name] = frac
+            elif name == "radiancemeter":
+                check(bool(torch.allclose(img[0, 0], torch.tensor(
+                    [3.0, 2.0, 1.0], device=dev), rtol=1e-5)),
+                      f"radiancemeter reads {img[0, 0].tolist()}")
+                sens[name] = img[0, 0].tolist()
+            elif name == "fluencemeter":
+                check(bool(((img[0, 0] - 2.0).abs() < 0.04).all()),
+                      f"fluencemeter reads {img[0, 0].tolist()}")
+                sens[name] = img[0, 0].tolist()
+        imgs = []
+        for name in ("rdist0", "perspective"):
+            scene, st = load_scene_at(ss.write_scene(tmp, name), dev, 128,
+                                      4, 2, "path")
+            imgs.append(PathTracer(scene, st).render(scene, seed=1, spp=4))
+        same = bool(torch.equal(*imgs))
+        log(f"  rdist kc 0 vs perspective 128x128 4spp: equal {same}")
+        check(same, "rdist with kc 0 != perspective")
+        for name, v in sens.items():
+            log(f"  {name}: {v}")
+        summary["sensors"] = sens
+
+        # the sweeps against plain on the new ray families: the
+        # directional light's 1e7 shadow rays (one path pass on the
+        # board), the orthographic camera's parallel rays, the spherical
+        # and fluencemeter rays from inside the box (the board under those
+        # sensors), and SPPM's photon walks from the delta lights
+        for sensor, size, spp in (("perspective", 64, 1),
+                                  ("orthographic", 64, 1),
+                                  ("spherical", 64, 1),
+                                  ("fluencemeter", 1, 4096)):
+            path = lb.write_board(tmp, "constant", sensor)
+            scene, st = load_scene_at(path, dev, size, spp, 5, "path")
+            tracer = PathTracer(scene, st)
+            check_render_calls(f"path lights board, {sensor}",
+                               render_calls(tracer, scene, spp),
+                               scene.geom.linC)
+        scene, st = load_scene_at(board, dev, 64, 1, 5, "sppm",
+                                  STEP_G2B_PROPS["sppm"])
+        tracer = SPPMTracer(scene, st)
+        calls = render_calls(tracer, scene, 1, run=lambda: (
+            tracer._emit_photons(scene, 0, 0)))
+        calls.append((True, calls[0][1]))   # any hit on the photon rays
+        check_render_calls("sppm photons lights board", calls,
+                           scene.geom.linC)
+
+        # the collimated beam under SPPM (tests/test_sensors.py)
+        scene, st = load_scene_at(lb.write_collimated(tmp), dev, None, 4, 3,
+                                  "sppm")
+        img = SPPMTracer(scene, st).render(scene, seed=0, spp=4)
+        center, border = lb.beam_spot(img)
+        log(f"  collimated beam under SPPM: centre {center:.5f}, border "
+            f"{border:.3e}")
+        check(center > 0.05 and center > 20 * max(border, 1e-9),
+              "collimated beam: no spot")
+        summary["collimated"] = dict(center=center, border=border)
+        summary["chi2"] = warp_chi2(dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary
+
+
 def build_kernels():
     """Build the three kernel libraries, one nvcc each, all started
     together; prints how much the overlap saves against building them
@@ -2978,11 +3422,12 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("step-e", "step-f", "step-7a",
-                                        "step-g1", "step-g2a"),
+                                        "step-g1", "step-g2a", "step-g2b"),
                     help="build the kernels and run one phase that needs "
                          "no earlier one (step-e: phase 17, step-f: phase "
                          "18, step-7a: phase 19, step-g1: phase 20, "
-                         "step-g2a: phase 21), without the result line")
+                         "step-g2a: phase 21, step-g2b: phase 22), without "
+                         "the result line")
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3028,6 +3473,9 @@ def main():
     if args.only == "step-g2a":
         with Phase("step G2a: the cloth board"):
             log(json.dumps({"step_g2a": phase_step_g2a(dev, recs)}))
+    if args.only == "step-g2b":
+        with Phase("step G2b: every emitter and sensor"):
+            log(json.dumps({"step_g2b": phase_step_g2b(dev, recs)}))
     if args.only:
         log(f"total {time.time() - t_start:.3f} s")
         log(card_line())
@@ -3075,12 +3523,14 @@ def main():
         step_g1 = phase_step_g1(dev, recs)
     with Phase("step G2a: the cloth board"):
         step_g2a = phase_step_g2a(dev, recs)
+    with Phase("step G2b: every emitter and sensor"):
+        step_g2b = phase_step_g2b(dev, recs)
     log(json.dumps({"slice": summary, "forest": forest_summary,
                     "forest_v4": v4_summary, "bidir": bidir_summary,
                     "gbdpt_gradients": grad_summary, "step_b": step_b,
                     "step_d": step_d, "step_e": step_e, "step_f": step_f,
                     "step_7a": step_7a, "step_g1": step_g1,
-                    "step_g2a": step_g2a}))
+                    "step_g2a": step_g2a, "step_g2b": step_g2b}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

@@ -2,9 +2,7 @@
 microfacet half vectors.
 
 Counterpart of gradientdomain_mitsuba_tpu/core/warp.py (Mitsuba's warp
-namespace, src/libcore/warp.cpp).  The uniform sphere / hemisphere /
-cone warps and interval_to_tent are not ported yet (ROADMAP Queue 1
-item 2).
+namespace, src/libcore/warp.cpp), every warp of it.
 """
 from __future__ import annotations
 
@@ -14,6 +12,8 @@ import torch
 
 PI = math.pi
 INV_PI = 1.0 / math.pi
+INV_TWOPI = 1.0 / (2.0 * math.pi)
+INV_FOURPI = 1.0 / (4.0 * math.pi)
 
 
 def square_to_uniform_disk_concentric(u):
@@ -41,6 +41,37 @@ def square_to_cosine_hemisphere(u):
 
 def square_to_cosine_hemisphere_pdf(d):
     return torch.clamp_min(d[..., 2], 0.0) * INV_PI
+
+
+def _z_to_direction(z, u1):
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = 2.0 * PI * u1
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_sphere(u):
+    return _z_to_direction(1.0 - 2.0 * u[..., 0], u[..., 1])
+
+
+def square_to_uniform_sphere_pdf():
+    return INV_FOURPI
+
+
+def square_to_uniform_hemisphere(u):
+    return _z_to_direction(u[..., 0], u[..., 1])
+
+
+def square_to_uniform_hemisphere_pdf():
+    return INV_TWOPI
+
+
+def square_to_uniform_cone(u, cos_cutoff):
+    """Uniform direction in a cone of angle acos(cos_cutoff) about +z."""
+    return _z_to_direction(1.0 - u[..., 0] * (1.0 - cos_cutoff), u[..., 1])
+
+
+def square_to_uniform_cone_pdf(cos_cutoff):
+    return INV_TWOPI / (1.0 - cos_cutoff)
 
 
 def square_to_uniform_triangle(u):
@@ -89,3 +120,11 @@ def square_to_ggx_pdf(d, alpha):
     denom = ct * ct * (a2 - 1.0) + 1.0
     D = a2 / (PI * torch.clamp_min(denom * denom, 1e-20))
     return D * ct
+
+
+def interval_to_tent(u):
+    """[0,1) -> [-1,1] tent-distributed (tent reconstruction filter)."""
+    lo = u < 0.5
+    u2 = torch.where(lo, 2.0 * u, 2.0 * (1.0 - u))
+    return torch.where(lo, 1.0, -1.0) * (1.0 - torch.sqrt(
+        torch.clamp_min(u2, 0.0)))

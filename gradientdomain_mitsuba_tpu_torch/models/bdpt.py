@@ -39,9 +39,16 @@ pdf of 0 (remapped to 1 in the MIS ratios) and is never a connection
 endpoint, as in the reference; a lobe that is delta per sample
 (plastic's specular lobe, hk's unscattered transmission, a mask's
 pass-through, a smooth coating's layer) only zeroes the next vertex's
-forward pdf through bs.is_delta, as there.  Environment and
-delta-light NEE on the eye walk and other sensors (item 14) raise
-NotImplementedError naming the ROADMAP Queue 1 item.
+forward pdf through bs.is_delta, as there.  The environment and the
+delta lights are an embedded NEE family on the eye walk (aux_nee, as in
+the reference): an escaped segment picks up the environment's radiance
+MIS-weighted against environment NEE, and every non-delta eye vertex
+draws one NEE sample over {delta lights, environment}; light subpaths
+start on area emitters only.  Every sensor generates the eye rays; the
+light image uses each kind's importance (sensor.importance_sample_direct:
+the thin lens takes the pinhole's, the meters none), while the camera's
+MIS densities are the perspective's for every kind, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -57,7 +64,7 @@ from ..core import warp
 from ..core.rng import DimAllocator as DA
 from ..core.rng import make_sampler
 from ..ops import bsdf as bsdf_ops
-from ..ops import common, film as film_ops
+from ..ops import common, emitter as em_ops, film as film_ops
 from ..ops import sensor as sensor_ops
 from ..ops.emitter import _searchsorted_segment, sample_emitter_triangle
 from ..scene.materials import CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC
@@ -146,8 +153,13 @@ def _col(sp, name, k):
     return None if f is None else f[:, k]
 
 
+# the smallest normal float32: XLA's CPU arithmetic treats a subnormal
+# input as zero, so the reference remaps a subnormal density as it does 0
+F32_MIN_NORMAL = 1.1754944e-38
+
+
 def _remap0(x):
-    return torch.where(x > 0, x, 1.0)
+    return torch.where(x >= F32_MIN_NORMAL, x, 1.0)
 
 
 def _dir_to_area(pdf_sa, d, dist2, ng_at_target):
@@ -195,32 +207,28 @@ def one_pass(trace_pass):
     return run
 
 
-def check_scene(scene, settings):
-    """Raise NotImplementedError naming the ROADMAP Queue 1 item for a
-    scene a ported bidirectional tracer cannot render yet (emitters and
-    sensors).  Returns the scene's material kinds."""
-    if settings.env_kind != 0 or settings.n_delta > 0:
-        raise NotImplementedError(
-            "environment / delta-light NEE on the eye walk: ROADMAP "
-            "Queue 1 item 14")
-    # light tracing needs the pinhole's importance
-    sensor_ops.check_supported(scene.camera, lens=False)
-    return bsdf_ops.scene_kinds(scene)
-
-
 class BDPTracer:
     """Bidirectional path tracer over SoA wavefronts (reference parity:
     bdpt.cpp with lightImage=true, sampleDirect via s=1 strategies)."""
 
     def __init__(self, scene, settings):
         configure()
-        self.kinds = check_scene(scene, settings)
+        self.kinds = bsdf_ops.scene_kinds(scene)
         self._beval = functools.partial(bsdf_ops.eval, kinds=self.kinds)
         self._bpdf = functools.partial(bsdf_ops.pdf, kinds=self.kinds)
         self._bsample = functools.partial(bsdf_ops.sample, kinds=self.kinds)
         self.settings = settings
         self.device = scene.geom.linC.device
         self.n_area = int((scene.emitters.tri_count > 0).sum())
+        # the environment and delta lights: an embedded NEE family on the
+        # eye walk (_random_walk collect_aux), disjoint from the
+        # area-light subpath strategies
+        self.env_kind = settings.env_kind
+        self.n_delta = settings.n_delta
+        self.aux_nee = (settings.env_kind != 0) or (settings.n_delta > 0)
+        # G-BDPT estimates that family by an aux-only G-PT pass instead;
+        # when set, the eye walk skips its own aux collection
+        self.aux_via_gpt = False
         n_tris = int(scene.geom.indices.shape[0])
         closest, occluded = common.choose_intersector(
             settings, n_tris, int(scene.geom.clusters.offset.shape[0]))
@@ -247,10 +255,11 @@ class BDPTracer:
         # light tracing (t=1) is disabled, its technique must leave the
         # denominators too or every weight underestimates its strategy
         self.camera_connectable = self.light_image
+        self.sensor = sensor_ops.describe(scene.camera)
         cam = scene.camera
         self._cam_pos = cam.to_world[:3, 3]
         self._cam_fwd = cam.to_world[:3, 2]
-        self._a_img = sensor_ops.image_area(cam)
+        self._a_img = self.sensor.image_area
 
     # -- camera helpers -------------------------------------------------
     def _camera_pdf_area(self, scene, p, ng):
@@ -265,19 +274,32 @@ class BDPTracer:
 
     # -- random walk ------------------------------------------------------
     def _random_walk(self, scene, seed, sample_idx, pixel_id, o0, d0,
-                     beta0, pdf_sa0, dim_base, n_steps, adjoint=False):
+                     beta0, pdf_sa0, dim_base, n_steps, adjoint=False,
+                     collect_aux=False):
         """Fill a SubPath with up to n_steps vertices.
 
         adjoint=True applies the shading-normal importance-transport
         correction |cos_ns(wo) cos_ng(wi)| / |cos_ng(wo) cos_ns(wi)| to
         beta at every bounce (Veach 5.3; pbrt CorrectShadingNormal).
 
-        Returns (SubPath, rev0_sa): rev0_sa is the reverse solid-angle pdf
-        at the FIRST vertex toward the walk origin (needed for the
-        origin's pdf_rev)."""
+        collect_aux=True (eye walk only) also integrates the environment
+        / delta-light family in lockstep: escaped segments pick up the
+        environment's radiance MIS-weighted against environment NEE, and
+        every non-delta vertex runs one NEE draw over {delta lights,
+        environment} (dims D_LIGHT_SELECT / D_LIGHT_UV, unused by the
+        walk itself).
+
+        Returns (SubPath, rev0_sa, aux_L): rev0_sa is the reverse
+        solid-angle pdf at the FIRST vertex toward the walk origin (needed
+        for the origin's pdf_rev), aux_L the family's radiance [N,3]."""
         N = o0.shape[0]
         dev = self.device
         eps = scene.ray_eps
+        do_aux = collect_aux and self.aux_nee
+        aux_L = torch.zeros((N, 3), device=dev)
+        # could the PREVIOUS vertex's environment NEE have sampled the
+        # current segment's direction? (camera and delta bounces: no)
+        prev_can_nee = torch.zeros(N, dtype=torch.bool, device=dev)
 
         def empty(shape, val=0.0, dtype=torch.float32):
             return torch.full((N, n_steps) + shape, val, dtype=dtype,
@@ -303,6 +325,19 @@ class BDPTracer:
             hit = self.closest(o, d, zeros, torch.where(alive, 3e38, -1.0),
                                scene.geom)
             its = common.fill_intersection(scene, o, d, hit)
+            if do_aux and self.env_kind != 0:
+                escaped = alive & ~its.valid
+                rad_esc = em_ops.eval_env(scene, self.env_kind, d)
+                pdf_nee = em_ops.pdf_env_direct(scene, 0, self.env_kind, d,
+                                                n_delta=self.n_delta)
+                pdf_nee = torch.where(prev_can_nee, pdf_nee, 0.0)
+                w_esc = torch.where(
+                    pdf_nee > 0,
+                    pdf_sa ** 2 / torch.clamp_min(pdf_sa ** 2 + pdf_nee ** 2,
+                                                  1e-24),
+                    1.0)
+                aux_L = aux_L + torch.where(_b3(escaped),
+                                            beta * rad_esc * _b3(w_esc), 0.0)
             alive = alive & its.valid
 
             pdf_fwd = _dir_to_area(pdf_sa, d, its.t ** 2, its.ng)
@@ -352,6 +387,12 @@ class BDPTracer:
                                         sp.ng[:, k - 1])
                 sp.pdf_rev[:, k - 1] = torch.where(alive, rev_area, 0.0)
 
+            if do_aux and k + 2 <= self.depth:
+                aux_L = aux_L + self._aux_nee(scene, seed, sample_idx,
+                                              pixel_id, dim_base, k, its,
+                                              ss, ts, wi, par, beta, alive,
+                                              eps)
+
             wo_w = m.to_world(bs.wo, ss, ts, its.ns)
             weight = bs.weight
             if adjoint:
@@ -367,8 +408,36 @@ class BDPTracer:
             alive = alive & bs.valid
             beta = torch.where(alive[..., None], beta * weight, 0.0)
             pdf_sa = torch.where(bs.is_delta, 0.0, bs.pdf)
+            prev_can_nee = alive & ~bs.is_delta & (k + 2 <= self.depth)
 
-        return sp, rev0_sa
+        return sp, rev0_sa, aux_L
+
+    def _aux_nee(self, scene, seed, sample_idx, pixel_id, dim_base, k, its,
+                 ss, ts, wi, par, beta, alive, eps):
+        """One NEE draw over {delta lights, environment} at eye vertex k:
+        weight 1 on a delta light, the power heuristic against BSDF
+        sampling on the environment."""
+        N = beta.shape[0]
+        u_ds = self._u1(seed, pixel_id, sample_idx,
+                        dim_base + DA.bounce_dim(k, DA.D_LIGHT_SELECT))
+        u_dp = self._u2(seed, pixel_id, sample_idx,
+                        dim_base + DA.bounce_dim(k, DA.D_LIGHT_UV))
+        ds = em_ops.sample_direct(scene, 0, self.env_kind, its.p, u_ds, u_dp,
+                                  n_delta=self.n_delta)
+        wo_l = m.to_local(ds.d, ss, ts, its.ns)
+        f_nee = self._beval(par, wi, wo_l)
+        pdf_b = self._bpdf(par, wi, wo_l)
+        want = alive & ds.valid & (f_nee.amax(-1) > 0)
+        sh_o = common.offset_ray_origin(its.p, its.ng, ds.d, eps)
+        occ = self.occluded(sh_o, ds.d, torch.zeros(N, device=self.device),
+                            torch.where(want, ds.dist * (1.0 - 1e-4), -1.0),
+                            scene.geom)
+        want = want & ~occ
+        w_nee = torch.where(
+            ds.is_delta, 1.0,
+            ds.pdf ** 2 / torch.clamp_min(ds.pdf ** 2 + pdf_b ** 2, 1e-24))
+        return torch.where(_b3(want), beta * f_nee * ds.radiance *
+                           _b3(w_nee / torch.clamp_min(ds.pdf, 1e-12)), 0.0)
 
     # -- subpath generation -------------------------------------------------
     def _gen_eye_path(self, scene, seed, sample_idx, pixel_id, W, H):
@@ -378,14 +447,15 @@ class BDPTracer:
         jitter = self._u2(seed, pixel_id, sample_idx, DA.PIXEL_JITTER)
         pos_film = torch.stack([px, py], -1) + jitter
         u_ap = self._u2(seed, pixel_id, sample_idx, DA.APERTURE)
-        o, d = sensor_ops.sample_ray(scene.camera, W, H, pos_film, u_ap)
+        o, d = sensor_ops.sample_ray(self.sensor, W, H, pos_film, u_ap)
         cos_cam = torch.clamp_min(m.dot(d, self._cam_fwd.expand(d.shape)),
                                   1e-6)
         pdf_dir = 1.0 / (self._a_img * cos_cam ** 3)
-        sp, _ = self._random_walk(
+        sp, _, aux_L = self._random_walk(
             scene, seed, sample_idx, pixel_id, o, d,
-            torch.ones((N, 3), device=self.device), pdf_dir, 0, self.TE)
-        return pos_film, sp
+            torch.ones((N, 3), device=self.device), pdf_dir, 0, self.TE,
+            collect_aux=not self.aux_via_gpt)
+        return pos_film, sp, aux_L
 
     def _gen_light_path(self, scene, seed, sample_idx, pixel_id):
         N = pixel_id.shape[0]
@@ -418,7 +488,7 @@ class BDPTracer:
         o0 = common.offset_ray_origin(y0p, ng0, d0, scene.ray_eps)
         # at least one slot so downstream indexing stays well-formed even
         # when maxDepth==1 (no s>=2 strategy ever reads it then)
-        sp, rev0_sa = self._random_walk(
+        sp, rev0_sa, _ = self._random_walk(
             scene, seed, sample_idx, pixel_id, o0, d0, beta1, pdf_dir,
             LIGHT_DIM_BASE + 8, max(self.SM - 1, 1), adjoint=True)
 
@@ -721,7 +791,7 @@ class BDPTracer:
         ok = _col(light, "valid", kl) & ~_col(light, "delta", kl)
 
         film, we, in_frustum = sensor_ops.importance_sample_direct(
-            scene.camera, W, H, yp)
+            self.sensor, W, H, yp)
         to_cam = self._cam_pos.expand(yp.shape) - yp
         d2 = torch.clamp_min(m.squared_length(to_cam), 1e-12)
         dist = torch.sqrt(d2)
@@ -779,11 +849,10 @@ class BDPTracer:
         N = pixel_id.shape[0]
         eps = scene.ray_eps
 
-        pos_film, eye = self._gen_eye_path(scene, seed, sample_idx,
-                                           pixel_id, W, H)
+        pos_film, eye, L = self._gen_eye_path(scene, seed, sample_idx,
+                                              pixel_id, W, H)
         y0, light = self._gen_light_path(scene, seed, sample_idx, pixel_id)
 
-        L = torch.zeros((N, 3), device=self.device)
         splat_pos, splat_val = [], []
         t1_list = self._t1_list()
         occ_t1 = self._batched_t1_occlusion(scene, light, t1_list, N, eps)

@@ -43,7 +43,7 @@ class _FirstHitIntegrator:
 
     def __init__(self, scene, settings):
         configure()
-        sensor_ops.check_supported(scene.camera)
+        self.sensor = sensor_ops.describe(scene.camera)
         self.settings = settings
         self.device = scene.geom.linC.device
         n_tris = int(scene.geom.indices.shape[0])
@@ -66,7 +66,7 @@ class _FirstHitIntegrator:
         jitter = self._u2(seed, pixel_id, sample_idx, DA.PIXEL_JITTER)
         pos_film = torch.stack([px, py], -1) + jitter
         u_ap = self._u2(seed, pixel_id, sample_idx, DA.APERTURE)
-        o, d = sensor_ops.sample_ray(scene.camera, W, H, pos_film, u_ap)
+        o, d = sensor_ops.sample_ray(self.sensor, W, H, pos_film, u_ap)
         hit = self.closest(o, d, torch.zeros(N, device=self.device),
                            torch.full((N,), 3e38, device=self.device),
                            scene.geom)

@@ -25,8 +25,11 @@ footprint), as the reference does, and replay woven cloth's yarn
 azimuth at the offset camera vertex, along the half-vector replay and at
 the t=1 shift's retraced vertex (the reference's junction fixups at
 the base vertex z_{k+2} and the replayed base bounce read the cloth
-without it: its diffuse term).  Environment or delta lights raise item
-14 (the reference's aux-only G-PT pass).  The eye images and
+without it: its diffuse term).  The environment / delta-light family
+is estimated with its gradients by an embedded aux-only G-PT pass
+(aux_via_gpt, as in the reference): its primal, very_direct and
+gradients add to the strategies' buffers, and the eye walk skips its
+own aux collection.  The eye images and
 eye-gradient pairs are grid-aligned and go through the dense film
 adds; the light image and its image-space
 gradient pairs go through the deterministic scatter.  The final image
@@ -70,6 +73,18 @@ class GBDPTracer(BDPTracer):
         # visibility)
         self.light_image_grads = (self.light_image and
                                   bool(p.get("lightImageGradients", True)))
+        # the environment / delta-light family WITH gradients: an
+        # aux-only G-PT tracer tracing through this tracer's intersectors
+        # (looked up at each call), so its rays and kernel launches count
+        # with this tracer's, as the reference shares its ray tally
+        self.aux_via_gpt = self.aux_nee
+        if self.aux_via_gpt:
+            from .gpt import GPTracer
+            aux = GPTracer(scene, settings, aux_only=True)
+            aux.closest = lambda *a: self.closest(*a)
+            aux.occluded = lambda *a: self.occluded(*a)
+            aux.kernels = self.kernels
+            self._aux_tracer = aux
 
     def _classify_diffuse(self, scene, bsdf_id, valid):
         rough = bsdf_ops.roughness(scene.materials,
@@ -88,7 +103,7 @@ class GBDPTracer(BDPTracer):
         offs = torch.tensor(OFFSETS, dtype=torch.float32, device=dev)
         pos = (base[None] + offs[:, None, :]).reshape(4 * N, 2)
         u_ap = self._u2(seed, pixel_id, sample_idx, DA.APERTURE).repeat(4, 1)
-        o, d = sensor_ops.sample_ray(scene.camera, W, H, pos, u_ap)
+        o, d = sensor_ops.sample_ray(self.sensor, W, H, pos, u_ap)
         hit = self.closest(o, d, torch.zeros(4 * N, device=dev),
                            torch.full((4 * N,), 3e38, device=dev),
                            scene.geom)
@@ -385,7 +400,7 @@ class GBDPTracer(BDPTracer):
         offs = torch.tensor(OFFSETS, dtype=torch.float32, device=self.device)
         film_o = (film_base[None] + offs[:, None, :]).reshape(M, 2)
         return sensor_ops.sample_ray(
-            scene.camera, W, H, film_o,
+            self.sensor, W, H, film_o,
             torch.full((M, 2), 0.5, device=self.device))
 
     def _t1_occ_ray(self, scene, light4, y04, s, its1, eps):
@@ -505,8 +520,8 @@ class GBDPTracer(BDPTracer):
         M = 4 * N
         eps = scene.ray_eps
 
-        pos_film, eye = self._gen_eye_path(scene, seed, sample_idx,
-                                           pixel_id, W, H)
+        pos_film, eye, very = self._gen_eye_path(scene, seed, sample_idx,
+                                                 pixel_id, W, H)
         y0, light = self._gen_light_path(scene, seed, sample_idx, pixel_id)
 
         # ---- all 4 offset views as ONE 4N-lane batch -------------------
@@ -524,8 +539,17 @@ class GBDPTracer(BDPTracer):
         ok_end_s04 = V4["ok_end_s0"].reshape(4, N, TE)
 
         primal = torch.zeros((N, 3), device=dev)
-        very = torch.zeros((N, 3), device=dev)
         grad = torch.zeros((4, N, 3), device=dev)
+        if self.aux_via_gpt:
+            # the environment / delta-light family with gradients: the
+            # aux-only G-PT pass on the same counter-RNG pixel stream (its
+            # depth-1 environment radiance is the family's very-direct
+            # part); `very` is zeros since the eye walk skipped the family
+            _, aux_primal, aux_very, aux_grad = self._aux_tracer.trace_pass(
+                scene, seed, sample_idx, pixel_id=pixel_id)
+            primal = primal + aux_primal
+            very = very + aux_very
+            grad = grad + aux_grad
         splat_pos, splat_val = [], []
         t1_pos, t1_grad = [], []
 

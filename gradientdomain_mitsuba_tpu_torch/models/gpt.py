@@ -15,17 +15,16 @@ Ported: the kinds of bsdf.PORTED_KINDS, delta (conductor, dielectric,
 thin dielectric) and glossy vertices through the half-vector copy
 (half_vector_copy, shared with G-BDPT's prefix replay; any_specular
 selects the branch that runs full offsets at every bounce), area lights
-and the environment map (its shift), the perspective and thin-lens
-cameras, and every texture of the reference (the primary hits' mip
-level and anisotropic filter, the barycentric payload, woven cloth) for
-the base and the offset paths.  Like the reference's, the copy treats a
-thin dielectric offset as a solid one: it refracts about the normal
-with the offset's eta where thindielectric.cpp passes straight through
-(ROADMAP Queue 3).  Other scenes raise NotImplementedError at
-construction, naming the ROADMAP item: other emitters and sensors
-(item 14).
-The reference's aux_only mode (G-BDPT's env / delta-light family) is
-item 14.
+delta lights (a point / spot offset sees the shared light point with
+its own 1/d^2, a directional one the shared direction) and the constant
+environment and envmap (the environment shift), every sensor, and every
+texture of the reference (the primary hits' mip level and anisotropic
+filter, the barycentric payload, woven cloth) for the base and the
+offset paths.  Like the reference's, the copy treats a thin dielectric
+offset as a solid one: it refracts about the normal with the offset's
+eta where thindielectric.cpp passes straight through (ROADMAP Queue 3).
+aux_only=True is the reference's restricted tracer that G-BDPT embeds
+for the environment / delta-light family.
 """
 from __future__ import annotations
 
@@ -44,8 +43,7 @@ from ..ops import common, emitter as em_ops
 from ..ops import film as film_ops
 from ..ops import sensor as sensor_ops
 from ..scene.materials import CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC
-from .path import (MAX_BOUNCES_UNLIMITED, check_scene_extras, mis_weight,
-                   primary_footprint)
+from .path import MAX_BOUNCES_UNLIMITED, mis_weight, primary_footprint
 
 # film-space shifts: +x, -x, +y, -y
 OFFSETS = ((1.0, 0.0), (-1.0, 0.0), (0.0, 1.0), (0.0, -1.0))
@@ -163,7 +161,12 @@ class GPTracer:
     primal-parity check: with the gradients ignored, primal + very_direct
     is the path tracer's image)."""
 
-    def __init__(self, scene, settings):
+    def __init__(self, scene, settings, aux_only=False):
+        """aux_only=True restricts the estimator to the environment /
+        delta-light family (NEE over the delta lights and the
+        environment, the environment escape; area-emitter contributions
+        zeroed): G-BDPT embeds this tracer for the family its (s,t)
+        strategies do not cover (models/gbdpt.py)."""
         configure()
         self.kinds = bsdf_ops.scene_kinds(scene)
         p = settings.integrator_props
@@ -173,21 +176,24 @@ class GPTracer:
         # its per-bounce offset continuation rays entirely
         self.any_specular = bsdf_ops.any_specular(scene.materials,
                                                   self.shift_threshold)
-        check_scene_extras(settings)
-        sensor_ops.check_supported(scene.camera)
+        self.sensor = sensor_ops.describe(scene.camera)
         self._beval = functools.partial(bsdf_ops.eval, kinds=self.kinds)
         self._bpdf = functools.partial(bsdf_ops.pdf, kinds=self.kinds)
         self._bsample = functools.partial(bsdf_ops.sample, kinds=self.kinds)
         self.settings = settings
         self.device = scene.geom.linC.device
-        self.n_area = int((scene.emitters.tri_count > 0).sum())
+        self.aux_only = bool(aux_only)
+        # NEE selection and MIS densities skip the area lights in aux_only
+        self.n_area = (0 if self.aux_only else
+                       int((scene.emitters.tri_count > 0).sum()))
         self.env_kind = settings.env_kind
         self.has_env = settings.env_kind != 0
-        # emitters NEE picks among: the area lights and the environment
-        self.n_lights = self.n_area + (1 if self.has_env else 0)
+        self.n_delta = settings.n_delta
+        # emitters NEE picks among: area, delta lights, environment
+        self.n_lights = self.n_area + self.n_delta + (1 if self.has_env
+                                                      else 0)
         self.has_textures = settings.has_textures
         self.has_ewa = settings.has_ewa
-        self.n_delta = 0
         n_tris = int(scene.geom.indices.shape[0])
         closest, occluded = common.choose_intersector(
             settings, n_tris, int(scene.geom.clusters.offset.shape[0]))
@@ -230,11 +236,11 @@ class GPTracer:
         u_ap = self._u2(seed, pixel_id, sample_idx, DA.APERTURE)
 
         # base + 4 offset camera rays (same jitter/aperture randoms)
-        o_m, d_m = sensor_ops.sample_ray(scene.camera, W, H, pos_film, u_ap)
+        o_m, d_m = sensor_ops.sample_ray(self.sensor, W, H, pos_film, u_ap)
         offs = torch.tensor(OFFSETS, dtype=torch.float32, device=dev)
         pos_off = pos_film[None] + offs[:, None, :]
         o_o, d_o = sensor_ops.sample_ray(
-            scene.camera, W, H, pos_off.reshape(4 * N, 2), u_ap.repeat(4, 1))
+            self.sensor, W, H, pos_off.reshape(4 * N, 2), u_ap.repeat(4, 1))
         o_o = o_o.reshape(4, N, 3)
         d_o = d_o.reshape(4, N, 3)
         zeros4 = torch.zeros(4 * N, device=dev)
@@ -258,11 +264,13 @@ class GPTracer:
         its_o = trace4(o_o, d_o, inf.expand(4, N))
 
         # ---- very direct (depth 1): main only, excluded from gradients ----
-        cosf = m.dot(its_m.ns, -d_m)
-        is_em = its_m.valid & (its_m.emitter_id >= 0) & (cosf > 0)
-        rad = scene.emitters.radiance[
-            torch.clamp_min(its_m.emitter_id, 0).long()]
-        very = _where(_b3(is_em), rad, 0.0)
+        very = torch.zeros((N, 3), device=dev)
+        if not self.aux_only:
+            cosf = m.dot(its_m.ns, -d_m)
+            is_em = its_m.valid & (its_m.emitter_id >= 0) & (cosf > 0)
+            rad = scene.emitters.radiance[
+                torch.clamp_min(its_m.emitter_id, 0).long()]
+            very = very + _where(_b3(is_em), rad, 0.0)
         if self.has_env:
             very = very + _where(_b3(~its_m.valid),
                                  em_ops.eval_env(scene, self.env_kind, d_m),
@@ -519,6 +527,8 @@ class GPTracer:
         # emission seen by the main path at the new vertex
         cosf_n = m.dot(its_n.ns, -wo_w)
         hit_em = its_n.valid & (its_n.emitter_id >= 0) & (cosf_n > 0)
+        if self.aux_only:  # area-emitter hits belong to the (s,t) family
+            hit_em = torch.zeros_like(hit_em)
         rad_n = scene.emitters.radiance[
             torch.clamp_min(its_n.emitter_id, 0).long()]
         em_of_shape = scene.geom.shape_emitter[
@@ -749,6 +759,8 @@ class GPTracer:
         cosf_o = m.dot(its_n.ns[None], -dir_in)
         hit_em_o = (its_n.valid[None] & (its_n.emitter_id[None] >= 0) &
                     (cosf_o > 0))
+        if self.aux_only:
+            hit_em_o = torch.zeros_like(hit_em_o)
         rad_np = scene.emitters.radiance[
             torch.clamp_min(its_n.emitter_id, 0).long()]
         env_rad_m = em_ops.eval_env(scene, self.env_kind, wo_w)
@@ -810,6 +822,8 @@ class GPTracer:
         cosf_hv = m.dot(its_hv.ns, -wo_hv_w)
         hit_em_hv = (its_hv.valid & (its_hv.emitter_id >= 0) &
                      (cosf_hv > 0))
+        if self.aux_only:
+            hit_em_hv = torch.zeros_like(hit_em_hv)
         rad_hv = scene.emitters.radiance[
             torch.clamp_min(its_hv.emitter_id, 0).long()]
         d4 = wo_hv_w.reshape(4 * N, 3)

@@ -45,7 +45,7 @@ class IrrCacheTracer(PathTracer):
     default 4), `gatherSamples` (hemisphere rays per record, default 64),
     `quality` (Ward error bound kappa, default 0.5)."""
 
-    shades_textures_and_env = False
+    shades_textures = False
 
     def __init__(self, scene, settings):
         super().__init__(scene, settings)
@@ -76,7 +76,7 @@ class IrrCacheTracer(PathTracer):
         cy = (cell // Wc).to(torch.float32)
         pos_film = torch.stack([torch.clamp_max(cx * R + R / 2, W - 0.5),
                                 torch.clamp_max(cy * R + R / 2, H - 0.5)], -1)
-        o, d = sensor_ops.sample_ray(scene.camera, W, H, pos_film,
+        o, d = sensor_ops.sample_ray(self.sensor, W, H, pos_film,
                                      torch.full((C, 2), 0.5, device=dev))
         hit = self.closest(o, d, torch.zeros(C, device=dev),
                            torch.full((C,), 3e38, device=dev), scene.geom)
@@ -157,7 +157,7 @@ class IrrCacheTracer(PathTracer):
         jitter = self._u2(seed, pixel_id, sample_idx, DA.PIXEL_JITTER)
         pos_film = torch.stack([px, py], -1) + jitter
         u_ap = self._u2(seed, pixel_id, sample_idx, DA.APERTURE)
-        o, d = sensor_ops.sample_ray(scene.camera, W, H, pos_film, u_ap)
+        o, d = sensor_ops.sample_ray(self.sensor, W, H, pos_film, u_ap)
         N = o.shape[0]
 
         # direct lighting: a full maxDepth=2 walk (emitted + MIS direct)

@@ -15,13 +15,13 @@ Semantics are the reference's:
 `jit` and `fori_loop` become eager code and Python loops on the scene's
 device.  Ported: the scenes the port's BSDFs, emitters and sensors cover
 (every BSDF kind and texture of the reference, woven cloth and the
-barycentric payload included, analytic spheres, area lights and the
-environment map, perspective and thin-lens cameras; the primary hits
+barycentric payload included, analytic spheres, area and delta lights,
+the constant environment and the envmap, every sensor; the primary hits
 read textures at their footprint's mip level, anisotropically where a
 bitmap asks for EWA).  At a delta vertex the NEE shadow ray is still
 traced, as in the reference; eval's delta mask makes its contribution
-0.  Constant environments, delta lights and the subsurface branch raise
-NotImplementedError naming their ROADMAP item.
+0.  The subsurface branch raises NotImplementedError naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -61,26 +61,6 @@ def _b3(x):
     return x[..., None]
 
 
-def check_scene_extras(settings, textures_and_env=True):
-    """Raise NotImplementedError naming the ROADMAP Queue 1 item for the
-    emitter features a ported tracer cannot render yet.
-    textures_and_env=False also refuses textured materials and the
-    environment map (tracers whose own loops do not shade them yet:
-    ROADMAP step G2b)."""
-    if not textures_and_env:
-        if settings.has_textures:
-            raise NotImplementedError(
-                "textured materials in a tracer with its own loop: ROADMAP "
-                "Queue 1 item 13 (step G2b)")
-        if settings.env_kind != 0:
-            raise NotImplementedError(
-                "environment emitters: ROADMAP Queue 1 item 14")
-    if settings.n_delta > 0:
-        raise NotImplementedError(
-            "delta-light emitters: ROADMAP Queue 1 item 14")
-    em_ops.check_env(settings.env_kind)
-
-
 def primary_footprint(tracer, scene, d, its):
     """The primary hits' texture footprint: its uv area, with the
     ellipse's axes (common.primary_uv_jacobian) when a bitmap of the
@@ -96,15 +76,18 @@ def primary_footprint(tracer, scene, d, its):
 class PathTracer:
     """Unidirectional path tracer (NEE + MIS) on the scene's device."""
 
-    # False in subclasses whose own loops do not shade reflectance
-    # textures and the environment yet: they raise on such scenes
-    shades_textures_and_env = True
+    # False in subclasses whose own loops do not shade textures yet:
+    # they raise on such scenes
+    shades_textures = True
 
     def __init__(self, scene, settings):
         configure()
         self.kinds = bsdf_ops.scene_kinds(scene)
-        check_scene_extras(settings, self.shades_textures_and_env)
-        sensor_ops.check_supported(scene.camera)
+        if settings.has_textures and not self.shades_textures:
+            raise NotImplementedError(
+                "textured materials in a tracer with its own loop: ROADMAP "
+                "Queue 1 item 13 (step G2b-2)")
+        self.sensor = sensor_ops.describe(scene.camera)
         self._beval = functools.partial(bsdf_ops.eval, kinds=self.kinds)
         self._bpdf = functools.partial(bsdf_ops.pdf, kinds=self.kinds)
         self._bsample = functools.partial(bsdf_ops.sample, kinds=self.kinds)
@@ -115,7 +98,7 @@ class PathTracer:
         self.env_kind = settings.env_kind
         self.has_textures = settings.has_textures
         self.has_ewa = settings.has_ewa
-        self.n_delta = 0
+        self.n_delta = settings.n_delta
         n_tris = int(scene.geom.indices.shape[0])
         closest, occluded = common.choose_intersector(
             settings, n_tris, int(scene.geom.clusters.offset.shape[0]))
@@ -148,7 +131,7 @@ class PathTracer:
         jitter = self._u2(seed, pixel_id, sample_idx, DA.PIXEL_JITTER)
         pos_film = torch.stack([px, py], -1) + jitter
         u_ap = self._u2(seed, pixel_id, sample_idx, DA.APERTURE)
-        o, d = sensor_ops.sample_ray(scene.camera, W, H, pos_film, u_ap)
+        o, d = sensor_ops.sample_ray(self.sensor, W, H, pos_film, u_ap)
         L = self.trace_rays(scene, seed, sample_idx, pixel_id, o, d,
                             sss_cache=sss_cache)
         return pos_film, L

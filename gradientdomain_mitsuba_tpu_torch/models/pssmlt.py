@@ -119,7 +119,7 @@ class _PSSPathTracer(PathTracer):
     """PathTracer whose random stream is an explicit PSS tensor passed
     through the `seed` slot of trace_rays."""
 
-    shades_textures_and_env = False
+    shades_textures = False
 
     def __init__(self, scene, settings):
         super().__init__(scene, settings)
@@ -215,7 +215,7 @@ class PSSMLTracer(ChainTracer):
         C = u.shape[0]
         pos_film = torch.stack([u[:, 0] * st.width, u[:, 1] * st.height],
                                -1)
-        o, d = sensor_ops.sample_ray(scene.camera, st.width, st.height,
+        o, d = sensor_ops.sample_ray(self.inner.sensor, st.width, st.height,
                                      pos_film, u[:, 2:4])
         ids = torch.arange(C, dtype=torch.int64, device=u.device)
         L = self.inner.trace_rays(scene, u, 0, ids, o, d)

@@ -8,7 +8,8 @@ mapping family, src/integrators/photonmapper/{photonmapper,ppm,sppm}.cpp
      chain (delta vertices continue, the first storable vertex stops;
      emitter radiance along the chain accumulates directly),
   2. traces a fixed-size wavefront of photon random walks from the area
-     emitters (adjoint BSDF sampling with the shading-normal correction),
+     and delta emitters (adjoint BSDF sampling with the shading-normal
+     correction),
   3. bins the deposited photons into a uniform hash grid with cell size
      equal to the current gather radius, sorts them by cell key and
      gathers each pixel's 27 neighbour cells with a fixed per-cell scan
@@ -22,9 +23,12 @@ machinery, as in the reference.
 Which photons a cell's scan reaches when it holds more than `gatherCap`
 depends on the order of equal keys, so the sort is stable, as
 jnp.argsort is, and the keys sort as unsigned (dead photons' 0xFFFFFFFF
-last).  Deviation: photons leave area emitters only; a scene with delta
-lights raises in PathTracer (ROADMAP Queue 1 item 14), as the port's
-path tracer does.
+last).  Photons leave the area lights (uniform area, cosine direction)
+and the delta lights: a point light samples the uniform sphere, a spot
+light the uniform cone with its falloff factor, a collimated beam
+emits along its axis with unit pdf, and a directional light emits at
+zero power (it would need a scene-bounding disk), as in the reference.
+The environment is seen along the camera chain.
 """
 from __future__ import annotations
 
@@ -67,7 +71,7 @@ class SPPMTracer(PathTracer):
       gatherCap     per-cell scan bound             (default 32)
       maxDepth / rrDepth as usual."""
 
-    shades_textures_and_env = False
+    shades_textures = False
 
     def __init__(self, scene, settings):
         super().__init__(scene, settings)
@@ -100,7 +104,7 @@ class SPPMTracer(PathTracer):
         jitter = self._u2(seed, pixel_id, pass_idx, DA.PIXEL_JITTER)
         pos_film = torch.stack([px, py], -1) + jitter
         u_ap = self._u2(seed, pixel_id, pass_idx, DA.APERTURE)
-        o, d = sensor_ops.sample_ray(scene.camera, W, H, pos_film, u_ap)
+        o, d = sensor_ops.sample_ray(self.sensor, W, H, pos_film, u_ap)
 
         z3 = torch.zeros((N, 3), device=dev)
         L = z3
@@ -121,6 +125,10 @@ class SPPMTracer(PathTracer):
             rad = scene.emitters.radiance[
                 torch.clamp_min(its.emitter_id, 0).long()]
             L = L + torch.where(_b3(alive & is_em), tp * rad, 0.0)
+            if self.has_env:
+                L = L + torch.where(_b3(alive & ~its.valid),
+                                    tp * em_ops.eval_env(scene, self.env_kind,
+                                                         d), 0.0)
             alive = alive & its.valid
 
             storable = alive & ~_is_delta_kind(scene.materials, its.bsdf_id)
@@ -149,11 +157,43 @@ class SPPMTracer(PathTracer):
         vp["valid"] = stored
         return pos_film, L, vp
 
+    def _delta_photons(self, em, de, u, total_lights):
+        """Start of the photons picked on delta light de: (position,
+        direction, power).  Point: uniform sphere; spot: uniform cone
+        about its axis times the falloff factor; collimated: its axis
+        with unit pdf; directional: zero power (the reference's own
+        deviation, for want of a scene-bounding emission disk)."""
+        de = torch.clamp(de, 0, self.n_delta - 1).long()
+        dkind = em.delta_kind[de]
+        ddir = em.delta_dir[de]
+        sph = warp.square_to_uniform_sphere(u)
+        cos_total = em.delta_cos_total[de]
+        cone = warp.square_to_uniform_cone(u, cos_total)
+        ssd, tsd = m.build_frame(ddir)
+        is_spot = dkind == 1
+        is_coll = dkind == 3
+        d0 = torch.where(is_spot[..., None], m.to_world(cone, ssd, tsd, ddir),
+                         sph)
+        pdf = torch.where(is_spot, warp.square_to_uniform_cone_pdf(cos_total),
+                          warp.square_to_uniform_sphere_pdf())
+        d0 = torch.where(is_coll[..., None], ddir, d0)
+        pdf = torch.where(is_coll, 1.0, pdf)
+        cos_d = m.dot(d0, ddir)
+        cos_fall = em.delta_cos_falloff[de]
+        t = torch.clamp((cos_d - cos_total) /
+                        torch.clamp_min(cos_fall - cos_total, 1e-6), 0.0, 1.0)
+        spot_fac = torch.where(is_spot, t, 1.0)
+        beta = (em.delta_intensity[de] *
+                (spot_fac / torch.clamp_min(pdf, 1e-12))[..., None] *
+                total_lights)
+        beta = torch.where((dkind == 2)[..., None], 0.0, beta)
+        return em.delta_pos[de], d0, beta
+
     # ---------------- photon pass ------------------------------------------
     def _emit_photons(self, scene, seed, pass_idx):
-        """One photon wavefront from the area emitters: flat deposits
-        (pos, power, dir, valid) of length photon_depth * photonCount,
-        bounce-major."""
+        """One photon wavefront from the area and delta emitters: flat
+        deposits (pos, power, dir, valid) of length photon_depth *
+        photonCount, bounce-major."""
         P = self.n_photons
         dev = self.device
         em = scene.emitters
@@ -163,7 +203,9 @@ class SPPMTracer(PathTracer):
         u2 = functools.partial(self._u2, seed, ids, pass_idx)
 
         n_area = max(self.n_area, 1)
-        total_lights = n_area
+        n_delta = self.n_delta
+        n_lights = n_area if self.n_area > 0 else 0
+        total_lights = max(n_lights + n_delta, 1)
         u_sel = u1(PHOTON_DIM_BASE)
         pick = torch.clamp_max((u_sel * total_lights).to(torch.int32),
                                total_lights - 1)
@@ -182,9 +224,17 @@ class SPPMTracer(PathTracer):
         # power = Le cos / (pick * pos * dir pdfs) = pi A Le total_lights
         beta = (em.radiance[e] * math.pi * em.total_area[e][..., None] *
                 total_lights)
+        if n_delta > 0:
+            is_area = (pick < n_lights)[..., None]
+            pos_d, d_d, beta_d = self._delta_photons(
+                em, pick - n_lights, u2(PHOTON_DIM_BASE + 5), total_lights)
+            pos0 = torch.where(is_area, pos0, pos_d)
+            d = torch.where(is_area, d, d_d)
+            beta = torch.where(is_area, beta, beta_d)
+            ng0 = torch.where(is_area, ng0, d_d)
         o = common.offset_ray_origin(pos0, ng0, d, eps)
-        alive = torch.full((P,), self.n_area > 0, dtype=torch.bool,
-                           device=dev)
+        alive = torch.full((P,), self.n_area > 0 or n_delta > 0,
+                           dtype=torch.bool, device=dev)
         beta = torch.where(_b3(alive), beta, 0.0)
 
         ph_pos, ph_pow, ph_dir, ph_ok = [], [], [], []

@@ -58,7 +58,7 @@ class VolPathTracer(PathTracer):
     """Volumetric wavefront tracer; PathTracer's film / render /
     checkpoint plumbing with its own trace_rays."""
 
-    shades_textures_and_env = False
+    shades_textures = False
 
     def __init__(self, scene, settings):
         super().__init__(scene, settings)

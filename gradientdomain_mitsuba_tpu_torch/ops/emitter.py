@@ -1,15 +1,17 @@
-"""Emitter sampling and evaluation (NEE front door): area lights and
-the environment map.
+"""Emitter sampling and evaluation (NEE front door): area lights, delta
+lights and the environment.
 
 Counterpart of gradientdomain_mitsuba_tpu/ops/emitter.py (Scene::
 sampleEmitterDirect / pdfEmitterDirect / evalEnvironment, src/emitters/
-{area,envmap}.cpp).  Mitsuba 0.5 picks among emitters uniformly; an area
-emitter samples its surface uniformly by area (per-triangle CDF), then
-the pdf is converted to solid angle at the reference point; the envmap
-samples a texel from its luminance CDF (rows, then columns of the row)
-and looks up radiance bilinearly.  Delta lights and the constant / sun /
-sky environments are not ported yet (ROADMAP Queue 1 item 14): they
-raise.
+{area,point,spot,directional,collimated,constant,envmap}.cpp).  Mitsuba
+0.5 picks among emitters uniformly, in the order areas, delta lights,
+environment; an area emitter samples its surface uniformly by area
+(per-triangle CDF), then the pdf is converted to solid angle at the
+reference point; a delta light's pdf is its pick probability; the
+constant environment samples the uniform sphere, the envmap a texel
+from its luminance CDF (rows, then columns of the row) and looks up
+radiance bilinearly.  Sun, sky and sunsky arrive as an envmap baked by
+scene/sunsky.py.
 """
 from __future__ import annotations
 
@@ -69,16 +71,12 @@ def sample_emitter_triangle(scene, flat, u_pos):
 def sample_direct(scene, n_area: int, env_kind: int, p_ref, u_sel, u_pos,
                   n_delta: int = 0):
     """NEE sample toward one uniformly-picked emitter: the n_area area
-    emitters, then the environment (pick order of the reference; n_area
-    and env_kind are static).  p_ref [N,3]; u_sel [N]; u_pos [N,2].
-    Delta lights raise (ROADMAP Queue 1 item 14)."""
-    if n_delta > 0:
-        raise NotImplementedError(
-            "delta lights: ROADMAP Queue 1 item 14")
-    check_env(env_kind)
+    emitters, then the n_delta delta lights, then the environment (pick
+    order of the reference; n_area, n_delta and env_kind are static and
+    absent branches are skipped).  p_ref [N,3]; u_sel [N]; u_pos [N,2]."""
     has_env = env_kind != ENV_NONE
     em = scene.emitters
-    n_total = n_area + (1 if has_env else 0)
+    n_total = n_area + n_delta + (1 if has_env else 0)
     z = torch.zeros_like(p_ref)
     zero = torch.zeros(p_ref.shape[:-1], device=p_ref.device)
     no = zero > 1
@@ -90,7 +88,9 @@ def sample_direct(scene, n_area: int, env_kind: int, p_ref, u_sel, u_pos,
     idx = torch.clamp_max((u_sel * n_total).to(torch.int32), n_total - 1)
     # reuse u_sel within its stratum for the picked emitter's tri selection
     u_resc = torch.clamp(u_sel * n_total - idx.to(u_sel.dtype), 0.0, 1.0)
-    is_env = idx == n_area if has_env else no
+    is_env = idx == n_area + n_delta if has_env else no
+    is_delta = ((idx >= n_area) & (idx < n_area + n_delta) if n_delta > 0
+                else no)
 
     if n_area > 0:
         e = torch.clamp_max(idx, n_area - 1).long()
@@ -111,10 +111,13 @@ def sample_direct(scene, n_area: int, env_kind: int, p_ref, u_sel, u_pos,
                            n=ng, valid=cos_l > 1e-6, p=pos,
                            pdf_area=pick_pdf * pdf_area, is_env=no,
                            is_delta=no)
+    if n_delta > 0:
+        out = _sample_delta(em, n_area, n_delta, pick_pdf, idx, is_delta,
+                            p_ref, out)
     if not has_env:
         return out
 
-    d_env, pdf_env, rad_env = _sample_env(scene, u_pos)
+    d_env, pdf_env, rad_env = _sample_env(scene, env_kind, u_pos)
     pdf_env = pick_pdf * pdf_env
     e3 = is_env[..., None]
     return DirectSample(
@@ -129,20 +132,58 @@ def sample_direct(scene, n_area: int, env_kind: int, p_ref, u_sel, u_pos,
         is_env=is_env, is_delta=out.is_delta)
 
 
-def check_env(env_kind):
-    """Raise for the environments not ported yet."""
-    if env_kind not in (ENV_NONE, ENV_MAP):
-        raise NotImplementedError(
-            "constant / sun / sky environments (uniform-sphere warp): "
-            "ROADMAP Queue 1 item 14")
+def _sample_delta(em, n_area, n_delta, pick_pdf, idx, is_delta, p_ref,
+                  out):
+    """The delta-light lanes of sample_direct: point and spot lights at
+    their position with 1/d^2 falloff (the spot's smooth falloff between
+    cos_falloff and cos_total, spot.cpp), a directional light along its
+    fixed direction at distance 1e7 with its irradiance, and a collimated
+    beam at zero (doubly delta: NEE never reaches it).  pdf and pdf_area
+    are the pick probability ('unified discrete' measure)."""
+    de = torch.clamp(idx - n_area, 0, n_delta - 1).long()
+    kind = em.delta_kind[de]
+    dpos = em.delta_pos[de]
+    inten = em.delta_intensity[de]
+    ddir = em.delta_dir[de]
+    is_dir = kind == 2
+    to_l = dpos - p_ref
+    dist2 = torch.clamp_min(m.squared_length(to_l), 1e-12)
+    dist = torch.sqrt(dist2)
+    dd = torch.where(is_dir[..., None], -ddir, to_l / dist[..., None])
+    dist = torch.where(is_dir, 1e7, dist)
+    val = torch.where(is_dir[..., None], inten, inten / dist2[..., None])
+    cosd = m.dot(-dd, ddir)
+    ct = em.delta_cos_total[de]
+    cf = em.delta_cos_falloff[de]
+    fall = torch.clamp((cosd - ct) / torch.clamp_min(cf - ct, 1e-6), 0.0,
+                       1.0)
+    spot_f = torch.where(kind == 1, torch.where(cosd > ct, fall, 0.0), 1.0)
+    val = torch.where((kind == 3)[..., None], 0.0, val * spot_f[..., None])
+    d3 = is_delta[..., None]
+    return DirectSample(
+        d=torch.where(d3, dd, out.d),
+        dist=torch.where(is_delta, dist, out.dist),
+        pdf=torch.where(is_delta, pick_pdf, out.pdf),
+        radiance=torch.where(d3, val, out.radiance),
+        n=torch.where(d3, -dd, out.n),
+        valid=torch.where(is_delta, val.amax(-1) > 0, out.valid),
+        p=torch.where(d3, dpos, out.p),
+        pdf_area=torch.where(is_delta, pick_pdf, out.pdf_area),
+        is_env=out.is_env, is_delta=is_delta)
 
 
-def _sample_env(scene, u2):
-    """Envmap texel from the luminance CDF: the row by the marginal CDF,
-    then the column by the row's conditional CDF (each the last entry
-    <= u, searchsorted right - 1).  Returns (world direction, solid-angle
-    pdf, radiance)."""
+def _sample_env(scene, env_kind, u2):
+    """Environment direction: the uniform sphere for the constant
+    environment; for the envmap a texel from the luminance CDF, the row
+    by the marginal CDF, then the column by the row's conditional CDF
+    (each the last entry <= u, searchsorted right - 1).  Returns (world
+    direction, solid-angle pdf, radiance)."""
     em = scene.emitters
+    if env_kind == ENV_CONSTANT:
+        d = warp.square_to_uniform_sphere(u2)
+        pdf = torch.full(u2.shape[:-1], warp.square_to_uniform_sphere_pdf(),
+                         device=u2.device)
+        return d, pdf, em.env_radiance.expand(u2.shape[:-1] + (3,))
     He, We = em.env_map.shape[:2]
     row = torch.clamp(torch.searchsorted(
         em.env_cdf_rows, u2[..., 0].contiguous(), right=True) - 1, 0, He - 1)
@@ -164,12 +205,14 @@ def _env_coords(scene, d):
 
 def eval_env(scene, env_kind, d):
     """Environment radiance along direction d [N,3] (escaped rays): zero
-    without an environment, the envmap's bilinear lookup (wrapping in
-    phi, clamped in theta) times its scale."""
-    check_env(env_kind)
+    without an environment, the constant radiance, or the envmap's
+    bilinear lookup (wrapping in phi, clamped in theta) times its
+    scale."""
     if env_kind == ENV_NONE:
         return torch.zeros(d.shape[:-1] + (3,), dtype=d.dtype,
                            device=d.device)
+    if env_kind == ENV_CONSTANT:
+        return scene.emitters.env_radiance.expand(d.shape[:-1] + (3,))
     env = scene.emitters.env_map
     He, We = env.shape[:2]
     theta, phi = _env_coords(scene, d)
@@ -193,11 +236,13 @@ def eval_env(scene, env_kind, d):
 def pdf_env_direct(scene, n_area: int, env_kind: int, d, n_delta: int = 0):
     """Solid-angle pdf that sample_direct would have produced direction d
     toward the environment (MIS on escaped BSDF rays): zero without an
-    environment, the texel's pdf over the emitter count with the
-    envmap."""
-    check_env(env_kind)
+    environment, else the uniform sphere's or the texel's pdf over the
+    emitter count."""
     if env_kind == ENV_NONE:
         return torch.zeros(d.shape[:-1], dtype=d.dtype, device=d.device)
+    if env_kind == ENV_CONSTANT:
+        return torch.full(d.shape[:-1], warp.square_to_uniform_sphere_pdf()
+                          / (n_area + n_delta + 1), device=d.device)
     pdf = scene.emitters.env_pdf
     He, We = pdf.shape
     theta, phi = _env_coords(scene, d)

@@ -142,7 +142,8 @@ def test_fill_intersection_on_sphere_lanes(scenes):
     rs = np.random.RandomState(2)
     pos = np.float32(rs.uniform(0, 1, (3000, 2)) * [W, H])
     u_ap = np.float32(rs.uniform(size=(3000, 2)))
-    co, cd = sensor.sample_ray(ts_scene.camera, W, H, torch.from_numpy(pos),
+    co, cd = sensor.sample_ray(sensor.describe(ts_scene.camera), W, H,
+                               torch.from_numpy(pos),
                                torch.from_numpy(u_ap))
     o, d, mint, maxt = _sphere_rays(3000, seed=3)
     o = np.concatenate([co.numpy(), o])

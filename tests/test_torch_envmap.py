@@ -432,7 +432,7 @@ def test_sample_env(scenes, tables):
     u = _env_u(s_np.emitters, 4000, np.random.RandomState(11))
     rd, rp, rr = ref_em._sample_env(rs_scene, ref_em.ENV_MAP,
                                     jnp.asarray(u))
-    td, tp, tr = em._sample_env(ts_scene, torch.from_numpy(u))
+    td, tp, tr = em._sample_env(ts_scene, em.ENV_MAP, torch.from_numpy(u))
     _close(td, rd, rtol=1e-5, atol=1e-6)
     # pdf and radiance are texel lookups: equal texels give equal bits
     np.testing.assert_array_equal(tp.numpy(), np.asarray(rp))
@@ -508,18 +508,26 @@ def test_thin_lens_sample_ray(scenes):
     _, rs_scene, ts_scene, _ = scenes
     pos, u_ap, d_ref, _ = _primary_hits(rs_scene)
     ro, rd = ref_sensor.sample_ray(rs_scene.camera, W, H, *_j(pos, u_ap))
-    to, td = sensor.sample_ray(ts_scene.camera, W, H, *_t(pos, u_ap))
+    desc = sensor.describe(ts_scene.camera)
+    assert desc.lens and desc.kind == sensor.PERSPECTIVE
+    to, td = sensor.sample_ray(desc, W, H, *_t(pos, u_ap))
     _close(to, ro, rtol=1e-5, atol=1e-6)
     _close(td, rd, rtol=1e-5, atol=1e-6)
     assert float(ts_scene.camera.aperture_radius) == pytest.approx(0.1)
     # the lens moves the origins; a pinhole keeps them at the eye
     pin = ts_scene.camera._replace(aperture_radius=torch.tensor(0.0))
-    po, _ = sensor.sample_ray(pin, W, H, *_t(pos, u_ap))
+    po, _ = sensor.sample_ray(sensor.describe(pin), W, H, *_t(pos, u_ap))
     assert (po - po[:1]).abs().max() == 0 and (to - po).abs().max() > 0.01
-    # light tracing needs the pinhole's importance: a thin lens raises
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sensor.importance_sample_direct(ts_scene.camera, W, H,
-                                        torch.zeros(4, 3))
+    # light tracing: the thin lens takes the pinhole's importance (the
+    # aperture ignored), as the reference does
+    p = (np.asarray(ro) + 3.0 * np.asarray(rd)).astype(np.float32)
+    rf, rwe, rin = ref_sensor.importance_sample_direct(rs_scene.camera, W,
+                                                       H, jnp.asarray(p))
+    tf, twe, tin = sensor.importance_sample_direct(desc, W, H, *_t(p))
+    np.testing.assert_array_equal(tin.numpy(), np.asarray(rin))
+    assert tin.float().mean() > 0.9
+    _close(tf, rf, rtol=1e-5, atol=1e-4)
+    _close(twe, rwe, rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------- gates
@@ -573,30 +581,43 @@ def test_unported_texture_bits_raise(scenes, bit, item):
 
 def test_ewa_and_other_envs_raise(scenes):
     """EWA filtering (item 13 before) builds and filters (its parity:
-    tests/test_torch_texture_rest.py); constant / sun-sky environments
-    and delta lights are item 14."""
-    _, _, ts_scene, st = scenes
+    tests/test_torch_texture_rest.py); the constant environment and
+    delta lights (item 14 before) build in both tracers, and the
+    constant environment's NEE, radiance and pdf on the envmap scene's
+    tables (its env_radiance read as the constant's radiance) equal the
+    reference's (the lights board: tests/test_torch_lights.py)."""
+    _, rs_scene, ts_scene, st = scenes
     st2 = copy.deepcopy(st)
     st2.has_ewa = True
     for cls in (GPTracer, PathTracer):
         assert cls(ts_scene, st2).has_ewa
-    for field, value, item in (("env_kind", 1, 14), ("n_delta", 1, 14)):
+    for field, value in (("env_kind", 1), ("n_delta", 1)):
         st2 = copy.deepcopy(st)
         setattr(st2, field, value)
         for cls in (GPTracer, PathTracer):
-            with pytest.raises(NotImplementedError, match=f"item {item}"):
-                cls(ts_scene, st2)
+            assert getattr(cls(ts_scene, st2), field) == value
     out = tex.eval_texture(ts_scene.textures, torch.zeros(2).int(),
                            torch.zeros(2, 2),
                            (torch.ones(2), torch.zeros(2, 2, 2)))
     assert out.shape == (2, 3) and torch.isfinite(out).all()
-    for fn in (lambda: em.eval_env(ts_scene, em.ENV_CONSTANT,
-                                   torch.zeros(2, 3)),
-               lambda: em.sample_direct(ts_scene, 0, em.ENV_CONSTANT,
-                                        torch.zeros(2, 3), torch.zeros(2),
-                                        torch.zeros(2, 2))):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn()
+    rs = np.random.RandomState(9)
+    p_ref = np.float32(rs.normal(size=(500, 3)))
+    u_sel = np.float32(rs.uniform(size=500))
+    u_pos = np.float32(rs.uniform(size=(500, 2)))
+    d = _unit(rs, 500)
+    ref = ref_em.sample_direct(rs_scene, 1, em.ENV_CONSTANT, *_j(p_ref, u_sel,
+                                                                 u_pos))
+    got = em.sample_direct(ts_scene, 1, em.ENV_CONSTANT, *_t(p_ref, u_sel,
+                                                             u_pos))
+    assert got.is_env.any() and (~got.is_env).any()
+    for name in ("d", "dist", "pdf", "radiance", "n", "valid", "pdf_area",
+                 "is_env"):
+        _close(getattr(got, name), getattr(ref, name), rtol=1e-5,
+               atol=1e-5)
+    _close(em.eval_env(ts_scene, em.ENV_CONSTANT, *_t(d)),
+           ref_em.eval_env(rs_scene, em.ENV_CONSTANT, *_j(d)))
+    _close(em.pdf_env_direct(ts_scene, 1, em.ENV_CONSTANT, *_t(d)),
+           ref_em.pdf_env_direct(rs_scene, 1, em.ENV_CONSTANT, *_j(d)))
 
 
 # --------------------------------------------------------------- renders

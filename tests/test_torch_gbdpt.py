@@ -173,9 +173,11 @@ def test_gbdpt_render_is_deterministic():
     ("envmap/envmap.xml", "item 14")])
 @pytest.mark.parametrize("cls", [bdpt.BDPTracer, gbdpt.GBDPTracer])
 def test_unported_scenes_raise(scene_file, item, cls):
-    """envmap.xml's environment emitter is item 14.  cbox-mats.xml (a
-    roughconductor and a textured floor), which raised item 12 before,
-    builds and renders (against the reference:
+    """Both scenes that raised here build and render: envmap.xml (its
+    environment emitter was item 14; the eye walk's aux family in BDPT,
+    the aux-only G-PT pass in G-BDPT; against the reference:
+    tests/test_torch_envmap_bdpt.py) and cbox-mats.xml (a roughconductor
+    and a textured floor, item 12 before; against the reference:
     tests/test_torch_gbdpt_glossy.py), as woven cloth, item 12's last
     kind, now does (tests/test_torch_irawan.py)."""
     scene, st = port_scene.load_scene(
@@ -183,13 +185,13 @@ def test_unported_scenes_raise(scene_file, item, cls):
         {"width": "8", "height": "8", "integrator": "gbdpt",
          "maxDepth": "3"})
     ts = bridge.to_torch(scene, "cpu")
-    if "cbox-mats" in scene_file:
-        out = cls(ts, st).render(ts, seed=SEED, spp=1)
-        for v in (out.values() if isinstance(out, dict) else [out]):
-            assert torch.isfinite(v).all()
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        cls(ts, st)
+    tracer = cls(ts, st)
+    if "envmap" in scene_file:
+        assert tracer.aux_nee
+        assert tracer.aux_via_gpt == (cls is gbdpt.GBDPTracer)
+    out = tracer.render(ts, seed=SEED, spp=1)
+    for v in (out.values() if isinstance(out, dict) else [out]):
+        assert torch.isfinite(v).all()
 
 
 def test_any_specular_turns_the_replay_on(monkeypatch, port):

@@ -194,7 +194,8 @@ def test_unported_scenes_raise(tmp_path):
     here, is ported: the loader builds the irawan XML and GPTracer
     renders it (its parity with the reference:
     tests/test_torch_irawan.py, tests/test_torch_texture_rest.py), as it
-    renders door.xml.  Delta lights still raise item 14."""
+    renders door.xml.  Delta lights (item 14 before) build and render
+    (their parity: tests/test_torch_lights_render.py)."""
     path = tmp_path / "cloth.xml"
     path.write_text(IRAWAN_XML)
     scene, st = port_scene.load_scene(str(path), VARS)
@@ -207,8 +208,8 @@ def test_unported_scenes_raise(tmp_path):
         os.path.join(ROOT, "data/scenes/door/door.xml"), VARS)
     GPTracer(bridge.to_torch(scene, "cpu"), st)
     st.n_delta = 1
-    with pytest.raises(NotImplementedError, match="item 14"):
-        GPTracer(bridge.to_torch(scene, "cpu"), st)
+    tracer = GPTracer(bridge.to_torch(scene, "cpu"), st)
+    assert tracer.n_delta == 1 and tracer.n_lights == tracer.n_area + 1
 
 
 @pytest.mark.parametrize("lanes", [None, "1", "256", "300", "4096",

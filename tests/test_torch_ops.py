@@ -53,9 +53,19 @@ def _camera_rays(rs_scene, ts_scene, n=2000, seed=0):
     u_ap = np.float32(rs.uniform(size=(n, 2)))
     ro, rd = ref_sensor.sample_ray(rs_scene.camera, W, H, jnp.asarray(pos),
                                    jnp.asarray(u_ap))
-    to, td = sensor.sample_ray(ts_scene.camera, W, H, torch.from_numpy(pos),
-                               torch.from_numpy(u_ap))
+    to, td = sensor.sample_ray(sensor.describe(ts_scene.camera), W, H,
+                               torch.from_numpy(pos), torch.from_numpy(u_ap))
     return (ro, rd), (to, td)
+
+
+def _cameras(rs_scene, ts_scene, **fields):
+    """Both packages' cbox camera with `fields` replaced."""
+    rcam = rs_scene.camera._replace(
+        **{k: jnp.asarray(v, jnp.float32) for k, v in fields.items()})
+    tcam = ts_scene.camera._replace(
+        **{k: torch.tensor(v, dtype=torch.float32)
+           for k, v in fields.items()})
+    return rcam, tcam
 
 
 def test_sample_ray(scenes):
@@ -66,14 +76,27 @@ def test_sample_ray(scenes):
 
 
 def test_sample_ray_rejects_other_sensors(scenes):
-    """Orthographic and spherical cameras are not ported (the thin lens,
-    kind 0 with an aperture, is: tests/test_torch_envmap.py)."""
-    _, ts_scene, _ = scenes
-    for kind in (1.0, 2.0):
-        cam = ts_scene.camera._replace(kind=torch.tensor(kind))
-        with pytest.raises(NotImplementedError):
-            sensor.sample_ray(cam, W, H, torch.zeros(4, 2),
-                              torch.zeros(4, 2))
+    """Every other kind generates the reference's rays on cbox's
+    camera (their own scenes: tests/test_torch_sensors.py):
+    orthographic, telecentric (with an aperture), spherical and the two
+    meters; the thin lens is kind 0 with an aperture
+    (tests/test_torch_envmap.py)."""
+    rs_scene, ts_scene, _ = scenes
+    rs = np.random.RandomState(3)
+    pos = np.float32(rs.uniform(0, 1, (500, 2)) * [W, H])
+    u_ap = np.float32(rs.uniform(size=(500, 2)))
+    for kind, ap in ((1.0, 0.0), (1.0, 20.0), (2.0, 0.0), (3.0, 0.0),
+                     (4.0, 0.0)):
+        rcam, tcam = _cameras(rs_scene, ts_scene, kind=kind,
+                              aperture_radius=ap)
+        desc = sensor.describe(tcam)
+        assert (desc.kind, desc.lens) == (int(kind), ap > 0)
+        ro, rd = ref_sensor.sample_ray(rcam, W, H, jnp.asarray(pos),
+                                       jnp.asarray(u_ap))
+        to, td = sensor.sample_ray(desc, W, H, torch.from_numpy(pos),
+                                   torch.from_numpy(u_ap))
+        _close(to, ro, rtol=1e-5, atol=1e-4)
+        _close(td, rd, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("filter_kind", [0, 1, 2])
@@ -172,30 +195,60 @@ def test_importance_sample_direct(scenes):
     rf, rwe, rin = ref_sensor.importance_sample_direct(
         rs_scene.camera, W, H, jnp.asarray(p))
     tf, twe, tin = sensor.importance_sample_direct(
-        ts_scene.camera, W, H, torch.from_numpy(p))
+        sensor.describe(ts_scene.camera), W, H, torch.from_numpy(p))
     np.testing.assert_array_equal(tin.numpy(), np.asarray(rin))
     assert 0.05 < float(tin.float().mean()) < 0.95
     _close(tf, rf, rtol=1e-5, atol=1e-4)
     _close(twe, rwe, rtol=1e-5, atol=1e-6)
 
 
+def _importance_both(rcam, tcam, p):
+    rf, rwe, rin = ref_sensor.importance_sample_direct(rcam, W, H,
+                                                       jnp.asarray(p))
+    tf, twe, tin = sensor.importance_sample_direct(
+        sensor.describe(tcam), W, H, torch.from_numpy(p))
+    np.testing.assert_array_equal(tin.numpy(), np.asarray(rin))
+    _close(tf, rf, rtol=1e-5, atol=1e-4)
+    _close(twe, rwe, rtol=1e-5, atol=1e-6)
+    return tin
+
+
 def test_importance_sample_direct_rdist(scenes):
-    """perspective_rdist is not ported: its forward distortion raises
-    item 14, as ray generation through it does."""
-    _, ts_scene, _ = scenes
-    tcam = ts_scene.camera._replace(kc=torch.tensor([0.08, -0.02]))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sensor.importance_sample_direct(tcam, W, H, torch.zeros(4, 3))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sensor.sample_ray(tcam, W, H, torch.zeros(4, 2), torch.zeros(4, 2))
+    """perspective_rdist: the light image lands on the distorted film
+    (forward distortion before the sample-space transform), the
+    importance is the undistorted cos^4 model, as in the reference; ray
+    generation inverts the distortion with four Newton steps."""
+    rs_scene, ts_scene, _ = scenes
+    rcam, tcam = _cameras(rs_scene, ts_scene, kc=[0.08, -0.02])
+    rs = np.random.RandomState(6)
+    p = np.float32(rs.uniform([-100, -100, -300], [650, 650, 900],
+                              (4000, 3)))
+    tin = _importance_both(rcam, tcam, p)
+    assert 0.05 < float(tin.float().mean()) < 0.95
+    pos = np.float32(rs.uniform(0, 1, (500, 2)) * [W, H])
+    u_ap = np.float32(rs.uniform(size=(500, 2)))
+    ro, rd = ref_sensor.sample_ray(rcam, W, H, jnp.asarray(pos),
+                                   jnp.asarray(u_ap))
+    to, td = sensor.sample_ray(sensor.describe(tcam), W, H,
+                               torch.from_numpy(pos), torch.from_numpy(u_ap))
+    _close(to, ro)
+    _close(td, rd, rtol=1e-5, atol=1e-5)
 
 
 def test_importance_sample_direct_rejects_other_sensors(scenes):
-    _, ts_scene, _ = scenes
-    for cam in (ts_scene.camera._replace(kind=torch.tensor(1.0)),
-                ts_scene.camera._replace(aperture_radius=torch.tensor(0.5))):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            sensor.importance_sample_direct(cam, W, H, torch.zeros(4, 3))
+    """The other kinds' importance equals the reference's: orthographic
+    (constant over the film), the thin lens (the pinhole's cos^4 model,
+    the aperture ignored, as in the reference), spherical
+    (1 / (2 pi^2 sin theta)) and the meters (invalid)."""
+    rs_scene, ts_scene, _ = scenes
+    rs = np.random.RandomState(7)
+    p = np.float32(rs.uniform([-100, -100, -300], [650, 650, 900],
+                              (4000, 3)))
+    for fields in ({"kind": 1.0}, {"aperture_radius": 0.5},
+                   {"kind": 2.0}, {"kind": 3.0}, {"kind": 4.0}):
+        rcam, tcam = _cameras(rs_scene, ts_scene, **fields)
+        tin = _importance_both(rcam, tcam, p)
+        assert bool(tin.any()) == (fields.get("kind", 0.0) < 3.0)
 
 
 def test_fast_row_gather():

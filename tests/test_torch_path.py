@@ -191,7 +191,8 @@ def test_unported_branches_raise(cbox16):
     # door.xml, whose thindielectric raised here before, builds (and
     # renders against the reference: tests/test_torch_door.py); so does a
     # table with woven cloth (irawan), item 12 and the last BSDF kind
-    # that raised (tests/test_torch_irawan.py); delta lights raise item 14
+    # that raised (tests/test_torch_irawan.py); delta lights (item 14
+    # before) build (their parity: tests/test_torch_lights_render.py)
     scene_np, st2 = port_scene.load_scene(
         os.path.join(ROOT, "data/scenes/door/door.xml"),
         {"width": "16", "height": "16"})
@@ -205,8 +206,7 @@ def test_unported_branches_raise(cbox16):
     finally:
         mp.undo()
     st2.n_delta = 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-        PathTracer(ts, st2)
+    assert PathTracer(ts, st2).n_delta == 1
 
 
 @pytest.mark.parametrize("lanes", [None, "1", "256", "65536", "3000000"])

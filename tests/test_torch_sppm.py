@@ -137,10 +137,17 @@ def test_vpl_matches_reference():
 
 @pytest.mark.parametrize("integrator", ["sppm", "vpl"])
 def test_point_light_raises_item_14(tmp_path, integrator):
-    """Photons leave area emitters only (delta lights: item 14)."""
+    """Photons leave the point light too (item 14 before: it raised),
+    from the uniform sphere; VPL's NEE samples it.  Against the
+    reference (spot and collimated photons: tests/test_torch_lights_
+    render.py)."""
     path = tmp_path / "point.xml"
     path.write_text(SPPM_XML.replace("$light", POINT_LIGHT))
-    scene, st = load(str(path), integrator, spp=1)
+    props = ({"photonCount": 64, "vplChunk": 32} if integrator == "vpl"
+             else {})
+    scene, st = load(str(path), integrator, spp=SPP, depth=4, props=props)
     assert st.n_delta == 1
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_both(scene, st)
+    (ref,), (got,), rt, pt = render_both(scene, st, [SEED], SPP)
+    assert pt.n_delta == 1
+    assert_image_close(got, ref)
+    assert np.abs(ref).mean() > 1e-3

@@ -653,7 +653,7 @@ def test_board_gpt_rays_and_l1(board_renders):
 
 def test_factory_builds_every_tracer_on_the_board(board):
     """path, gpt, bdpt and gbdpt build on the board; the own-loop tracers
-    keep their gate (ROADMAP step G2b)."""
+    keep their gate (ROADMAP step G2b-2)."""
     s, _, ts, st, _ = board
     for integ in ("path", "gpt", "bdpt", "gbdpt", "direct"):
         st2 = copy.deepcopy(st)
