@@ -225,6 +225,27 @@ its time):
      fluencemeter sensors, SPPM's photon walks from the delta lights);
      the collimated beam's spot under SPPM (centre > 20x border); the
      uniform sphere and cone warps' chi^2 at 1,048,576 lanes.
+ 23. steps G2b-2 and G2c through factory.make_integrator: volpath,
+     irrcache, SPPM (65,536 photons), VPL (1,024 walks, chunks of 256),
+     PSSMLT and ERPT on tools/cloth_board.py's board lifted off the axis
+     planes (every texture path) at 128x128, maxDepth 5, 16 spp (one
+     mutation a pixel for the chains), each as in phase 16 (warm-up,
+     launch counters reset just before it, rays, launches, wall, one
+     profiled pass for the idle share); volpath against path (at the
+     finest texture level, where volpath reads) at maxDepth -1, 64x64,
+     4 spp; all six at 64x64, 4 spp through the kernels and the plain
+     versions (phase 4's tolerance, rays within 1e-3, the chains'
+     acceptance decisions all equal); then tools/sss_scene.py's dipole
+     scene (tests/test_sss.py's: 32,258 triangles, the pair kernels) at
+     256x256, 16 spp, maxDepth 4, with the cache at the reference's 2,048
+     points and 16 rays each: the cache build's wall and rays, the
+     render's wall, rays and pair launches, eval_mo's device time in one
+     profiled render (CUDA events around each call), the sphere brighter
+     than the same scene without the dipole term and than a black
+     absorber of its shape, the same render under GDMT_KERNEL=v4 (rays
+     equal, phase 4's tolerance), and the one- and two-sphere scenes at
+     64x64, 4 spp through the kernels and the pair kernels' plain
+     version.
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -663,17 +684,25 @@ def phase_kernels(dev, kernels_rec):
 
 
 def use_plain(tracer):
-    """Swap a tracer's intersectors for the sweep kernels' plain versions,
-    analytic spheres merged as in the package (for the kernel-vs-plain
-    comparisons only)."""
+    """Swap a tracer's intersectors for its kernels' plain versions (the
+    sweeps', or on a clustered scene the traversal kernels' own plain
+    version), analytic spheres merged as in the package (for the
+    kernel-vs-plain comparisons only)."""
     from gradientdomain_mitsuba_tpu_torch.ops import common
     from gradientdomain_mitsuba_tpu_torch.ops import intersect as isec
+    ck, ok = tracer.kernels
+    if ck.name.startswith("sweep"):
+        tri = (lambda o, d, mn, mx, g: isec.intersect_matmul(o, d, mn, mx,
+                                                             g.linC),
+               lambda o, d, mn, mx, g: isec.occluded_matmul(o, d, mn, mx,
+                                                            g.linC))
+    else:
+        tri = (lambda o, d, mn, mx, g: ck.plain(o, d, mn, mx, g.mt_slabs,
+                                                g.cbounds),
+               lambda o, d, mn, mx, g: ok.plain(o, d, mn, mx, g.mt_slabs,
+                                                g.cbounds))
     tracer.closest, tracer.occluded = common.instrument_intersectors(
-        tracer, *common.add_sphere_intersections(
-            lambda o, d, mn, mx, g: isec.intersect_matmul(o, d, mn, mx,
-                                                          g.linC),
-            lambda o, d, mn, mx, g: isec.occluded_matmul(o, d, mn, mx,
-                                                         g.linC)))
+        tracer, *common.add_sphere_intersections(*tri))
     return tracer
 
 
@@ -1778,15 +1807,16 @@ STEP_D = ("volpath", "vpl", "irrcache", "sppm")
 STEP_D_PROPS = {"sppm": {"photonCount": 65536}}
 
 
-def load_scene_at(path, dev, size, spp, depth, integrator, props=None):
+def load_scene_at(path, dev, size, spp, depth, integrator, props=None,
+                  variables=None):
     """A scene loaded with the loader's variables (cbox.xml takes its
-    integrator type from $integrator) at size^2 (None: its own film) and
-    moved to the card; the settings' integrator type and properties set
-    as given."""
+    integrator type from $integrator; `variables` adds more) at size^2
+    (None: its own film) and moved to the card; the settings' integrator
+    type and properties set as given."""
     from gradientdomain_mitsuba_tpu_torch.scene import bridge
     from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
     over = {"spp": str(spp), "maxDepth": str(depth),
-            "integrator": integrator}
+            "integrator": integrator, **(variables or {})}
     if size is not None:
         over.update(width=str(size), height=str(size))
     scene_np, st = sc.load_scene(path, over)
@@ -1808,13 +1838,15 @@ def tracers_of(tracer):
 def counted_render(tracer, scene, seed, spp):
     """One render with the intersectors' device ray counters on:
     (image, rays).  The path, BDPT and volumetric path tracers count
-    through count_rays (their render_chunk resets the tally each pass);
+    through count_rays (their render_chunk resets the tally each pass;
+    the dipole tracer's passes, not its cache build);
     the photon-mapping, cache and chain tracers leave ray_tally alone, so
     it is set on each tracer that traces and read once at the end."""
     from gradientdomain_mitsuba_tpu_torch.models.bdpt import BDPTracer
     from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    from gradientdomain_mitsuba_tpu_torch.models.sss import DipoleTracer
     from gradientdomain_mitsuba_tpu_torch.models.volpath import VolPathTracer
-    if type(tracer) in (PathTracer, BDPTracer, VolPathTracer):
+    if type(tracer) in (PathTracer, BDPTracer, VolPathTracer, DipoleTracer):
         tracer.count_rays = True
         return tracer.render(scene, seed=seed, spp=spp), \
             tracer.last_ray_count
@@ -2793,17 +2825,19 @@ def full_width_renders(dev, recs, renders, load=None):
 
 
 def kernel_vs_plain(dev, label, path, fam, depth, size=64, spp=4,
-                    props=None):
+                    props=None, variables=None, all_takes=False):
     """`fam` at size^2 (None: the scene's own film), spp through the
     kernels and through the plain
     versions (same seed; every tracer that traces for it, tracers_of):
     rays within 1e-3, every buffer within phase 4's tolerance (means
     within 1e-3), finite; for a chain family also the share of
-    acceptance decisions that agree (>= IMG_FRAC).  Returns the kernel
+    acceptance decisions that agree (>= IMG_FRAC; all of them with
+    all_takes).  `variables`: more loader variables.  Returns the kernel
     render's buffers and the scene and settings.  BDPT and G-BDPT trace
     all `spp` samples in one pass (bidir_batched)."""
     from gradientdomain_mitsuba_tpu_torch.models import factory
-    scene, st = load_scene_at(path, dev, size, spp, depth, fam, props)
+    scene, st = load_scene_at(path, dev, size, spp, depth, fam, props,
+                              variables)
     outs, takes = {}, {}
     for mode in ("kernel", "plain"):
         tracer = factory.make_integrator(scene, st)
@@ -2825,7 +2859,8 @@ def kernel_vs_plain(dev, label, path, fam, depth, size=64, spp=4,
         share = float((torch.stack(takes["kernel"]) ==
                        torch.stack(takes["plain"])).float().mean())
         log(f"  {label}: acceptance decisions agree {share:.6f}")
-        check(share >= IMG_FRAC, f"{label}: acceptance decisions differ")
+        check(share >= (1.0 if all_takes else IMG_FRAC),
+              f"{label}: acceptance decisions differ")
     for name in kb:
         _buffers_agree(f"{label} {name}", kb[name], pb[name],
                        mean_rtol=1e-3)
@@ -3392,6 +3427,274 @@ def phase_step_g2b(dev, recs):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# steps G2b-2 and G2c: textured materials in the tracers with their own
+# loops (the lifted cloth board) and dipole subsurface scattering
+# (tools/sss_scene.py) through factory.make_integrator
+
+STEP_G2C_FAMILIES = ("volpath", "irrcache", "sppm", "vpl", "pssmlt", "erpt")
+# the chains at one mutation a pixel; ERPT's round sized to it (chainLength
+# 2 of its 8,192 chains), PSSMLT's 64^2 comparison at phase 22's chains
+STEP_G2C_PROPS = {"sppm": {"photonCount": 65536},
+                  "vpl": {"vplCount": 1024, "vplChunk": 256},
+                  "erpt": {"chainLength": 2}}
+STEP_G2C_SPP = {"pssmlt": 1, "erpt": 1}
+STEP_G2C_SMALL_PROPS = {"pssmlt": {"chains": 4096,
+                                   "luminanceSamples": 16384}}
+# samples a pixel of the profiled pass that reads a render's idle share
+# (at 128^2 a pass of the path-type tracers holds 4 samples a pixel)
+STEP_G2C_PROFILE_SPP = {"volpath": 4, "irrcache": 4, "sppm": 1, "vpl": 1,
+                        "pssmlt": 1, "erpt": 1}
+# the subsurface renders: tests/test_sss.py's scene at 256^2, 16 spp,
+# maxDepth 4, with the cache at the reference's defaults
+SSS_VARS = {"samples": "2048", "irrSamples": "16"}
+
+
+def timed_eval_mo():
+    """Wraps ops/sss.eval_mo so that each outermost call (not its calls
+    on its own lane blocks) is bracketed by CUDA events; returns (the
+    list of event pairs, a function restoring eval_mo)."""
+    from gradientdomain_mitsuba_tpu_torch.ops import sss
+    spans, orig, depth = [], sss.eval_mo, [0]
+
+    def timed(*a, **k):
+        depth[0] += 1
+        if depth[0] > 1:
+            try:
+                return orig(*a, **k)
+            finally:
+                depth[0] -= 1
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        try:
+            out = orig(*a, **k)
+        finally:
+            depth[0] -= 1
+        e1.record()
+        spans.append((e0, e1))
+        return out
+    sss.eval_mo = timed
+
+    def restore():
+        sss.eval_mo = orig
+    return spans, restore
+
+
+def sss_phase(dev, recs, tmp):
+    """The subsurface half of phase 23 (see phase_step_g2c)."""
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    ss = load_tool("sss_scene")
+    paths = {v: ss.write_scene(tmp, v) for v in ("one", "two", "absorber")}
+    out = {}
+    scene, st = load_scene_at(paths["one"], dev, 256, 16, 4, "path",
+                              variables=SSS_VARS)
+    tracer = factory.make_integrator(scene, st)
+    names = [k.name for k in tracer.kernels]
+    check(type(tracer).__name__ == "DipoleTracer" and
+          names == ["pair_closest", "pair_occluded"],
+          f"subsurface scene: {type(tracer).__name__} on {names}")
+    check((tracer.n_points, tracer.irr_samples) == (2048, 16),
+          "subsurface cache size")
+    log(f"subsurface scene: {int(scene.geom.indices.shape[0])} triangles "
+        f"in {int(scene.geom.clusters.offset.shape[0])} clusters")
+    t0 = time.time()
+    tracer.render(scene, seed=0, spp=1)
+    torch.cuda.synchronize()
+    log(f"dipole warm-up (1 spp, cache included) {time.time() - t0:.3f} s")
+
+    # the cache build, rays through the tally
+    tracer.ray_tally = torch.zeros((), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cache = tracer._build_cache(scene, 1)
+    torch.cuda.synchronize()
+    cache_wall = time.time() - t0
+    cache_rays = int(tracer.ray_tally)
+    tracer.ray_tally = None
+    E = cache["E"]
+    log(f"dipole cache build ({tracer.n_points} points x "
+        f"{tracer.irr_samples} rays): wall {cache_wall:.4f} s, rays "
+        f"{cache_rays}, E finite {bool(torch.isfinite(E).all())}, mean E "
+        f"{float(E.mean()):.5f}")
+    check(bool(torch.isfinite(E).all()) and float(E.mean()) > 0,
+          "dipole cache: E not finite or zero")
+
+    # the render (cache built again inside, as a user's call does)
+    for k in tracer.kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img, rays = counted_render(tracer, scene, 1, 16)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = [k.launches for k in tracer.kernels]
+    for k, n in zip(tracer.kernels, launches):
+        recs[k.name]["launches"] += n
+    log(f"dipole 256x256 16spp maxDepth 4: wall {wall:.4f} s (cache "
+        f"included), pass rays {rays}, {rays / wall / 1e6:.3f} Mrays/s, "
+        f"pair launches closest {launches[0]} occluded {launches[1]}")
+    check(all(n > 0 for n in launches), f"dipole launches {launches}")
+    spans, restore = timed_eval_mo()
+    try:
+        prof = profiled_render(
+            lambda: tracer.render(scene, seed=2, spp=16), "pair_")
+        torch.cuda.synchronize()
+        mo_ms = sum(a.elapsed_time(b) for a, b in spans)
+    finally:
+        restore()
+    idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+    log(f"  profiled dipole render (seed 2, 16 spp: the cache and one "
+        f"pass): device busy {prof['busy_ms']:.3f} ms of "
+        f"{prof['wall_ms']:.3f} ms wall (idle {100 * idle:.1f}%), "
+        f"{prof['device_ops']} device ops; pair kernels "
+        f"{prof['kernel_ms']:.3f} ms over {prof['kernel_calls']} "
+        f"launches; eval_mo {mo_ms:.3f} ms over {len(spans)} calls "
+        f"(CUDA events)")
+    out["dipole"] = dict(cache_wall_s=cache_wall, cache_rays=cache_rays,
+                         wall_s=wall, rays=rays, launches=launches,
+                         idle=idle, profiled=prof, eval_mo_ms=mo_ms,
+                         eval_mo_calls=len(spans))
+
+    # the oracle (tests/test_sss.py): finite, the sphere lit; brighter
+    # than the same shape as a pure absorber, and than the same scene
+    # without the dipole term (PathTracer has no cache)
+    check(bool(torch.isfinite(img).all()), "dipole image not finite")
+    c = float(img[96:160, 96:160].mean())
+    plain = PathTracer(scene, st).render(scene, seed=1, spp=16)
+    c_plain = float(plain[96:160, 96:160].mean())
+    ascene, ast = load_scene_at(paths["absorber"], dev, 256, 16, 4, "path")
+    black = factory.make_integrator(ascene, ast).render(ascene, seed=1,
+                                                        spp=16)
+    c_black = float(black[96:160, 96:160].mean())
+    log(f"  sphere centre mean |I|: dipole {c:.5f}, no dipole term "
+        f"{c_plain:.5f}, absorber {c_black:.5f}")
+    check(c > 1e-3 and c > 1.05 * c_plain and c > 2 * c_black,
+          "dipole sphere not brighter than without the term / absorber")
+    out["oracle"] = dict(centre=c, no_dipole=c_plain, absorber=c_black)
+
+    # v4 = v7 on the same render (GDMT_KERNEL=v4: the block kernels)
+    saved = os.environ.get("GDMT_KERNEL")
+    os.environ["GDMT_KERNEL"] = "v4"
+    try:
+        t4 = factory.make_integrator(scene, st)
+    finally:
+        if saved is None:
+            del os.environ["GDMT_KERNEL"]
+        else:
+            os.environ["GDMT_KERNEL"] = saved
+    names = [k.name for k in t4.kernels]
+    check(names == ["mt_closest", "mt_occluded"],
+          f"GDMT_KERNEL=v4 chose {names}")
+    for k in t4.kernels:
+        k.launches = 0
+    t0 = time.time()
+    img4, rays4 = counted_render(t4, scene, 1, 16)
+    torch.cuda.synchronize()
+    wall4 = time.time() - t0
+    launches4 = [k.launches for k in t4.kernels]
+    for k, n in zip(t4.kernels, launches4):
+        recs[k.name]["launches"] += n
+    frac = _close_frac(img4, img, IMG_RTOL, IMG_ATOL)
+    log(f"dipole under GDMT_KERNEL=v4: wall {wall4:.4f} s, rays {rays4} vs "
+        f"{rays}, launches {launches4}, {frac:.5f} of pixels within rtol "
+        f"{IMG_RTOL} atol {IMG_ATOL}, max |diff| "
+        f"{float((img4 - img).abs().max()):.3e}")
+    check(rays4 == rays and frac >= IMG_FRAC and all(launches4),
+          "dipole: v4 render differs from v7")
+    out["v4"] = dict(wall_s=wall4, rays=rays4, launches=launches4,
+                     close=frac)
+
+    # kernels vs plain at 64^2, 4 spp on both scenes (equal rays)
+    for v in ("one", "two"):
+        kernel_vs_plain(dev, f"dipole {v}", paths[v], "path", 4,
+                        variables=SSS_VARS)
+    return out
+
+
+def phase_step_g2c(dev, recs):
+    """Steps G2b-2 and G2c through factory.make_integrator: the
+    STEP_G2C_FAMILIES on tools/cloth_board.py's board lifted off the axis
+    planes at 128^2, maxDepth 5 (16 spp; one mutation a pixel for the
+    chains), each after a warm-up with the sweeps' launch counters reset
+    just before it (factory_render: wall, rays, launches, added to the
+    sweep kernels' records) and one profiled pass (idle share); volpath
+    = path on the board at maxDepth -1 (path at the finest texture
+    level, where volpath reads); all six at 64^2, 4 spp through
+    the kernels and the plain versions (the chains' decisions all
+    equal).  Then the subsurface scene (sss_phase): the cache build and
+    the 256^2 render (wall, rays, pair launches, eval_mo's device ms in
+    one profiled render), the oracle, v4 = v7, and kernel vs plain at
+    64^2, 4 spp on both subsurface scenes."""
+    import shutil
+    import tempfile
+    from gradientdomain_mitsuba_tpu_torch.models import factory
+    tmp = tempfile.mkdtemp()
+    summary = {}
+    try:
+        board = load_tool("cloth_board").write_board(tmp, lift=True)
+        for fam in STEP_G2C_FAMILIES:
+            label = f"{fam} cloth board"
+            scene, st = load_scene_at(board, dev, 128,
+                                      STEP_G2C_SPP.get(fam, 16), 5, fam,
+                                      STEP_G2C_PROPS.get(fam))
+            check(st.has_textures == 31, f"board texture bits "
+                  f"{st.has_textures}")
+            tracer, _, summary[label] = factory_render(label, scene, st)
+            for name, n in zip(("sweep_closest", "sweep_occluded"),
+                               summary[label]["launches"]):
+                recs[name]["launches"] += n
+            prof_spp = STEP_G2C_PROFILE_SPP[fam]
+            prof = profiled_render(lambda: tracer.render(
+                scene, seed=2, spp=prof_spp), "sweep_")
+            idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+            log(f"  profiled {label} ({prof_spp} spp, seed 2): device busy "
+                f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall "
+                f"(idle {100 * idle:.1f}%), {prof['device_ops']} device "
+                f"ops; sweeps {prof['kernel_ms']:.3f} ms over "
+                f"{prof['kernel_calls']} launches")
+            summary[label].update(idle=idle, profiled=prof)
+            del tracer
+
+        # volpath = path on the board at unlimited depth.  volpath reads
+        # every texture at its finest level, as the reference's does; the
+        # path tracer reads the primary hits at their footprint's level,
+        # so here it is held to the finest level too
+        from gradientdomain_mitsuba_tpu_torch.models import path as path_mod
+        imgs = {}
+        footprint = path_mod.primary_footprint
+        path_mod.primary_footprint = lambda *a: None
+        try:
+            for fam in ("path", "volpath"):
+                scene, st = load_scene_at(board, dev, 64, 4, -1, fam)
+                imgs[fam] = factory.make_integrator(scene, st).render(
+                    scene, seed=1, spp=4)
+        finally:
+            path_mod.primary_footprint = footprint
+        frac = _close_frac(imgs["volpath"], imgs["path"], 5e-3, 5e-4)
+        rel = abs(float(imgs["volpath"].mean()) /
+                  float(imgs["path"].mean()) - 1)
+        log(f"volpath vs path (finest texture level) on the board at "
+            f"maxDepth -1, 64x64 4spp: "
+            f"{frac:.5f} of pixels within rtol 5e-3 atol 5e-4, mean rel "
+            f"diff {rel:.2e}")
+        check(frac >= 0.999 and rel < 1e-3,
+              "volpath differs from path on the board at unlimited depth")
+        summary["volpath_vs_path"] = dict(close=frac, mean_rel=rel)
+
+        # kernels vs plain at 64^2, 4 spp (same seed)
+        for fam in STEP_G2C_FAMILIES:
+            props = dict(STEP_G2C_PROPS.get(fam, {}))
+            props.update(STEP_G2C_SMALL_PROPS.get(fam, {}))
+            kernel_vs_plain(dev, f"{fam} cloth board", board, fam, 5,
+                            props=props, all_takes=True)
+        summary["subsurface"] = sss_phase(dev, recs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary
+
+
 def build_kernels():
     """Build the three kernel libraries, one nvcc each, all started
     together; prints how much the overlap saves against building them
@@ -3422,12 +3725,13 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("step-e", "step-f", "step-7a",
-                                        "step-g1", "step-g2a", "step-g2b"),
+                                        "step-g1", "step-g2a", "step-g2b",
+                                        "step-g2c"),
                     help="build the kernels and run one phase that needs "
                          "no earlier one (step-e: phase 17, step-f: phase "
                          "18, step-7a: phase 19, step-g1: phase 20, "
-                         "step-g2a: phase 21, step-g2b: phase 22), without "
-                         "the result line")
+                         "step-g2a: phase 21, step-g2b: phase 22, "
+                         "step-g2c: phase 23), without the result line")
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3476,6 +3780,9 @@ def main():
     if args.only == "step-g2b":
         with Phase("step G2b: every emitter and sensor"):
             log(json.dumps({"step_g2b": phase_step_g2b(dev, recs)}))
+    if args.only == "step-g2c":
+        with Phase("steps G2b-2 and G2c: own-loop textures, subsurface"):
+            log(json.dumps({"step_g2c": phase_step_g2c(dev, recs)}))
     if args.only:
         log(f"total {time.time() - t_start:.3f} s")
         log(card_line())
@@ -3525,12 +3832,15 @@ def main():
         step_g2a = phase_step_g2a(dev, recs)
     with Phase("step G2b: every emitter and sensor"):
         step_g2b = phase_step_g2b(dev, recs)
+    with Phase("steps G2b-2 and G2c: own-loop textures, subsurface"):
+        step_g2c = phase_step_g2c(dev, recs)
     log(json.dumps({"slice": summary, "forest": forest_summary,
                     "forest_v4": v4_summary, "bidir": bidir_summary,
                     "gbdpt_gradients": grad_summary, "step_b": step_b,
                     "step_d": step_d, "step_e": step_e, "step_f": step_f,
                     "step_7a": step_7a, "step_g1": step_g1,
-                    "step_g2a": step_g2a, "step_g2b": step_g2b}))
+                    "step_g2a": step_g2a, "step_g2b": step_g2b,
+                    "step_g2c": step_g2c}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

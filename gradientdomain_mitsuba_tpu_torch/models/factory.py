@@ -4,8 +4,10 @@ Counterpart of gradientdomain_mitsuba_tpu/models/factory.py (the analog
 of PluginManager::createObject for the integrator family,
 src/libcore/plugin.cpp).  It constructs every integrator type of
 KNOWN.  A type outside KNOWN falls through to the path tracer, as in the
-reference, unless the scene carries subsurface attachments (the
-reference's dipole route, which raises ROADMAP Queue 1 item 17c).
+reference, unless the scene carries subsurface attachments: those go
+to the dipole path tracer (models/sss.DipoleTracer), as in the
+reference, which routes only the path family there (the bidirectional
+integrators ignore subsurface).
 `gpt` / `gbdpt` return buffers that the reconstruction layer
 (models/poisson.reconstruct) turns into the final image.
 """
@@ -77,7 +79,7 @@ def make_integrator(scene, settings):
         from .direct import FieldIntegrator
         return FieldIntegrator(scene, settings)
     if getattr(settings, "has_sss", False):
-        raise NotImplementedError(
-            "subsurface (dipole) path tracer: ROADMAP Queue 1 item 17c")
+        from .sss import DipoleTracer
+        return DipoleTracer(scene, settings)
     from .path import PathTracer
     return PathTracer(scene, settings)

@@ -45,8 +45,6 @@ class IrrCacheTracer(PathTracer):
     default 4), `gatherSamples` (hemisphere rays per record, default 64),
     `quality` (Ward error bound kappa, default 0.5)."""
 
-    shades_textures = False
-
     def __init__(self, scene, settings):
         super().__init__(scene, settings)
         props = settings.integrator_props
@@ -169,7 +167,8 @@ class IrrCacheTracer(PathTracer):
         its = common.fill_intersection(scene, o, d, hit)
         n = torch.where((m.dot(its.ns, -d) < 0)[..., None], -its.ns, its.ns)
         E = self._interp(cache, pixel_id, its.p, n)
-        params = common.material_params(scene, 0, its.bsdf_id, its.uv)
+        params = common.material_params(scene, self.has_textures,
+                                        its.bsdf_id, its.uv, bary=its.bary)
         diffuse = (((params.kind == DIFFUSE) |
                     (params.kind == ROUGH_DIFFUSE)) & its.valid)
         L_ind = params.reflectance / math.pi * E

@@ -20,12 +20,13 @@ the constant environment and the envmap, every sensor; the primary hits
 read textures at their footprint's mip level, anisotropically where a
 bitmap asks for EWA).  At a delta vertex the NEE shadow ray is still
 traced, as in the reference; eval's delta mask makes its contribution
-0.  The subsurface branch raises NotImplementedError naming its ROADMAP
-item.
+0.  With an irradiance cache (sss_cache, models/sss.py) every surface
+vertex on a shape with a dipole attachment adds its exit radiance.
 """
 from __future__ import annotations
 
 import functools
+import math
 import os
 
 import torch
@@ -38,6 +39,7 @@ from ..ops import bsdf as bsdf_ops
 from ..ops import common, emitter as em_ops
 from ..ops import film as film_ops
 from ..ops import sensor as sensor_ops
+from ..ops import sss as sss_ops
 
 # bounce cap used for maxDepth = -1 (unlimited; Russian roulette ends
 # paths long before it)
@@ -76,17 +78,9 @@ def primary_footprint(tracer, scene, d, its):
 class PathTracer:
     """Unidirectional path tracer (NEE + MIS) on the scene's device."""
 
-    # False in subclasses whose own loops do not shade textures yet:
-    # they raise on such scenes
-    shades_textures = True
-
     def __init__(self, scene, settings):
         configure()
         self.kinds = bsdf_ops.scene_kinds(scene)
-        if settings.has_textures and not self.shades_textures:
-            raise NotImplementedError(
-                "textured materials in a tracer with its own loop: ROADMAP "
-                "Queue 1 item 13 (step G2b-2)")
         self.sensor = sensor_ops.describe(scene.camera)
         self._beval = functools.partial(bsdf_ops.eval, kinds=self.kinds)
         self._bpdf = functools.partial(bsdf_ops.pdf, kinds=self.kinds)
@@ -168,10 +162,9 @@ class PathTracer:
         """Path-trace a batch of rays to completion. Returns radiance [N,3].
 
         direct_at_first=False drops emitter radiance seen directly by the
-        input rays (depth-1 hits) — final-gather semantics."""
-        if sss_cache is not None:
-            raise NotImplementedError(
-                "subsurface (dipole) term: ROADMAP Queue 1 item 17")
+        input rays (depth-1 hits) — final-gather semantics.  sss_cache:
+        the dipole irradiance cache (models/sss.DipoleTracer), whose exit
+        radiance every bounce adds at subsurface vertices."""
         st = self.settings
         dev = self.device
         N = o.shape[0]
@@ -200,15 +193,32 @@ class PathTracer:
             if b == 0 and self.has_textures:
                 fp = primary_footprint(self, scene, d, its)
             s = self._bounce(scene, s, b, seed, sample_idx, pixel_id, N,
-                             eps, fp)
+                             eps, fp, sss_cache)
 
         # final emitter-hit pass for the vertex reached by the last bounce
         return s["L"] + self._emitted(scene, s["its"], s["o"], s["d"],
                                       s["alive"], s["tp"], s["last_pdf"],
                                       s["last_delta"])
 
+    def _dipole(self, scene, its, wi_world, alive, tp, sss_cache):
+        """The dipole term at live, valid, front-facing hits of a shape
+        with a subsurface row (dipole.cpp's its.LoSub):
+        Lo = (1/pi) Ft(eta, cos_o) Mo(p)."""
+        sss = scene.sss
+        cos_front = m.dot(its.ns, wi_world)
+        row_q = sss.shape_sss[torch.clamp(
+            its.shape_id, 0, sss.shape_sss.shape[0] - 1).long()]
+        has_sss = alive & its.valid & (row_q >= 0) & (cos_front > 0)
+        row_m = torch.where(has_sss, row_q, -1)
+        co = self._sss_coeffs
+        mo = sss_ops.eval_mo(sss_cache, co, its.p, row_m)
+        eta_r = co.eta[torch.clamp_min(row_m, 0).long()]
+        ft = 1.0 - bsdf_ops.fresnel_dielectric(
+            torch.clamp(cos_front, 0.0, 1.0), eta_r)[0]
+        return torch.where(_b3(has_sss), tp * mo * _b3(ft / math.pi), 0.0)
+
     def _bounce(self, scene, s, b, seed, sample_idx, pixel_id, N, eps,
-                fp=None):
+                fp=None, sss_cache=None):
         st = self.settings
         dev = self.device
         depth = b + 1  # Mitsuba depth of the CURRENT vertex
@@ -220,6 +230,8 @@ class PathTracer:
         # ---- emitter hit at current vertex --------------------------------
         L = s["L"] + self._emitted(scene, its, s["o"], s["d"], alive, tp,
                                    s["last_pdf"], s["last_delta"])
+        if sss_cache is not None:
+            L = L + self._dipole(scene, its, wi_world, alive, tp, sss_cache)
 
         alive = alive & its.valid
         # maxDepth cut: no continuation past maxDepth segments

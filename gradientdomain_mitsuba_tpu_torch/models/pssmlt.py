@@ -119,8 +119,6 @@ class _PSSPathTracer(PathTracer):
     """PathTracer whose random stream is an explicit PSS tensor passed
     through the `seed` slot of trace_rays."""
 
-    shades_textures = False
-
     def __init__(self, scene, settings):
         super().__init__(scene, settings)
         self._u1 = _pss_u1

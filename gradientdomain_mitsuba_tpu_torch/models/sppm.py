@@ -71,8 +71,6 @@ class SPPMTracer(PathTracer):
       gatherCap     per-cell scan bound             (default 32)
       maxDepth / rrDepth as usual."""
 
-    shades_textures = False
-
     def __init__(self, scene, settings):
         super().__init__(scene, settings)
         props = settings.integrator_props
@@ -143,7 +141,8 @@ class SPPMTracer(PathTracer):
             # delta continuation
             ss, ts = m.build_frame(its.ns)
             wi = m.to_local(wi_world, ss, ts, its.ns)
-            par = common.material_params(scene, 0, its.bsdf_id, its.uv)
+            par = common.material_params(scene, self.has_textures,
+                                         its.bsdf_id, its.uv, bary=its.bary)
             u2 = self._u2(seed, pixel_id, pass_idx,
                           DA.bounce_dim(b, DA.D_BSDF_UV))
             uc = self._u1(seed, pixel_id, pass_idx,
@@ -251,7 +250,8 @@ class SPPMTracer(PathTracer):
 
             ss, ts = m.build_frame(its.ns)
             wi = m.to_local(-d, ss, ts, its.ns)
-            par = common.material_params(scene, 0, its.bsdf_id, its.uv)
+            par = common.material_params(scene, self.has_textures,
+                                         its.bsdf_id, its.uv, bary=its.bary)
             dim = PHOTON_DIM_BASE + 8 + 8 * k
             bs = self._bsample(par, wi, u2(dim), u1(dim + 2))
             urr = u1(dim + 3)
@@ -305,7 +305,8 @@ class SPPMTracer(PathTracer):
         N = vp["p"].shape[0]
         K = self.gather_cap
         q_vp = torch.floor(vp["p"] * inv_r).to(torch.int32)
-        params = common.material_params(scene, 0, vp["bsdf"], vp["uv"])
+        params = common.material_params(scene, self.has_textures,
+                                        vp["bsdf"], vp["uv"])
         ssv, tsv = m.build_frame(vp["ns"])
         wi_loc = m.to_local(vp["wi"], ssv, tsv, vp["ns"])
         params_bc = broadcast_params(params, (N, K), 1)

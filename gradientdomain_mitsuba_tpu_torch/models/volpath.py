@@ -58,8 +58,6 @@ class VolPathTracer(PathTracer):
     """Volumetric wavefront tracer; PathTracer's film / render /
     checkpoint plumbing with its own trace_rays."""
 
-    shades_textures = False
-
     def __init__(self, scene, settings):
         super().__init__(scene, settings)
         self.max_null_crossings = int(
@@ -144,7 +142,9 @@ class VolPathTracer(PathTracer):
         """Volumetric path trace of a ray batch. Returns radiance [N,3]."""
         if sss_cache is not None:
             raise NotImplementedError(
-                "subsurface (dipole) term: ROADMAP Queue 1 item 17")
+                "subsurface (dipole) term in volpath: the reference's "
+                "volumetric tracer has no dipole term; DipoleTracer "
+                "(models/sss.py) renders subsurface scenes")
         dev = self.device
         N = o.shape[0]
         hit = self.closest(o, d, torch.zeros(N, device=dev),
@@ -265,7 +265,8 @@ class VolPathTracer(PathTracer):
         # ---- surface shading (as in path.py) --------------------------------
         ss_f, ts_f = m.build_frame(its.ns)
         wi = m.to_local(wi_world, ss_f, ts_f, its.ns)
-        params = common.material_params(scene, 0, its.bsdf_id, its.uv)
+        params = common.material_params(scene, self.has_textures,
+                                        its.bsdf_id, its.uv, bary=its.bary)
         wo_l = m.to_local(ds.d, ss_f, ts_f, its.ns)
         f_l = self._beval(params, wi, wo_l)
         pdf_b = self._bpdf(params, wi, wo_l)

@@ -73,7 +73,8 @@ class VPLTracer(SPPMTracer):
         ssx, tsx = m.build_frame(vp["ns"])
         wi_x = m.to_local(vp["wi"], ssx, tsx, vp["ns"])
         wo_x = m.to_local(dirs, ssx[:, None], tsx[:, None], vp["ns"][:, None])
-        par_x = common.material_params(scene, 0, vp["bsdf"], vp["uv"])
+        par_x = common.material_params(scene, self.has_textures,
+                                       vp["bsdf"], vp["uv"])
         f_x = bsdf_ops.eval(broadcast_params(par_x, (N, K), 1),
                             wi_x[:, None].expand(N, K, 3), wo_x, self.kinds)
 
@@ -81,7 +82,8 @@ class VPLTracer(SPPMTracer):
         ssy, tsy = m.build_frame(ns_y)
         wi_y = m.to_local(-pdir, ssy, tsy, ns_y)          # [K, 3]
         wo_y = m.to_local(-dirs, ssy[None], tsy[None], ns_y[None])
-        par_y = common.material_params(scene, 0, bsdf_y, uv_y)
+        par_y = common.material_params(scene, self.has_textures, bsdf_y,
+                                       uv_y)
         f_y = bsdf_ops.eval(broadcast_params(par_y, (N, K), 0),
                             wi_y[None].expand(N, K, 3), wo_y, self.kinds)
 
@@ -113,7 +115,8 @@ class VPLTracer(SPPMTracer):
         ss, ts = m.build_frame(vp["ns"])
         wi = m.to_local(vp["wi"], ss, ts, vp["ns"])
         wo = m.to_local(ds.d, ss, ts, vp["ns"])
-        par = common.material_params(scene, 0, vp["bsdf"], vp["uv"])
+        par = common.material_params(scene, self.has_textures, vp["bsdf"],
+                                     vp["uv"])
         f = bsdf_ops.eval(par, wi, wo, self.kinds)
         shadow_o = common.offset_ray_origin(vp["p"], vp["ng"], ds.d, eps)
         occ = self.occluded(
@@ -158,6 +161,12 @@ class VPLTracer(SPPMTracer):
         """spp passes, each: one camera sample a pixel, NEE, and every
         VPL.  Returns the image [H, W, 3] on the device."""
         spp = spp or self.settings.spp
+        vpl_table = self._vpl_table(scene, seed)
+        return self._accumulate(spp, progress, lambda i: self._one_pass(
+            scene, seed, i, vpl_table))
+
+    def _vpl_table(self, scene, seed):
+        """The render's VPLs, padded with zero rows to whole chunks."""
         vpl_table = self._gen_vpls(scene, seed ^ 0x7f1)
         V = int(vpl_table[0].shape[0])
         K = self.vpl_chunk
@@ -167,8 +176,7 @@ class VPLTracer(SPPMTracer):
                 torch.cat([a, torch.zeros((pad,) + a.shape[1:],
                                           dtype=a.dtype, device=a.device)])
                 for a in vpl_table)
-        return self._accumulate(spp, progress, lambda i: self._one_pass(
-            scene, seed, i, vpl_table))
+        return vpl_table
 
 
 def render(scene, settings, seed=0, spp=None):

@@ -166,11 +166,24 @@ def test_factory_covers_known_types(integrator):
     assert type(factory.make_integrator(ts, st)) is PORTED_TYPES[integrator]
 
 
-def test_factory_unknown_type_and_subsurface():
+def test_factory_unknown_type_and_subsurface(tmp_path):
+    """An unknown type falls through to the path tracer; on a scene with
+    dipole attachments (tools/sss_scene.py: test_sss.py's scene) the
+    path family gets the DipoleTracer (its parity:
+    tests/test_torch_sss.py)."""
+    import importlib.util
+    from gradientdomain_mitsuba_tpu_torch.models.sss import DipoleTracer
     scene, st = _load("path")
     ts = bridge.to_torch(scene, "cpu")
     st.integrator = "no-such-integrator"
     assert type(factory.make_integrator(ts, st)) is path.PathTracer
-    st.has_sss = True
-    with pytest.raises(NotImplementedError, match="item 17c"):
-        factory.make_integrator(ts, st)
+    spec = importlib.util.spec_from_file_location(
+        "sss_scene", os.path.join(ROOT, "tools", "sss_scene.py"))
+    sss_scene = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sss_scene)
+    scene, st = ref_scene.load_scene(
+        sss_scene.write_scene(str(tmp_path)),
+        {"width": "8", "height": "8", "spp": "1"})
+    assert st.has_sss and st.integrator == "path"
+    tracer = factory.make_integrator(bridge.to_torch(scene, "cpu"), st)
+    assert type(tracer) is DipoleTracer

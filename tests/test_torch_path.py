@@ -6,8 +6,9 @@
    version).  On the CPU the reference walks large scenes with its jnp
    cluster traversal; here its intersectors are pinned to the linear-MT
    matmul sweeps over a full coefficient table built in the test
-   (build_linear_mt over the padded cluster-major soup): the same math the
-   v7 kernel computes, with prims in the same slot space (k*W + lane).
+   (torch_parity.pinned_full_matmul: build_linear_mt over the
+   cluster-major soup's non-degenerate slots): the same math the v7
+   kernel computes, with prims in the same slot space (k*W + lane).
    Measured ray counts are equal; the image agrees at rtol 1e-3 / atol
    1e-4 on >= 99% of pixels (the allowance covers an ulp-level t or u
    difference flipping a Russian-roulette decision).
@@ -26,7 +27,6 @@ import torch
 
 from gradientdomain_mitsuba_tpu.models import path as ref_path
 from gradientdomain_mitsuba_tpu.ops import common as ref_common
-from gradientdomain_mitsuba_tpu.ops import intersect as ref_isec
 from gradientdomain_mitsuba_tpu.scene import scene as ref_scene
 from gradientdomain_mitsuba_tpu_torch.models import path as path_mod
 from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
@@ -34,6 +34,7 @@ from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
 from gradientdomain_mitsuba_tpu_torch.parallel import checkpoint as cp
 from gradientdomain_mitsuba_tpu_torch.scene import bridge
 from gradientdomain_mitsuba_tpu_torch.scene import scene as port_scene
+from torch_parity import load_tool, pinned_full_matmul, pinned_matmul
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(
@@ -60,25 +61,11 @@ def small_forest(tmp_path_factory):
                               "forest.xml")
 
 
-def _pinned_full_matmul(linC):
-    def choose(settings, n_tris, n_clusters=0):
-        def closest(o, d, mint, maxt, geom):
-            return ref_isec.intersect_matmul(o, d, mint, maxt, linC)
-
-        def occl(o, d, mint, maxt, geom):
-            return ref_isec.occluded_matmul(o, d, mint, maxt, linC)
-        return ref_common.add_sphere_intersections(closest, occl)
-    return choose
-
-
 @pytest.fixture(scope="module")
 def forest_reference(small_forest):
     scene, st = ref_scene.load_scene(small_forest, FOREST_VARS)
-    g = scene.geom
-    linC = jax.numpy.asarray(ref_isec.build_linear_mt(
-        np.asarray(g.tris.v0), np.asarray(g.tris.e1), np.asarray(g.tris.e2)))
     mp = pytest.MonkeyPatch()
-    mp.setattr(ref_common, "choose_intersector", _pinned_full_matmul(linC))
+    mp.setattr(ref_common, "choose_intersector", pinned_full_matmul(scene))
     try:
         tracer = ref_path.PathTracer(scene, st)
         tracer.count_rays = True
@@ -180,14 +167,50 @@ def test_cbox_matches_reference_brute_in_mean(cbox16):
     assert abs(img.mean() - ref.mean()) < 0.01 * abs(ref.mean())
 
 
-def test_unported_branches_raise(cbox16):
-    scene, st = cbox16
-    pt = PathTracer(scene, st)
-    o = torch.zeros((2, 3))
-    d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 1.0, 0.0]])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.trace_rays(scene, 0, torch.zeros(2, dtype=torch.int64),
-                      torch.arange(2), o, d, sss_cache=object())
+def test_unported_branches_raise(tmp_path):
+    """The branches that raised before their step: trace_rays's
+    sss_cache adds the dipole term (step G2c), against the reference's
+    trace_rays on 64 rays of tools/sss_scene.py's marble floor with one
+    cache in both packages; the rest build."""
+    import jax.numpy as jnp
+    from gradientdomain_mitsuba_tpu.models import sss as ref_sss_model
+    from gradientdomain_mitsuba_tpu.ops import sss as ref_sss
+    from gradientdomain_mitsuba_tpu_torch.models.sss import DipoleTracer
+    scene_np, st = ref_scene.load_scene(
+        load_tool("sss_scene").write_scene(str(tmp_path), "floor"),
+        {"width": "8", "height": "8", "spp": "1", "maxDepth": "3"})
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ref_common, "choose_intersector", pinned_matmul)
+    try:
+        rt = ref_sss_model.DipoleTracer(scene_np, st)
+    finally:
+        mp.undo()
+    ts = bridge.to_torch(scene_np, "cpu")
+    pt = DipoleTracer(ts, st)
+    rs = np.random.RandomState(2)
+    cache = {k: np.array(v) for k, v in jax.jit(
+        lambda: ref_sss.sample_surface_points(scene_np, 96, 5))().items()}
+    cache["E"] = rs.uniform(0.5, 2.0, (96, 3)).astype(np.float32)
+    N = 64
+    o = np.tile(np.float32([[0.0, 0.6, 2.6]]), (N, 1))
+    aim = np.float32([0.0, 0.0, 0.0]) + rs.uniform(-1.0, 1.0, (N, 3)) * (
+        np.float32([1.0, 0.0, 1.0]))
+    d = (aim - o) / np.linalg.norm(aim - o, axis=-1, keepdims=True)
+    d = d.astype(np.float32)
+    ref = np.asarray(jax.jit(
+        lambda sc, o, d, c: rt.trace_rays(
+            sc, 3, jnp.zeros(N, jnp.uint32), jnp.arange(N, dtype=jnp.uint32),
+            o, d, sss_cache=c))(jax.device_put(scene_np), jnp.asarray(o),
+                                jnp.asarray(d),
+                                {k: jnp.asarray(v) for k, v in cache.items()}))
+    args = (ts, 3, torch.zeros(N, dtype=torch.int64), torch.arange(N),
+            torch.from_numpy(o), torch.from_numpy(d))
+    got = pt.trace_rays(*args, sss_cache={
+        k: torch.from_numpy(v) for k, v in cache.items()}).numpy()
+    plain = pt.trace_rays(*args).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)
+    added = (got - plain).max(-1)
+    assert (added > -1e-6).all() and (added > 1e-3).sum() >= N // 2
     # door.xml, whose thindielectric raised here before, builds (and
     # renders against the reference: tests/test_torch_door.py); so does a
     # table with woven cloth (irawan), item 12 and the last BSDF kind

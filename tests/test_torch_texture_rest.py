@@ -652,15 +652,22 @@ def test_board_gpt_rays_and_l1(board_renders):
 
 
 def test_factory_builds_every_tracer_on_the_board(board):
-    """path, gpt, bdpt and gbdpt build on the board; the own-loop tracers
-    keep their gate (ROADMAP step G2b-2)."""
+    """Every type of KNOWN builds on the board, the tracers with their
+    own loops (volpath, irrcache, sppm / ppm / photonmapper, vpl, the
+    chains) included since step G2b-2 (their parity:
+    tests/test_torch_texture_loops.py, _photons.py, _chains.py)."""
     s, _, ts, st, _ = board
-    for integ in ("path", "gpt", "bdpt", "gbdpt", "direct"):
+    assert st.has_textures == 31
+    own = {"volpath": "VolPathTracer", "volpath_simple": "VolPathTracer",
+           "irrcache": "IrrCacheTracer", "sppm": "SPPMTracer",
+           "ppm": "SPPMTracer", "photonmapper": "SPPMTracer",
+           "vpl": "VPLTracer", "pssmlt": "PSSMLTracer",
+           "erpt": "ERPTracer", "mlt": "MLTracer"}
+    for integ in factory.KNOWN:
         st2 = copy.deepcopy(st)
         st2.integrator = integ
-        factory.make_integrator(ts, st2)
-    for integ in ("volpath", "sppm"):
-        st2 = copy.deepcopy(st)
-        st2.integrator = integ
-        with pytest.raises(NotImplementedError, match="item 13.*G2b"):
-            factory.make_integrator(ts, st2)
+        tracer = factory.make_integrator(ts, st2)
+        if integ in own:
+            assert type(tracer).__name__ == own[integ]
+            inner = getattr(tracer, "inner", tracer)
+            assert inner.has_textures == 31

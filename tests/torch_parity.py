@@ -67,6 +67,47 @@ def pinned_matmul(settings, n_tris, n_clusters=0):
     return ref_common.add_sphere_intersections(closest, occl)
 
 
+def pinned_full_matmul(scene, ray_chunk=512):
+    """choose_intersector for a clustered scene (whose geom.linC is a
+    stub): the linear-MT matmul sweeps over a table built here from the
+    scene's non-degenerate triangle slots (the window padding left
+    out), prims mapped back to the slot ids (k*W + lane) the port's pair
+    traversal returns; rays swept ray_chunk at a time (lax.map), so one
+    [rays x triangles] product stays small."""
+    import jax.numpy as jnp
+    g = scene.geom
+    v0, e1, e2 = (np.asarray(x) for x in (g.tris.v0, g.tris.e1, g.tris.e2))
+    slots = np.nonzero(np.linalg.norm(np.cross(e1, e2), axis=-1) > 0)[0]
+    linC = jnp.asarray(ref_isec.build_linear_mt(v0[slots], e1[slots],
+                                                e2[slots]))
+    slots = jnp.asarray(slots, jnp.int32)
+
+    def chunked(fn, o, d, mint, maxt):
+        N = o.shape[0]
+        pad = (-N) % ray_chunk
+
+        def split(x, fill):
+            x = jnp.pad(x, ((0, pad),) + ((0, 0),) * (x.ndim - 1),
+                        constant_values=fill)
+            return x.reshape((-1, ray_chunk) + x.shape[1:])
+        out = jax.lax.map(lambda a: fn(*a, linC),
+                          (split(o, 0.0), split(d, 0.0), split(mint, 0.0),
+                           split(maxt, -1.0)))
+        return jax.tree.map(lambda x: x.reshape((-1,) + x.shape[2:])[:N],
+                            out)
+
+    def choose(settings, n_tris, n_clusters=0):
+        def closest(o, d, mint, maxt, geom):
+            hit = chunked(ref_isec.intersect_matmul, o, d, mint, maxt)
+            return hit._replace(prim=jnp.where(
+                hit.valid, slots[jnp.maximum(hit.prim, 0)], -1))
+
+        def occl(o, d, mint, maxt, geom):
+            return chunked(ref_isec.occluded_matmul, o, d, mint, maxt)
+        return ref_common.add_sphere_intersections(closest, occl)
+    return choose
+
+
 def load(path, integrator, size=16, spp=2, depth=5, props=None):
     scene, st = ref_scene.load_scene(path, {
         "width": str(size), "height": str(size), "spp": str(spp),
@@ -76,12 +117,49 @@ def load(path, integrator, size=16, spp=2, depth=5, props=None):
     return scene, st
 
 
-def make_both(scene, st):
+def counting_choose(choose, tally):
+    """choose_intersector whose intersectors append each call's live
+    lanes (maxt > 0, what the tracers' own counters count) to the list
+    `tally`, from inside the reference's jitted code (a host callback;
+    read it after jax.effects_barrier())."""
+    import jax.numpy as jnp
+
+    def counted(fn):
+        def f(o, d, mint, maxt, geom):
+            jax.debug.callback(lambda n: tally.append(int(n)),
+                               jnp.sum(maxt > 0))
+            return fn(o, d, mint, maxt, geom)
+        return f
+
+    def wrapped(settings, n_tris, n_clusters=0):
+        closest, occl = choose(settings, n_tris, n_clusters)
+        return counted(closest), counted(occl)
+    return wrapped
+
+
+def count_port_rays(tracer, tally):
+    """The port's counterpart of counting_choose: every tracer that
+    traces for `tracer` (itself, an irradiance cache's direct-light path
+    tracer, a chain tracer's inner tracer) appends each intersector
+    call's live lanes to `tally`."""
+    def counted(fn):
+        def f(o, d, mint, maxt, geom):
+            tally.append(int((maxt > 0).sum()))
+            return fn(o, d, mint, maxt, geom)
+        return f
+    for t in (tracer, getattr(tracer, "_direct", None),
+              getattr(tracer, "inner", None)):
+        if t is not None and hasattr(t, "closest"):
+            t.closest, t.occluded = counted(t.closest), counted(t.occluded)
+
+
+def make_both(scene, st, choose=pinned_matmul):
     """(reference tracer, its device scene, port tracer, its scene), each
     built through its package's factory on its own copy of the
-    settings; the reference's intersectors pinned while it is built."""
+    settings; the reference's intersectors pinned (to `choose`) while
+    it is built."""
     mp = pytest.MonkeyPatch()
-    mp.setattr(ref_common, "choose_intersector", pinned_matmul)
+    mp.setattr(ref_common, "choose_intersector", choose)
     try:
         rt = ref_factory.make_integrator(scene, copy.deepcopy(st))
     finally:
@@ -261,3 +339,69 @@ def check_gbdpt_primal_is_bdpt(renders):
     np.testing.assert_allclose(g["primal"] + g["very_direct"],
                                renders["bdpt"]["port"], rtol=2e-4,
                                atol=2e-5)
+
+
+def load_tool(name):
+    """A module of tools/ (not a package), loaded by path."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CHAINS = ("pssmlt", "erpt", "mlt")
+# the lifted cloth board's quads in two subsets that together hold every
+# texture bit (tools/cloth_board.py): woven cloth (bit 16, through the
+# hits' barycentric payload), the mask's textured opacity (bit 2),
+# vertexcolors and wireframe (bit 1, the payload again); the bump and
+# normal maps and the blendbsdf's textured weight (bits 4 and 8).  Both
+# keep the board's EWA-filtered floor.
+BOARD_CLOTH = ("denim8", "mask", "vertexcolors", "wireframe")
+BOARD_WRAPPED = ("bumpmap", "normalmap", "blend")
+BOARD_BITS = {BOARD_CLOTH: 1 | 2 | 16, BOARD_WRAPPED: 1 | 4 | 8}
+
+
+def board_renders(directory, family, labels, props=None, seed=3, spp=2,
+                  depth=3, width=16, height=12):
+    """`family` on the lifted cloth board holding the quads `labels`
+    (written into `directory`), through both factories with the rays
+    counted in both (counting_choose, count_port_rays); a chain family
+    through render_chains.  Returns dict(ref, got: images; ref_rays,
+    port_rays; bits: the scene's has_textures; ref_takes, port_takes:
+    the chains' acceptance decisions or None)."""
+    path = load_tool("cloth_board").write_board(str(directory), labels,
+                                                lift=True)
+    scene, st = ref_scene.load_scene(path, {
+        "width": str(width), "height": str(height), "spp": str(spp),
+        "maxDepth": str(depth)})
+    st.integrator = family
+    st.integrator_props.update(props or {})
+    ref_tally, port_tally = [], []
+    rt, rs, pt, ts = make_both(scene, st,
+                               counting_choose(pinned_matmul, ref_tally))
+    count_port_rays(pt, port_tally)
+    takes = (None, None)
+    if family in CHAINS:
+        ref, got, *takes = render_chains(rt, rs, pt, ts, seed, spp)
+    else:
+        ref = np.asarray(rt.render(rs, seed=seed, spp=spp))
+        got = pt.render(ts, seed=seed, spp=spp).numpy()
+    jax.effects_barrier()
+    return dict(ref=ref, got=got, ref_rays=sum(ref_tally),
+                port_rays=sum(port_tally), bits=int(st.has_textures),
+                ref_takes=takes[0], port_takes=takes[1])
+
+
+def check_board_image(r, width=16, height=12):
+    """A board render against the reference's: finite, lit, within rtol
+    1e-3 / atol 1e-4 on >= 99% of pixels, means within 1e-4 relative."""
+    got, ref = r["got"], r["ref"]
+    assert got.shape == ref.shape == (height, width, 3)
+    assert np.isfinite(got).all()
+    assert (ref.max(-1) > 1e-4).mean() > 0.25
+    assert frac_close(got, ref) >= 0.99
+    assert rel_mean_diff(got, ref) <= 1e-4

@@ -26,6 +26,12 @@ nothing lands under data/); the walls are the repo's
 data/scenes/cbox/meshes.  Shared by chip_smoke.py and the port's tests,
 which load it from its path (tools/ is not a package).  The XML keeps the
 loader's $width / $height / $spp / $maxDepth variables, and $integrator.
+
+lift=True shifts the whole board (every shape and the camera) by LIFT,
+off the axis planes: the floor lies on y = 0 and the green wall on
+x = 0, multiples of every SPPM gather radius, where a photon's last bit
+picks its hash cell (the photon families' parity scenes and chip phases
+use the lifted board; the default layout stays as it was).
 """
 import os
 
@@ -222,13 +228,27 @@ def ridges(size=32, waves=2):
 
 CLOTH = ("denim8", "denim24", "charmeuse8", "charmeuse24")
 
+# the shift of lift=True (tools/lights_board.py's)
+LIFT = '<translate x="0.37" y="0.0371" z="0.29"/>'
 
-def board_xml(directory, labels=None):
+
+def _lifted(xml):
+    """`xml` shifted by LIFT: appended to every toWorld transform (the
+    shapes' and the camera's), and given to the obj shapes, which have
+    none."""
+    xml = xml.replace("</transform>", LIFT + "</transform>")
+    return xml.replace(
+        '<shape type="obj">\n',
+        '<shape type="obj">\n    <transform name="toWorld">' + LIFT +
+        "</transform>\n")
+
+
+def board_xml(directory, labels=None, lift=False):
     """The board's XML, reading its generated files from `directory`:
     the quads' centers 120 apart, the top row at y 440 (the camera looks
     down +z; x grows to the left in its image).  labels: the quads to
     keep (all by default; CLOTH keeps the woven cloth), in their
-    places."""
+    places; lift: the whole board shifted by LIFT."""
     body = []
     for i, (label, shape, bsdf) in enumerate(QUADS):
         if labels is not None and label not in labels:
@@ -237,14 +257,16 @@ def board_xml(directory, labels=None):
         place = PLACE.format(x=458 - 120 * col, y=440 - 120 * row)
         body.append(SHAPE[shape].format(place=place, dir=directory,
                                         bsdf=bsdf.format(dir=directory)))
-    return (HEADER.format(mesh=MESH, dir=directory) + "".join(body) +
-            "</scene>\n")
+    xml = (HEADER.format(mesh=MESH, dir=directory) + "".join(body) +
+           "</scene>\n")
+    return _lifted(xml) if lift else xml
 
 
-def write_board(directory, labels=None):
-    """Writes the board (the quads of `labels`, all by default), its EXRs
-    (with the port's utils/exr.write) and its PLY into `directory`;
-    returns the XML's path."""
+def write_board(directory, labels=None, lift=False):
+    """Writes the board (the quads of `labels`, all by default; lift:
+    shifted off the axis planes), its EXRs (with the port's
+    utils/exr.write) and its PLY into `directory`; returns the XML's
+    path."""
     from gradientdomain_mitsuba_tpu_torch.utils import exr
     exr.write(os.path.join(directory, "stripes.exr"), stripes(), half=False)
     exr.write(os.path.join(directory, "ridges.exr"), ridges(), half=False)
@@ -252,5 +274,5 @@ def write_board(directory, labels=None):
         f.write(grid_ply())
     path = os.path.join(directory, "cloth_board.xml")
     with open(path, "w") as f:
-        f.write(board_xml(directory, labels))
+        f.write(board_xml(directory, labels, lift))
     return path

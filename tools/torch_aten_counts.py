@@ -4,11 +4,16 @@ card (each call costs the host a few microseconds whatever its size).
 
     python tools/torch_aten_counts.py [--scene data/scenes/caustics/caustics.xml]
         [--size 16] [--spp 16] [--depth 8] [--families path,bdpt,...]
+        [--vars samples=2048,irrSamples=16] [--props photonCount=65536,...]
 
 One pass is one sample a pixel (path, bdpt: one trace_pass; sppm: one
 camera pass + photon wavefront + gather) or one mutation of every chain
 (pssmlt, erpt, mlt: one _mstep), after one unprofiled pass of the same
-kind.  The sampler is the scene's at --spp (ldsampler for caustics).
+kind.  A tracer with a per-render cache (irrcache, the dipole tracer
+of a subsurface scene) builds it first, and its build is counted on a
+line of its own.  --vars gives the loader more variables, --props the
+integrator properties (numbers).  The sampler is the scene's at --spp
+(ldsampler for caustics).
 Counts are of torch.profiler's CPU events without a parent whose name
 starts with aten::; rays are the pass's lanes with maxt > 0 over its
 intersector calls (the device tally), a lane being a pixel sample or a
@@ -37,9 +42,14 @@ def one_pass(tracer, scene, st):
         b, state = tracer._bootstrap(scene, 0)
         fb = torch.zeros((st.height, st.width, 3))
         return lambda: tracer._mstep(scene, 0, 1, state, b, fb)
+    if hasattr(tracer, "_vpl_table"):
+        table = tracer._vpl_table(scene, 0)
+        return lambda: tracer._one_pass(scene, 0, 0, table)
     if hasattr(tracer, "_one_pass"):
         r = torch.tensor(tracer.r0, dtype=torch.float32)
         return lambda: tracer._one_pass(scene, 0, 0, r)
+    if getattr(tracer, "_build_cache", None) and tracer._cache is None:
+        tracer._cache = tracer._build_cache(scene, 0)
     return lambda: tracer.trace_pass(scene, 0, 0)
 
 
@@ -84,17 +94,31 @@ def main():
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--depth", type=int, default=8)
     ap.add_argument("--families", default=",".join(FAMILIES))
+    ap.add_argument("--vars", default="")
+    ap.add_argument("--props", default="")
     args = ap.parse_args()
+
+    def pairs(text):
+        return dict(kv.split("=") for kv in text.split(",") if kv)
     torch.set_num_threads(1)
     for fam in args.families.split(","):
         scene_np, st = sc.load_scene(args.scene, {
             "width": str(args.size), "height": str(args.size),
-            "spp": str(args.spp), "maxDepth": str(args.depth)})
+            "spp": str(args.spp), "maxDepth": str(args.depth),
+            **pairs(args.vars)})
         st.integrator = fam
         if fam in ("pssmlt", "erpt", "mlt"):
             st.integrator_props.update(chains=64, luminanceSamples=64)
+        st.integrator_props.update(
+            {k: float(v) for k, v in pairs(args.props).items()})
         scene = bridge.to_torch(scene_np, "cpu")
         tracer = factory.make_integrator(scene, st)
+        if getattr(tracer, "_build_cache", None):
+            calls, rays, queries = count(
+                tracer, lambda: tracer._build_cache(scene, 0))
+            print(f"{fam:7s} {calls:8d} top-level aten calls to build its "
+                  f"cache, {rays} rays, intersector calls {queries[0]} "
+                  f"closest / {queries[1]} any hit", flush=True)
         lanes = (tracer.n_chains if hasattr(tracer, "n_chains")
                  else args.size * args.size)
         calls, rays, queries = count(tracer, one_pass(tracer, scene, st))
