@@ -245,7 +245,23 @@ its time):
      absorber of its shape, the same render under GDMT_KERNEL=v4 (rays
      equal, phase 4's tolerance), and the one- and two-sphere scenes at
      64x64, 4 spp through the kernels and the pair kernels' plain
-     version.
+     version;
+ 24. steps H1 and H2: the port's front ends and parallel/.  The CLI
+     (utils/cli.main, in process, so the built kernels are reused) on
+     cbox 256x256, 64 spp, maxDepth 6 with G-PT: the fused route (no
+     stats) and the chunked route (--stats-json -v), every EXR finite,
+     the fused -final.exr equal to GPTracer.render_final called directly
+     at the same seed, the chunked buffers equal to the fused ones (rtol
+     1e-5), the stats' counted rays equal to that render's device count;
+     G-BDPT at 128x128, 4 spp and path to .npy through the CLI (finite,
+     rays counted); tpuutil-torch diff on the two finals; each route's
+     wall, Mrays/s and sweep launches.  Then parallel/ on a world of one
+     over NCCL (multihost.init): G-PT, G-BDPT and path row-sharded tiles
+     at 128x128, 4 spp, maxDepth 5 against their tracers' renders (rtol
+     1e-4, atol 1e-5), the sharded Poisson solve against
+     poisson.solve_l2 (atol 2e-3, rtol 1e-3), and the tile queue with a
+     fault injected on tile 1's first attempt, bit-identical to a run
+     without faults; the sweep launches of each.
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -262,6 +278,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -3695,6 +3712,275 @@ def phase_step_g2c(dev, recs):
     return summary
 
 
+@contextlib.contextmanager
+def launch_tally():
+    """Counts every sweep kernel launch inside the block, whatever tracer
+    the entry point builds (the SweepKernel wrappers' own counts rise
+    with it): yields {kernel name: launches}."""
+    from gradientdomain_mitsuba_tpu_torch.ops import sweep
+    launch = sweep.SweepKernel._launch
+    tally = {"sweep_closest": 0, "sweep_occluded": 0}
+
+    def counted(k, *args, **kw):
+        out = launch(k, *args, **kw)
+        tally[k.name] += 1
+        return out
+
+    sweep.SweepKernel._launch = counted
+    try:
+        yield tally
+    finally:
+        sweep.SweepKernel._launch = launch
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def step_h_cli(dev, recs, tmp):
+    """Phase 24a: the CLI's routes on the card (see the module
+    docstring)."""
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    from gradientdomain_mitsuba_tpu_torch.utils import cli, exr, mtsutil
+    out = {}
+    dev_arg = ["--device", str(dev)]
+    gpt_args = [CBOX, "-D", "integrator=gpt", "-D", "width=256", "-D",
+                "height=256", "-D", "maxDepth=6", "-s", "64", "-z",
+                "1"] + dev_arg
+
+    def run(label, argv):
+        with launch_tally() as tally:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        check(rc == 0, f"CLI {label}: rc {rc}")
+        for name, n in tally.items():
+            recs[name]["launches"] += n
+        check(all(n > 0 for n in tally.values()),
+              f"CLI {label}: a sweep kernel was not launched: {tally}")
+        return wall, dict(tally)
+
+    def read(path):
+        img = exr.read_rgb(path)
+        check(bool(np.isfinite(img).all()), f"{path}: not finite")
+        return img
+
+    # warm-up: one small CLI render (first-use costs out of the walls)
+    run("warm-up", [CBOX, "-D", "integrator=gpt", "-D", "width=64", "-D",
+                    "height=64", "-s", "1", "-q", "-o",
+                    os.path.join(tmp, "warm.exr")] + dev_arg)
+    imgs = {}
+    for route, extra in (("fused", []),
+                         ("chunked", ["-v", "--stats-json",
+                                      os.path.join(tmp, "chunked.json")])):
+        o = os.path.join(tmp, route + ".exr")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            wall, tally = run(route, gpt_args + ["-o", o] + extra)
+        imgs[route] = {k: read(os.path.join(tmp, f"{route}-{k}.exr"))
+                       for k in ("primal", "dx", "dy", "direct", "final")}
+        check(tuple(imgs[route]["final"].shape) == (256, 256, 3),
+              f"{route}: final shape")
+        out[route] = dict(wall_s=wall, launches=tally)
+        if route == "chunked":
+            log(buf.getvalue().rstrip())
+    # the API's render at the same seed, rays counted on the device
+    from gradientdomain_mitsuba_tpu_torch.scene import bridge
+    from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
+    scene_np, st = sc.load_scene(CBOX, {"integrator": "gpt", "width": "256",
+                                        "height": "256", "maxDepth": "6"})
+    st.spp = 64
+    scene = bridge.to_torch(scene_np, dev)
+    tracer = GPTracer(scene, st)
+    tracer.count_rays = True
+    final, bufs = tracer.render_final(scene, 1, 64)
+    rays = int(bufs["rays"])
+    half = final.cpu().numpy().astype(np.float16).astype(np.float32)
+    check(np.array_equal(imgs["fused"]["final"], half),
+          "CLI fused -final.exr differs from GPTracer.render_final")
+    for k in ("primal", "dx", "dy", "direct"):
+        check(np.allclose(imgs["chunked"][k], imgs["fused"][k], rtol=1e-5,
+                          atol=0), f"CLI chunked {k} differs from fused")
+    with open(os.path.join(tmp, "chunked.json")) as f:
+        stats = json.load(f)
+    check(stats["rays_measured"] and stats["rays"] == rays,
+          f"CLI counted rays {stats['rays']} != render_final's {rays}")
+    out["rays"] = rays
+    out["chunked"].update(render_s=stats["render_s"],
+                          reconstruct_s=stats["reconstruct_s"],
+                          cg_residual_final=stats["cg_residual_final"])
+    for route in ("fused", "chunked"):
+        r = out[route]
+        log(f"CLI G-PT {route}: wall {r['wall_s']:.4f} s (load, render, "
+            f"reconstruct, EXR writes), {rays / r['wall_s'] / 1e6:.3f} "
+            f"Mrays/s over the wall, sweep launches {r['launches']}")
+    log(f"CLI G-PT chunked: render {stats['render_s']:.4f} s "
+        f"({rays / stats['render_s'] / 1e6:.3f} Mrays/s), reconstruct "
+        f"{stats['reconstruct_s']:.4f} s; {rays} rays = render_final's "
+        f"device count")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mtsutil.main(["diff", os.path.join(tmp, "fused-final.exr"),
+                           os.path.join(tmp, "chunked-final.exr"),
+                           "--fail-above", "1e-6"])
+    log(f"tpuutil-torch diff fused-final chunked-final: "
+        f"{buf.getvalue().strip()} (rc {rc})")
+    check(rc == 0, "tpuutil-torch diff: the finals differ")
+    out["diff"] = buf.getvalue().strip()
+
+    for label, extra, o in (
+            ("gbdpt", ["--integrator", "gbdpt", "-D", "width=128", "-D",
+                       "height=128", "-s", "4"], "gbdpt.exr"),
+            ("path", ["--integrator", "path", "-s", "16"], "path.npy")):
+        js = os.path.join(tmp, label + ".json")
+        argv = [CBOX, "-D", "maxDepth=6", "-z", "1", "-q", "-v",
+                "--stats-json", js, "-o", os.path.join(tmp, o)] + extra + \
+            dev_arg
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            wall, tally = run(label, argv)
+        with open(js) as f:
+            st_j = json.load(f)
+        img = (np.load(os.path.join(tmp, o)) if o.endswith(".npy") else
+               read(os.path.join(tmp, "gbdpt-final.exr")))
+        check(bool(np.isfinite(img).all()) and float(np.abs(img).mean()) > 0,
+              f"CLI {label}: output not finite or black")
+        check(st_j["rays_measured"] and st_j["rays"] > 0,
+              f"CLI {label}: rays not counted")
+        out[label] = dict(wall_s=wall, render_s=st_j["render_s"],
+                          rays=st_j["rays"], launches=tally,
+                          size=[st_j["width"], st_j["height"]],
+                          spp=st_j["spp"])
+        log(f"CLI {label} {st_j['width']}x{st_j['height']} {st_j['spp']} "
+            f"spp: wall {wall:.4f} s, render {st_j['render_s']:.4f} s, "
+            f"{st_j['rays']} rays counted, "
+            f"{st_j['rays'] / st_j['render_s'] / 1e6:.3f} Mrays/s, sweep "
+            f"launches {tally}")
+    return out
+
+
+def step_h_parallel(dev, recs):
+    """Phase 24b: parallel/ on a world of one over NCCL (see the module
+    docstring)."""
+    import torch.distributed as dist
+    from gradientdomain_mitsuba_tpu_torch.models import poisson
+    from gradientdomain_mitsuba_tpu_torch.models.gbdpt import GBDPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    from gradientdomain_mitsuba_tpu_torch.parallel import (
+        dist_poisson, multihost, tile_queue, tiles)
+    out = {}
+    rank_dev = multihost.init(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl" and rank_dev == dev,
+              f"multihost.init: backend {dist.get_backend()} on {rank_dev}")
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one)
+        check(float(one) == 1.0, "NCCL all_reduce on a world of one")
+        mesh = multihost.global_mesh()
+        check((mesh.size, mesh.rank, mesh.device) == (1, 0, dev),
+              f"global mesh {mesh}")
+
+        def timed(label, fn):
+            with launch_tally() as tally:
+                torch.cuda.synchronize()
+                t0 = time.time()
+                res = fn()
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            for name, n in tally.items():
+                recs[name]["launches"] += n
+            check(all(n > 0 for n in tally.values()),
+                  f"{label}: a sweep kernel was not launched: {tally}")
+            out[label] = dict(wall_s=wall, launches=dict(tally))
+            log(f"{label}: wall {wall:.4f} s, sweep launches {tally}")
+            return res
+
+        def close(label, got, ref, rtol=1e-4, atol=1e-5):
+            ref = ref.cpu().numpy() if torch.is_tensor(ref) else ref
+            err = float(np.abs(got - ref).max())
+            check(bool(np.isfinite(got).all()) and
+                  np.allclose(got, ref, rtol=rtol, atol=atol),
+                  f"{label}: max |diff| {err}")
+            return err
+
+        for fam, cls in (("gpt", GPTracer), ("gbdpt", GBDPTracer),
+                         ("path", PathTracer)):
+            scene, st = load_scene_at(CBOX, dev, 128, 4, 5, fam)
+            tracer = cls(scene, st)
+            single = tracer.render(scene, seed=2, spp=4)
+            if fam == "gpt":
+                multi = timed("tiles gpt (render_gpt_multihost)",
+                              lambda: multihost.render_gpt_multihost(
+                                  tracer, scene, 2, 4))
+                gpt_single, gpt_tracer, gpt_scene = single, tracer, scene
+            elif fam == "gbdpt":
+                multi = timed("tiles gbdpt (render_tiles_gbdpt)",
+                              lambda: tiles.render_tiles_gbdpt(
+                                  tracer, scene, mesh, 2, 4))
+            else:
+                multi = {"image": timed(
+                    "tiles path (render_path_multihost)",
+                    lambda: multihost.render_path_multihost(
+                        tracer, scene, 2, 4))}
+                single = {"image": single}
+            errs = {k: close(f"tiles {fam} {k}", multi[k], single[k])
+                    for k in single}
+            out[f"tiles {fam}"] = errs
+            log(f"tiles {fam} 128x128 4spp vs {cls.__name__}.render: "
+                f"max |diff| {errs}")
+
+        bufs = {k: v for k, v in gpt_single.items()}
+        t0 = time.time()
+        rec = dist_poisson.reconstruct_sharded(mesh, bufs, alpha=0.2,
+                                               iters=100)
+        sharded_s = time.time() - t0
+        local = poisson.solve_l2(bufs["primal"], bufs["dx"], bufs["dy"],
+                                 alpha=0.2, iters=100) + bufs["very_direct"]
+        err = close("reconstruct_sharded", rec, local, rtol=1e-3, atol=2e-3)
+        out["reconstruct_sharded"] = dict(wall_s=sharded_s, max_abs=err)
+        log(f"reconstruct_sharded (L2, 100 CG iterations) {sharded_s:.4f} s "
+            f"vs poisson.solve_l2: max |diff| {err:.3e}")
+
+        faults = []
+
+        def hook(idx, attempt):
+            if idx == 1 and attempt == 0:
+                faults.append(idx)
+                raise RuntimeError("injected: tile 1 lost")
+
+        clean = timed("tile queue", lambda: tile_queue.render_tiles_queued(
+            gpt_tracer, gpt_scene, 3, 4, tile_rows=32))
+        faulty = timed("tile queue, tile 1 failed once",
+                       lambda: tile_queue.render_tiles_queued(
+                           gpt_tracer, gpt_scene, 3, 4, tile_rows=32,
+                           fail_hook=hook))
+        check(faults == [1], f"fault hook calls {faults}")
+        for k in clean:
+            check(np.array_equal(clean[k], faulty[k]),
+                  f"tile queue {k}: a retried tile changed the film")
+        log("tile queue: a retry of tile 1 gives the same bits")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_step_h(dev, recs):
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    try:
+        return {"cli": step_h_cli(dev, recs, tmp),
+                "parallel": step_h_parallel(dev, recs)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def build_kernels():
     """Build the three kernel libraries, one nvcc each, all started
     together; prints how much the overlap saves against building them
@@ -3726,12 +4012,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("step-e", "step-f", "step-7a",
                                         "step-g1", "step-g2a", "step-g2b",
-                                        "step-g2c"),
+                                        "step-g2c", "step-h"),
                     help="build the kernels and run one phase that needs "
                          "no earlier one (step-e: phase 17, step-f: phase "
                          "18, step-7a: phase 19, step-g1: phase 20, "
                          "step-g2a: phase 21, step-g2b: phase 22, "
-                         "step-g2c: phase 23), without the result line")
+                         "step-g2c: phase 23, step-h: phase 24), without "
+                         "the result line")
     args = ap.parse_args()
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3783,6 +4070,9 @@ def main():
     if args.only == "step-g2c":
         with Phase("steps G2b-2 and G2c: own-loop textures, subsurface"):
             log(json.dumps({"step_g2c": phase_step_g2c(dev, recs)}))
+    if args.only == "step-h":
+        with Phase("steps H1 and H2: the CLI and parallel/"):
+            log(json.dumps({"step_h": phase_step_h(dev, recs)}))
     if args.only:
         log(f"total {time.time() - t_start:.3f} s")
         log(card_line())
@@ -3834,13 +4124,15 @@ def main():
         step_g2b = phase_step_g2b(dev, recs)
     with Phase("steps G2b-2 and G2c: own-loop textures, subsurface"):
         step_g2c = phase_step_g2c(dev, recs)
+    with Phase("steps H1 and H2: the CLI and parallel/"):
+        step_h = phase_step_h(dev, recs)
     log(json.dumps({"slice": summary, "forest": forest_summary,
                     "forest_v4": v4_summary, "bidir": bidir_summary,
                     "gbdpt_gradients": grad_summary, "step_b": step_b,
                     "step_d": step_d, "step_e": step_e, "step_f": step_f,
                     "step_7a": step_7a, "step_g1": step_g1,
                     "step_g2a": step_g2a, "step_g2b": step_g2b,
-                    "step_g2c": step_g2c}))
+                    "step_g2c": step_g2c, "step_h": step_h}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

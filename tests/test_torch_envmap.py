@@ -43,6 +43,11 @@ from gradientdomain_mitsuba_tpu_torch.ops import emitter as em
 from gradientdomain_mitsuba_tpu_torch.ops import texture as tex
 from gradientdomain_mitsuba_tpu_torch.scene import bridge
 from torch_parity import make_both, pinned_matmul
+from torch_parity import one_thread  # noqa: F401
+
+# torch on one thread: the suite runs six workers, and a multi-threaded
+# CPU torch among them spends the renders' time contending for cores
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = os.path.join(ROOT, "data/scenes/envmap/envmap.xml")

@@ -30,6 +30,11 @@ from gradientdomain_mitsuba_tpu_torch.models import gpt as gpt_mod
 from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
 from gradientdomain_mitsuba_tpu_torch.scene import bridge
 from gradientdomain_mitsuba_tpu_torch.scene import scene as port_scene
+from torch_parity import one_thread  # noqa: F401
+
+# torch on one thread: the suite runs six workers, and a multi-threaded
+# CPU torch among them spends the renders' time contending for cores
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CBOX = os.path.join(ROOT, "data/scenes/cbox/cbox.xml")

@@ -16,6 +16,11 @@ import torch
 
 from gradientdomain_mitsuba_tpu.models import poisson as ref_poisson
 from gradientdomain_mitsuba_tpu_torch.models import poisson
+from torch_parity import one_thread  # noqa: F401
+
+# torch on one thread: the suite runs six workers, and a multi-threaded
+# CPU torch among them spends the renders' time contending for cores
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

@@ -8,6 +8,11 @@ import torch
 
 from gradientdomain_mitsuba_tpu.core import rng as ref_rng
 from gradientdomain_mitsuba_tpu_torch.core import rng as port_rng
+from torch_parity import one_thread  # noqa: F401
+
+# torch on one thread: the suite runs six workers, and a multi-threaded
+# CPU torch among them spends the renders' time contending for cores
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 DA = port_rng.DimAllocator
 

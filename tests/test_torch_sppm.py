@@ -25,6 +25,11 @@ from gradientdomain_mitsuba_tpu_torch.models.vpl import VPLTracer
 from gradientdomain_mitsuba_tpu_torch.scene import bridge
 from torch_parity import (assert_image_close, load, make_both,
                           render_both)
+from torch_parity import one_thread  # noqa: F401
+
+# torch on one thread: the suite runs six workers, and a multi-threaded
+# CPU torch among them spends the renders' time contending for cores
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CBOX = os.path.join(ROOT, "data/scenes/cbox/cbox.xml")

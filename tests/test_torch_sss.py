@@ -25,6 +25,11 @@ from gradientdomain_mitsuba_tpu_torch.models.sss import DipoleTracer
 from torch_parity import (count_port_rays, counting_choose, frac_close,
                           load_tool, make_both, pinned_full_matmul,
                           rel_mean_diff)
+from torch_parity import one_thread  # noqa: F401
+
+# torch on one thread: the suite runs six workers, and a multi-threaded
+# CPU torch among them spends the renders' time contending for cores
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 sss_scene = load_tool("sss_scene")
 SEED, SPP, SIZE, DEPTH = 1, 1, 32, 3

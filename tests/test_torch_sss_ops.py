@@ -28,6 +28,11 @@ from gradientdomain_mitsuba_tpu_torch.ops import emitter as em_ops
 from gradientdomain_mitsuba_tpu_torch.ops import sss
 from gradientdomain_mitsuba_tpu_torch.scene import bridge
 from torch_parity import load_tool
+from torch_parity import one_thread  # noqa: F401
+
+# torch on one thread: the suite runs six workers, and a multi-threaded
+# CPU torch among them spends the renders' time contending for cores
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 sss_scene = load_tool("sss_scene")
 # (sigma_s, sigma_a, g, eta): marble at scale 10, test_sss.py's eval_mo

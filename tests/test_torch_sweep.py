@@ -16,6 +16,11 @@ from gradientdomain_mitsuba_tpu.ops import intersect as ref_isec
 from gradientdomain_mitsuba_tpu.ops import pallas_sweep as ps
 from gradientdomain_mitsuba_tpu_torch.ops import intersect as isec
 from gradientdomain_mitsuba_tpu_torch.ops import sweep
+from torch_parity import one_thread  # noqa: F401
+
+# torch on one thread: the suite runs six workers, and a multi-threaded
+# CPU torch among them spends the renders' time contending for cores
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 _spec = importlib.util.spec_from_file_location(
     "sweep_soups", os.path.join(os.path.dirname(os.path.dirname(

@@ -31,6 +31,11 @@ from gradientdomain_mitsuba_tpu_torch.scene import bridge
 from gradientdomain_mitsuba_tpu_torch.scene import scene as port_scene
 from test_torch_path import write_small_forest
 from test_torch_trace_cuda import TIE_HIGH, TIE_LOW, tie_soup
+from torch_parity import one_thread  # noqa: F401
+
+# torch on one thread: the suite runs six workers, and a multi-threaded
+# CPU torch among them spends the renders' time contending for cores
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARS = {"width": "16", "height": "16", "spp": "1", "maxDepth": "2"}

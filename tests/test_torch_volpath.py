@@ -13,6 +13,11 @@ import pytest
 
 from gradientdomain_mitsuba_tpu_torch.models.volpath import VolPathTracer
 from torch_parity import assert_image_close, load, render_both
+from torch_parity import one_thread  # noqa: F401
+
+# torch on one thread: the suite runs six workers, and a multi-threaded
+# CPU torch among them spends the renders' time contending for cores
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CBOX = os.path.join(ROOT, "data/scenes/cbox/cbox.xml")
