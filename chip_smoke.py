@@ -262,6 +262,25 @@ its time):
      poisson.solve_l2 (atol 2e-3, rtol 1e-3), and the tile queue with a
      fault injected on tile 1's first attempt, bit-identical to a run
      without faults; the sweep launches of each.
+ 25. step I: forest10m.xml (tools/gen_forest.py's 1,600 trees,
+     10,188,804 triangles) at its defaults (256x256, 16 spp, maxDepth
+     5), loaded twice with GDMT_GEOM_CACHE in a fresh temporary
+     directory, removed at the end (the rest of the script runs with the
+     cache off), in a worker process started before phase 16 so that its
+     ~60 s of host numpy overlap phases 16-24: the first load writes the
+     geometry and shading entries, the second must hit both and give
+     every array bit for bit; free disk, bytes written, prep times, load
+     walls, the worker's peak host RSS; then a third load here, which
+     must hit, and its tables uploaded with bridge.to_torch (bytes on
+     the card; tri9 is capped above 2M triangles, so the v2 kernels do
+     not run); the v7 and v4 kernels bit for bit against their plain
+     version on camera, shadow and bounce batches cut to 65,537 rays,
+     then timed at 1,048,576 rays beside the batch's bound with their
+     walk counts, v4 bit for bit with v7; PathTracer.render through v7
+     and under GDMT_KERNEL=v4 (warm-up, launch counters reset, one timed
+     render each: wall, rays, Mrays/s, launches; rays equal, pixels
+     within phase 4's tolerance, finite, not black) and phase 7's 64x64,
+     2 spp kernel render against the plain render.
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -278,6 +297,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -292,6 +312,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CBOX = os.path.join(ROOT, "data", "scenes", "cbox", "cbox.xml")
 FOREST = os.path.join(ROOT, "data", "scenes", "forest", "forest.xml")
+FOREST10M = os.path.join(ROOT, "data", "scenes", "forest", "forest10m.xml")
+# forest10m's triangles as the reference's loader counts them
+# (BENCH_r05.json)
+FOREST10M_TRIS = 10_188_804
 N_TIMED = 1 << 20
 # agreement required of kernel vs plain (sweep tolerances)
 PRIM_FRAC, T_RTOL, OCC_FRAC = 0.998, 1e-5, 0.999
@@ -362,6 +386,20 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """Environment variable `name` set to `value` inside the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
 
 
 def card_line():
@@ -1004,7 +1042,10 @@ def agreement(got, occ, ref, ref_occ, rays, label):
     valid_frac = float((got.valid == ref.valid).float().mean())
     both = got.valid & ref.valid
     same = both & (got.prim == ref.prim)
-    prim_frac = int(same.sum()) / max(int(both.sum()), 1)
+    # a batch whose lanes hit nothing on both sides agrees (valid is
+    # compared above)
+    prim_frac = (int(same.sum()) / int(both.sum()) if bool(both.any())
+                 else 1.0)
     terr = (got.t[same] - ref.t[same]).abs()
     max_abs = float(terr.max()) if bool(same.any()) else 0.0
     max_rel = (float((terr / ref.t[same].abs()).max())
@@ -1386,11 +1427,12 @@ def phase_forest_slice(dev, kernels_rec, forest):
                 kernel_ms=per, **info), img
 
 
-def phase_forest_vs_plain(dev, forest):
-    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+def forest_vs_plain(scene, st, label):
+    """A clustered scene's PathTracer render at 64x64, 2 spp through the
+    traversal kernels against the same render through their plain
+    version (same seed): rays within 1e-3, pixels within tolerance."""
     from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
     from gradientdomain_mitsuba_tpu_torch.ops import common
-    scene, st, _ = forest
     small = dataclasses.replace(st, width=64, height=64, spp=2)
     out = {}
     for plain in (False, True):
@@ -1410,16 +1452,24 @@ def phase_forest_vs_plain(dev, forest):
         out[plain] = (img, tracer.last_ray_count, time.time() - t0,
                       [k.launches for k in tracer.kernels])
     (ik, rk, tk, lk), (ip, rp, tp, lp) = out[False], out[True]
-    log(f"forest 64x64 2spp kernel vs plain: rays {rk} vs {rp}, wall "
+    log(f"{label} 64x64 2spp kernel vs plain: rays {rk} vs {rp}, wall "
         f"{tk:.3f} s vs {tp:.3f} s, launches {lk} vs {lp}")
     check(all(n > 0 for n in lk) and lp == [0, 0],
-          "kernel render did not launch, or plain render launched")
-    check(abs(rk - rp) <= 1e-3 * rp, "forest ray counts differ")
+          f"{label}: kernel render did not launch, or plain render launched")
+    check(abs(rk - rp) <= 1e-3 * rp, f"{label} ray counts differ")
     frac = float(torch.isclose(ik, ip, rtol=IMG_RTOL, atol=IMG_ATOL)
                  .all(-1).float().mean())
     log(f"  image: {frac:.5f} of pixels within rtol {IMG_RTOL} atol "
         f"{IMG_ATOL}; means {float(ik.mean()):.6f} vs {float(ip.mean()):.6f}")
-    check(frac >= IMG_FRAC, "forest kernel and plain images differ")
+    check(frac >= IMG_FRAC, f"{label} kernel and plain images differ")
+    return dict(rays=rk, plain_rays=rp, wall_s=tk, plain_wall_s=tp,
+                launches=lk, pixels_within=frac)
+
+
+def phase_forest_vs_plain(dev, forest):
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    scene, st, _ = forest
+    forest_vs_plain(scene, st, "forest")
 
     # G-PT on the forest: the shift paths' shadow queries on the pair
     # kernels
@@ -1452,18 +1502,11 @@ def phase_v4_slice(dev, recs, forest, v7_img, v7_rays, v7_gpt):
     from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
     from gradientdomain_mitsuba_tpu_torch.ops import trace
     scene, st, _ = forest
-    saved = os.environ.get("GDMT_KERNEL")
-    os.environ["GDMT_KERNEL"] = "v4"
-    try:
+    with env_set("GDMT_KERNEL", "v4"):
         tracer = PathTracer(scene, st)
         gst = dataclasses.replace(st, width=64, height=64, spp=4,
                                   integrator="gpt")
         gpt = GPTracer(scene, gst)
-    finally:
-        if saved is None:
-            del os.environ["GDMT_KERNEL"]
-        else:
-            os.environ["GDMT_KERNEL"] = saved
     names = [k.name for k in tracer.kernels + gpt.kernels]
     check(names == ["mt_closest", "mt_occluded"] * 2,
           f"GDMT_KERNEL=v4 chose {names}")
@@ -2126,21 +2169,12 @@ STEP_E_SPP = {"mlt": 1}
 EXPECT_CHAINS = 1 << 18
 
 
-@contextlib.contextmanager
 def wide_passes(lanes):
     """GDMT_LANES set to `lanes` inside the block: the path and G-PT
     tracers then trace up to that many lanes a pass (within a render's
     chunk), the same samples in fewer host-paced passes (only the film's
     summation order changes)."""
-    old = os.environ.get("GDMT_LANES")
-    os.environ["GDMT_LANES"] = str(lanes)
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["GDMT_LANES"]
-        else:
-            os.environ["GDMT_LANES"] = old
+    return env_set("GDMT_LANES", str(lanes))
 
 
 def record_takes(tracer):
@@ -3592,15 +3626,8 @@ def sss_phase(dev, recs, tmp):
     out["oracle"] = dict(centre=c, no_dipole=c_plain, absorber=c_black)
 
     # v4 = v7 on the same render (GDMT_KERNEL=v4: the block kernels)
-    saved = os.environ.get("GDMT_KERNEL")
-    os.environ["GDMT_KERNEL"] = "v4"
-    try:
+    with env_set("GDMT_KERNEL", "v4"):
         t4 = factory.make_integrator(scene, st)
-    finally:
-        if saved is None:
-            del os.environ["GDMT_KERNEL"]
-        else:
-            os.environ["GDMT_KERNEL"] = saved
     names = [k.name for k in t4.kernels]
     check(names == ["mt_closest", "mt_occluded"],
           f"GDMT_KERNEL=v4 chose {names}")
@@ -3981,6 +4008,314 @@ def phase_step_h(dev, recs):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def host_peak_rss():
+    """The process's peak resident set so far, in bytes (getrusage's
+    ru_maxrss, KiB on Linux)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def forest10m_loads(cache, path, n_tris):
+    """The scene at `path` (forest10m.xml, n_tris triangles) at its
+    defaults, loaded twice with the geometry disk cache in `cache`: the
+    first load must miss and write both entries (geometry, shading
+    rows), the second hit both, and every array of the geometry dict and
+    tri_shade must be equal bit for bit between the two.  Runs in
+    start_forest10m_loads' worker process; returns (info, log lines,
+    failed checks)."""
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    from gradientdomain_mitsuba_tpu_torch.scene import prep_cache
+    from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
+    os.environ["GDMT_GEOM_CACHE"] = cache
+    build = prep_cache.load_or_build
+    geos, loads, lines, errors = [], [], [], []
+
+    def capture(*args, **kw):
+        geos.append(build(*args, **kw))
+        return geos[-1]
+
+    prep_cache.load_or_build = capture
+    try:
+        for _ in range(2):
+            t0 = time.time()
+            scene_np, st = sc.load_scene(path, {})
+            wall = time.time() - t0
+            loads.append((scene_np, st, wall, dir_bytes(cache),
+                          host_peak_rss()))
+    finally:
+        prep_cache.load_or_build = build
+    for i, (scene_np, st, wall, written, rss) in enumerate(loads):
+        times = {k: (round(v, 3) if isinstance(v, float) else v)
+                 for k, v in st.prep_times.items()}
+        lines.append(f"forest10m load {i + 1}: {wall:.3f} s; cache dir holds "
+                     f"{written} bytes; peak host RSS {rss} bytes; "
+                     f"prep_times {json.dumps(times)}")
+    (miss, miss_st, miss_wall, written, _), (hit, st, hit_wall, _, rss) = loads
+    states = [(s.prep_times.get("cache"), s.prep_times.get("shade_cache"))
+              for s in (miss_st, st)]
+    if states != [("miss", "miss"), ("hit", "hit")]:
+        errors.append(f"forest10m cache states {states}: the first load must "
+                      "write, the second hit")
+    g0, g1 = geos
+    if sorted(g0) != sorted(g1):
+        errors.append("cache entry keys differ")
+    for k in g0:
+        a, b = np.asarray(g0[k]), np.asarray(g1.get(k))
+        if not (a.dtype == b.dtype and a.shape == b.shape and
+                np.array_equal(a, b)):
+            errors.append(f"cached geometry array {k} differs")
+    if not np.array_equal(miss.geom.tri_shade, hit.geom.tri_shade):
+        errors.append("cached tri_shade differs")
+    lines.append(f"forest10m cache hit equal to the miss, bit for bit: "
+                 f"{len(g0)} geometry arrays "
+                 f"({sum(np.asarray(v).nbytes for v in g0.values())} bytes) "
+                 f"and tri_shade {tuple(hit.geom.tri_shade.shape)}: "
+                 f"{not errors}")
+    T = hit.geom.indices.shape[0]
+    K, W = hit.geom.cbounds.shape[0], st.cluster_window
+    S = -(-K // trace.SUPER_FACTOR)
+    lines.append(f"forest10m: {T} triangles (reference: {n_tris}), "
+                 f"K = {K} clusters of W = {W}, S = {S} superclusters "
+                 f"(MAX_SUPERS {trace.MAX_SUPERS}), {st.width}x{st.height} "
+                 f"{st.spp} spp maxDepth {st.max_depth}")
+    if T != n_tris:
+        errors.append(f"forest10m has {T} triangles")
+    if S > trace.MAX_SUPERS:
+        errors.append(f"S = {S} above MAX_SUPERS")
+    info = dict(tris=T, clusters=K, window=W, supers=S,
+                miss_load_s=miss_wall, hit_load_s=hit_wall,
+                cache_bytes=written, host_peak_rss=rss,
+                prep_times_miss=miss_st.prep_times,
+                prep_times_hit=st.prep_times)
+    return info, lines, errors
+
+
+def _forest10m_worker(conn, *args):
+    """Worker process body: sends forest10m_loads(*args)'s result, or the
+    traceback of what raised (phase 25 fails on it)."""
+    import traceback
+    try:
+        out = forest10m_loads(*args)
+    except Exception:
+        out = ({}, [], [f"forest10m loads raised:\n{traceback.format_exc()}"])
+    conn.send(out)
+    conn.close()
+
+
+def start_forest10m_loads():
+    """Starts phase 25's two host-bound loads of forest10m (~60 s of
+    numpy, cold) in a worker process with a fresh cache directory, so
+    that they overlap the phases before 25; returns (process, pipe end,
+    cache, start time).  The worker is a daemon and the directory is
+    removed at exit, whichever way the script ends."""
+    import atexit
+    import multiprocessing
+    import shutil
+    import tempfile
+    cache = tempfile.mkdtemp(prefix="gdmt_geom_")
+    atexit.register(shutil.rmtree, cache, True)
+    log(f"forest10m loads started in a worker process; geometry cache in "
+        f"{cache}: {shutil.disk_usage(cache).free} bytes free")
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_forest10m_worker,
+                       args=(send, cache, FOREST10M, FOREST10M_TRIS),
+                       daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv, cache, time.time()
+
+
+def step_i_kernels(dev, recs, scene, st):
+    """The four traversal kernels on forest10m: bit for bit against their
+    plain version on camera, shadow and bounce batches cut to N_PAIR_CMP
+    rays; then timed at N_TIMED rays beside the batch's bound, with
+    their walk counts, v4 bit for bit with v7."""
+    from gradientdomain_mitsuba_tpu_torch.ops import trace
+    g = scene.geom
+    K, W = g.cbounds.shape[0], st.cluster_window
+    ks = {"pair": (trace.make_pair_intersector(W, K),
+                   trace.make_pair_occluder(W, K)),
+          "mt": (trace.make_mt_intersector(W, K, ray_sort=False),
+                 trace.make_mt_occluder(W, K, ray_sort=False))}
+    cam, shadow, bounce = forest_rays(scene, st, N_TIMED, dev)
+    out = {}
+    for name, n, batch in forest_batches((("camera", cam), ("shadow", shadow),
+                                          ("bounce", bounce))):
+        label = f"forest10m {name} rays N={n}"
+        if n == N_PAIR_CMP:
+            for variant, pair in ks.items():
+                res, _, ms = compare_pairs(pair, batch, g.mt_slabs, g.cbounds,
+                                           f"{variant} {label}")
+                check_pairs(f"{variant} {label}", res, ms)
+                check(res[-1], f"{variant} {label}: the kernels differ from "
+                      "their plain version")
+                for k in pair:
+                    rec = recs[k.name]
+                    rec["max_abs_err_forest10m"] = max(
+                        rec.get("max_abs_err_forest10m", 0.0),
+                        res[5] if k.any_hit else res[2])
+            continue
+        live = max(int((batch[3] > batch[2]).sum()), 1)
+        hit = ks["pair"][0](*batch, g.mt_slabs, g.cbounds)
+        occ = ks["pair"][1](*batch, g.mt_slabs, g.cbounds)
+        v4_hit = ks["mt"][0](*batch, g.mt_slabs, g.cbounds)
+        v4_occ = ks["mt"][1](*batch, g.mt_slabs, g.cbounds)
+        check(all(torch.equal(a, b) for a, b in zip(hit, v4_hit)) and
+              torch.equal(occ, v4_occ), f"{label}: v4 differs from v7")
+        bounds = {False: traversal_bound(batch, hit, None, g.cbounds, W,
+                                         "pair"),
+                  True: traversal_bound(batch, hit, occ, g.cbounds, W,
+                                        "pair")}
+        for variant, pair in ks.items():
+            for k in pair:
+                ms = cuda_ms(lambda: k(*batch, g.mt_slabs, g.cbounds),
+                             iters=5, warmup=1)
+                got, *counts = k.count_visits(*batch, g.mt_slabs, g.cbounds)
+                ref = occ if k.any_hit else hit
+                check(torch.equal(got, ref) if k.any_hit else
+                      all(torch.equal(a, b) for a, b in zip(got, ref)),
+                      f"{k.name}: the counting launch differs on {label}")
+                per = [c / live for c in counts]
+                b_ms, by, pairs, clusters, blocks = bounds[k.any_hit]
+                rec = recs[k.name]
+                rec[f"ms_forest10m_{name}"] = ms
+                rec[f"bound_ms_forest10m_{name}"] = b_ms
+                rec.setdefault("walk_per_ray_forest10m", {})[name] = per
+                out[(k.name, name)] = dict(ms=ms, bound_ms=b_ms, by=by,
+                                           walk_per_ray=per)
+                walk = (f"swept {per[0]:.3f} clusters, opened {per[1]:.3f} "
+                        f"superclusters" if variant == "pair" else
+                        f"{per[0]:.3f} (ray, tile) sweeps, {per[1]:.3f} "
+                        f"(block, cluster) slab reads, {per[2]:.3f} worklist "
+                        f"entries entered")
+                log(f"{k.name} at {N_TIMED} forest10m {name} rays: kernel "
+                    f"{ms:.4f} ms; bound {b_ms:.4f} ms ({by}: {pairs} (ray, "
+                    f"cluster) pairs, {clusters} clusters, {blocks} (64-ray "
+                    f"block, cluster) pairs); per live ray ({live}) {walk}")
+    log(f"(comparison launches, not counted as the main path's: "
+        f"{[k.launches for pair in ks.values() for k in pair]})")
+    return {f"{k}/{b}": v for (k, b), v in out.items()}
+
+
+def step_i_renders(dev, recs, scene, st):
+    """forest10m PathTracer.render at the scene's defaults through the v7
+    kernels, then under GDMT_KERNEL=v4: a warm-up, the launch counters
+    reset, one timed render each; equal rays, the images within
+    tolerance, finite and not black."""
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    out, imgs = {}, {}
+    for label, kernel in (("v7", "pairs"), ("v4", "v4")):
+        with env_set("GDMT_KERNEL", kernel):
+            tracer = PathTracer(scene, st)
+        names = [k.name for k in tracer.kernels]
+        want = "pair" if label == "v7" else "mt"
+        check(names == [f"{want}_closest", f"{want}_occluded"],
+              f"GDMT_KERNEL={kernel} chose {names}")
+        tracer.count_rays = True
+        t0 = time.time()
+        tracer.render(scene, seed=0, spp=st.spp, chunk=st.spp)
+        torch.cuda.synchronize()
+        warm = time.time() - t0
+        for k in tracer.kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        img = tracer.render(scene, seed=1, spp=st.spp, chunk=st.spp)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = [k.launches for k in tracer.kernels]
+        peak = torch.cuda.max_memory_allocated(dev)
+        rays = tracer.last_ray_count
+        for k, n in zip(tracer.kernels, launches):
+            recs[k.name]["launches_forest10m"] = n
+        lit = float((img > 0).any(-1).float().mean())
+        mean = float(img.mean())
+        log(f"forest10m PathTracer.render {st.width}x{st.height} {st.spp}spp "
+            f"maxDepth {st.max_depth} ({label}): warm-up {warm:.3f} s, wall "
+            f"{wall:.4f} s, measured rays {rays}, {rays / wall / 1e6:.3f} "
+            f"Mrays/s, launches {dict(zip(names, launches))}, peak device "
+            f"memory {peak} bytes, image mean {mean:.5f}, lit {lit:.4f}")
+        check(all(n > 0 for n in launches),
+              f"a {label} kernel was not launched by the render: {launches}")
+        check(bool(torch.isfinite(img).all()), "forest10m image not finite")
+        check(mean > 0 and lit > 0.1, "forest10m image is black")
+        imgs[label] = img
+        out[label] = dict(wall_s=wall, warmup_s=warm, rays=rays,
+                          mrays_per_s=rays / wall / 1e6, launches=launches,
+                          peak_bytes=peak, image_mean=mean, lit_frac=lit)
+    frac = float(torch.isclose(imgs["v4"], imgs["v7"], rtol=IMG_RTOL,
+                               atol=IMG_ATOL).all(-1).float().mean())
+    log(f"forest10m v4 vs v7 render (seed 1): rays {out['v4']['rays']} vs "
+        f"{out['v7']['rays']}, {frac:.5f} of pixels within rtol {IMG_RTOL} "
+        f"atol {IMG_ATOL}")
+    check(out["v4"]["rays"] == out["v7"]["rays"],
+          "v4 and v7 forest10m renders traced different rays")
+    check(frac >= IMG_FRAC, "v4 and v7 forest10m images differ")
+    out["v4_vs_v7_pixels_within"] = frac
+    out["vs_plain"] = forest_vs_plain(scene, st, "forest10m")
+    return out
+
+
+def phase_step_i(dev, recs, loads):
+    """Phase 25, step I: forest10m.xml through the geometry disk cache
+    (the two loads of start_forest10m_loads' worker, then a third that
+    must hit, in a fresh directory removed at the end), uploaded to the
+    card, its traversal kernels against their plain version and timed,
+    and rendered through v7 and v4."""
+    import shutil
+    from gradientdomain_mitsuba_tpu_torch.scene import bridge
+    from gradientdomain_mitsuba_tpu_torch.scene import scene as sc
+    proc, recv, cache, started = loads
+    try:
+        t0 = time.time()
+        try:
+            info, lines, errors = recv.recv()
+        except EOFError:
+            fail(f"the forest10m worker ended without a result (exit code "
+                 f"{proc.exitcode})")
+        proc.join(60)
+        for line in lines:
+            log(line)
+        log(f"forest10m worker: started {t0 - started:.3f} s before phase "
+            f"25, which waited {time.time() - t0:.3f} s for it")
+        check(not errors, "; ".join(errors))
+        with env_set("GDMT_GEOM_CACHE", cache):
+            t0 = time.time()
+            scene_np, st = sc.load_scene(FOREST10M, {})
+            info["load_s"] = time.time() - t0
+        states = (st.prep_times.get("cache"),
+                  st.prep_times.get("shade_cache"))
+        log(f"forest10m load 3 (this process): {info['load_s']:.3f} s, "
+            f"cache {states}")
+        check(states == ("hit", "hit"), f"forest10m load 3 states {states}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.time()
+        scene = bridge.to_torch(scene_np, dev)
+        torch.cuda.synchronize()
+        info.update(upload_s=time.time() - t0,
+                    scene_bytes=torch.cuda.memory_allocated(dev) - base)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    del scene_np
+    log(f"forest10m upload {info['upload_s']:.3f} s, scene tables on the "
+        f"card {info['scene_bytes']} bytes; tri9 "
+        f"{tuple(scene.geom.tri9.shape)}: capped above 2M triangles as the "
+        f"reference's loader caps it, so the v2 kernels do not run here")
+    check(tuple(scene.geom.tri9.shape) == (1, 16, 4),
+          "forest10m tri9 is not the capped placeholder")
+    info["kernels"] = step_i_kernels(dev, recs, scene, st)
+    info["renders"] = step_i_renders(dev, recs, scene, st)
+    return info
+
+
 def build_kernels():
     """Build the three kernel libraries, one nvcc each, all started
     together; prints how much the overlap saves against building them
@@ -4012,15 +4347,18 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("step-e", "step-f", "step-7a",
                                         "step-g1", "step-g2a", "step-g2b",
-                                        "step-g2c", "step-h"),
+                                        "step-g2c", "step-h", "step-i"),
                     help="build the kernels and run one phase that needs "
                          "no earlier one (step-e: phase 17, step-f: phase "
                          "18, step-7a: phase 19, step-g1: phase 20, "
                          "step-g2a: phase 21, step-g2b: phase 22, "
-                         "step-g2c: phase 23, step-h: phase 24), without "
-                         "the result line")
+                         "step-g2c: phase 23, step-h: phase 24, step-i: "
+                         "phase 25), without the result line")
     args = ap.parse_args()
     t_start = time.time()
+    # no geometry disk cache but phase 25's own: forest.xml's entry would
+    # write ~1.7 GB into the checkout for nothing
+    os.environ["GDMT_GEOM_CACHE"] = "0"
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an "
              "NVIDIA card")
@@ -4073,6 +4411,10 @@ def main():
     if args.only == "step-h":
         with Phase("steps H1 and H2: the CLI and parallel/"):
             log(json.dumps({"step_h": phase_step_h(dev, recs)}))
+    if args.only == "step-i":
+        with Phase("step I: forest10m, the geometry disk cache"):
+            log(json.dumps({"step_i": phase_step_i(
+                dev, recs, start_forest10m_loads())}))
     if args.only:
         log(f"total {time.time() - t_start:.3f} s")
         log(card_line())
@@ -4108,6 +4450,9 @@ def main():
         grad_summary = phase_gbdpt_gradients(dev)
     with Phase("step B families"):
         step_b, step_b_images = phase_step_b(dev)
+    # phase 25's host-bound forest10m loads overlap phases 16-24 (after
+    # the headline cells' phases)
+    forest10m_loads = start_forest10m_loads()
     with Phase("step D families"):
         step_d = phase_step_d(dev, recs, step_b_images["path"])
     with Phase("step E on caustics"):
@@ -4126,13 +4471,20 @@ def main():
         step_g2c = phase_step_g2c(dev, recs)
     with Phase("steps H1 and H2: the CLI and parallel/"):
         step_h = phase_step_h(dev, recs)
+    # release forest.xml's tables, host and card, before forest10m's
+    del forest, pair_out, tri9, v2_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("step I: forest10m, the geometry disk cache"):
+        step_i = phase_step_i(dev, recs, forest10m_loads)
     log(json.dumps({"slice": summary, "forest": forest_summary,
                     "forest_v4": v4_summary, "bidir": bidir_summary,
                     "gbdpt_gradients": grad_summary, "step_b": step_b,
                     "step_d": step_d, "step_e": step_e, "step_f": step_f,
                     "step_7a": step_7a, "step_g1": step_g1,
                     "step_g2a": step_g2a, "step_g2b": step_g2b,
-                    "step_g2c": step_g2c, "step_h": step_h}))
+                    "step_g2c": step_g2c, "step_h": step_h,
+                    "step_i": step_i}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

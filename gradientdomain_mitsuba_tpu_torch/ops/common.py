@@ -8,7 +8,8 @@ Intersection record every integrator uses.
 
 Ported: the small-scene (<= 2048 triangles) traversal through the sweep
 kernels, the large-scene traversal through the pair kernels (or, under
-GDMT_KERNEL=v4, the v4 block kernels), analytic spheres merged by
+GDMT_KERNEL=v4, the v4 block kernels) or, for a large scene without
+clusters, the reference's plain cluster traversal, analytic spheres merged by
 closest t (their exact normals and lat-long uv in the hit fill), the
 hit fill with the barycentric payload (vertex colors, wireframe edge
 distance, the yarn azimuth of woven cloth) and the bump / normal map
@@ -87,12 +88,15 @@ def choose_intersector(settings, n_tris: int, n_clusters: int = 0):
     carries the kernel wrapper it calls as `.kernel` (its `.launches`
     counts launches).
 
-    Deviation: on the CPU the reference walks large scenes with its jnp
-    two-level traversal (make_cluster_intersector); the port runs the
-    pair kernels' plain version there, as it runs the sweep kernels'
-    plain version for small scenes, so the CPU path checks the arithmetic
-    the card runs.  The jnp traversals are not ported (ROADMAP Queue 1
-    item 11), so a large scene without clusters raises."""
+    A larger scene without clusters walks the reference's plain
+    two-level traversal (intersect.make_cluster_intersector /
+    make_cluster_occluder, on tris and clusters) on every device, as the
+    reference's fallthrough does; it has no kernel (`.kernel` is None).
+
+    Deviation: on the CPU the reference walks large scenes with clusters
+    by that traversal too; the port runs the pair kernels' plain version
+    there, as it runs the sweep kernels' plain version for small scenes,
+    so the CPU path checks the arithmetic the card runs."""
     if n_tris <= BRUTE_FORCE_MAX_TRIS:
         closest_k = sweep.make_sweep_intersector(n_tris)
         occl_k = sweep.make_sweep_occluder(n_tris)
@@ -118,9 +122,15 @@ def choose_intersector(settings, n_tris: int, n_clusters: int = 0):
         def occl(o, d, mint, maxt, geom):
             return occl_k(o, d, mint, maxt, geom.mt_slabs, geom.cbounds)
     else:
-        raise NotImplementedError(
-            "large scene without clusters (jnp cluster traversal): "
-            "ROADMAP Queue 1 item 11")
+        closest_k = occl_k = None
+        closest_c = isec.make_cluster_intersector(settings.cluster_window)
+        occl_c = isec.make_cluster_occluder(settings.cluster_window)
+
+        def closest(o, d, mint, maxt, geom):
+            return closest_c(o, d, mint, maxt, geom.tris, geom.clusters)
+
+        def occl(o, d, mint, maxt, geom):
+            return occl_c(o, d, mint, maxt, geom.tris, geom.clusters)
     closest.kernel = closest_k
     occl.kernel = occl_k
     return add_sphere_intersections(closest, occl)

@@ -1,19 +1,71 @@
-"""Geometry prep pipeline: BVH, clusters, padded layout, linear-MT table.
+"""Geometry prep pipeline + disk cache: BVH, clusters, padded layout,
+linear-MT table.
 
 Counterpart of gradientdomain_mitsuba_tpu/scene/prep_cache.py, numpy only.
 Everything that depends ONLY on the triangle soup and the cluster target
 is built here in one shot, in the same order and layout as the
 reference, so both packages hand identical tables to their traversal
-kernels.  The reference's on-disk cache (``.gdmt_cache/``, used above
-100k triangles) is not ported yet: every scene is built afresh.
+kernels.
+
+Cache layout, as the reference's: one directory of raw ``.npy`` files
+per key (a blake2b hash of the geometry inputs) under
+``<repo>/.gdmt_cache/geom/`` (override with GDMT_GEOM_CACHE, read at
+each call; disable with GDMT_GEOM_CACHE=0), loaded with
+``mmap_mode="r"`` (read-only: ``bridge.to_torch`` copies every array)
+and marked whole by a ``.complete`` file.  A write goes to a temp
+directory that ``os.replace`` moves into place, so a reader never sees
+a torn entry; a writer that loses a race keeps the other writer's copy.
+An entry that fails to load (no ``.complete``, a truncated file) is
+rebuilt and replaced.  A failed write (read-only file system, full
+disk) leaves the render uncached.  Only scenes of at least
+CACHE_MIN_TRIS triangles are cached: test scenes prep in milliseconds
+and would only churn the directory.
+
+The version tag is the port's own (GEOM_CACHE_VERSION), so the two
+packages never read each other's entries.  Hence the port has no
+conversion of the 16-row ``mt_slabs`` entries the reference's loader
+still accepts from before its round 5: no such entry carries the
+port's tag.
 """
 from __future__ import annotations
 
+import hashlib
+import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
 
 from . import bvh as bvh_mod
+
+# Bump whenever the BVH builder, cluster extraction, padded layout, slab
+# packing, or linear-MT coefficient format changes semantically.
+GEOM_CACHE_VERSION = "torch-r4-2"  # the reference's r4-2 layout
+
+CACHE_MIN_TRIS = 100_000
+
+
+def _cache_dir():
+    env = os.environ.get("GDMT_GEOM_CACHE")
+    if env == "0":
+        return None
+    if env:
+        return env
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.join(root, ".gdmt_cache", "geom")
+
+
+def geometry_key(p0, p1, p2, target: int) -> str:
+    h = hashlib.blake2b(digest_size=20)
+    h.update(GEOM_CACHE_VERSION.encode())
+    h.update(str(int(target)).encode())
+    for a in (p0, p1, p2):
+        arr = np.ascontiguousarray(a, np.float32)
+        h.update(str(arr.shape).encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
 
 
 def build_geometry(p0, p1, p2, target: int, times=None) -> dict:
@@ -118,3 +170,127 @@ def build_geometry(p0, p1, p2, target: int, times=None) -> dict:
         psel=psel.astype(np.int64), valid_slot=valid_slot,
         v0=v0, e1=e1, e2=e2, orig_id=orig_id,
         tri9=tri9, mt_slabs=mt_slabs, linC=linC, cbounds=cbounds)
+
+
+def hash_arrays(*arrays, extra: str = "") -> str:
+    """blake2b over a tuple of numpy arrays (+ an extra string tag)."""
+    h = hashlib.blake2b(digest_size=20)
+    h.update(GEOM_CACHE_VERSION.encode())
+    h.update(extra.encode())
+    for a in arrays:
+        if a is None:
+            h.update(b"<none>")
+            continue
+        arr = np.ascontiguousarray(a)
+        h.update(str(arr.dtype).encode())
+        h.update(str(arr.shape).encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def load_or_build_array(key: str, build_fn, n_items: int, times=None,
+                        tag: str = "aux"):
+    """Disk-cached single array: load <cache>/<tag>-<key>.npy (mmap) or
+    build_fn() + save.  n_items gates caching like CACHE_MIN_TRIS;
+    times[tag + "_cache"] gets "hit" or "miss" (nothing when uncached)."""
+    times = times if times is not None else {}
+    cdir = _cache_dir()
+    if cdir is None or n_items < CACHE_MIN_TRIS:
+        return build_fn()
+    path = os.path.join(cdir, f"{tag}-{key}.npy")
+    if os.path.exists(path):
+        try:
+            out = np.load(path, mmap_mode="r", allow_pickle=False)
+            times[tag + "_cache"] = "hit"
+            return out
+        except (OSError, ValueError, EOFError):
+            pass  # torn file: rebuilt and replaced below
+    times[tag + "_cache"] = "miss"
+    arr = build_fn()
+    try:
+        os.makedirs(cdir, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=cdir, suffix=".npy.tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.save(f, np.ascontiguousarray(arr))
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
+    except OSError:
+        pass  # read-only fs / out of space: render proceeds uncached
+    return arr
+
+
+def _load_entry(path):
+    """Every array of a complete cache entry (mmaps), or None when the
+    entry is missing, unmarked or torn."""
+    if not os.path.exists(os.path.join(path, ".complete")):
+        return None
+    try:
+        return {fn[:-4]: np.load(os.path.join(path, fn), mmap_mode="r",
+                                 allow_pickle=False)
+                for fn in os.listdir(path) if fn.endswith(".npy")}
+    except (OSError, ValueError, EOFError):
+        return None
+
+
+def _write_entry(cdir, path, out):
+    """Write `out` as the entry at `path`: a temp directory moved into
+    place.  A torn entry already there is moved aside and removed; a
+    complete one (a concurrent writer's) is kept."""
+    os.makedirs(cdir, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=cdir, suffix=".tmp")
+    try:
+        for k, v in out.items():
+            # np.asarray keeps the 0-d scalars (window, tree_depth) 0-d;
+            # the reference's np.ascontiguousarray stores them as [1]
+            np.save(os.path.join(tmp, k + ".npy"), np.asarray(v))
+        with open(os.path.join(tmp, ".complete"), "w") as f:
+            f.write(GEOM_CACHE_VERSION)
+        if os.path.exists(path) and _load_entry(path) is None:
+            torn = tempfile.mkdtemp(dir=cdir, suffix=".torn")
+            os.replace(path, os.path.join(torn, "entry"))
+            shutil.rmtree(torn, ignore_errors=True)
+        if os.path.exists(path):  # lost a concurrent race: keep theirs
+            shutil.rmtree(tmp)
+        else:
+            os.replace(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def load_or_build(p0, p1, p2, target: int, times=None) -> dict:
+    """Disk-cached build_geometry.  `times` (optional dict) receives the
+    phase breakdown plus cache bookkeeping ('cache': 'hit'/'miss'/'off',
+    'cache_io' seconds, 'geom_key')."""
+    times = times if times is not None else {}
+    T = len(p0)
+    cdir = _cache_dir()
+    if cdir is None or T < CACHE_MIN_TRIS:
+        times["cache"] = "off"
+        return build_geometry(p0, p1, p2, target, times)
+
+    t0 = time.time()
+    key = geometry_key(p0, p1, p2, target)
+    times["geom_key"] = key
+    path = os.path.join(cdir, key)
+    times["cache_key"] = time.time() - t0
+    t0 = time.time()
+    out = _load_entry(path)
+    if out is not None:
+        times["cache"] = "hit"
+        times["cache_io"] = time.time() - t0
+        return out
+
+    times["cache"] = "miss"
+    out = build_geometry(p0, p1, p2, target, times)
+    t0 = time.time()
+    try:
+        _write_entry(cdir, path, out)
+    except OSError:
+        pass  # read-only fs / out of space: render proceeds uncached
+    times["cache_io"] = time.time() - t0
+    return out

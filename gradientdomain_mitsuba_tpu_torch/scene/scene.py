@@ -558,7 +558,8 @@ def compile_scene(desc: SceneDesc,
     prep_times["mesh"] = _time.time() - _t_mesh0
 
     # --- BVH over all triangles -------------------------------------------
-    # Built by scene/prep_cache.py: BVH, cluster decomposition, padded
+    # Built (or loaded from the disk cache keyed by geometry hash) by
+    # scene/prep_cache.py: BVH, cluster decomposition, padded
     # cluster-major layout, traversal slabs, linear-MT table.
     p0 = positions[indices[:, 0]]
     p1 = positions[indices[:, 1]]
@@ -583,7 +584,7 @@ def compile_scene(desc: SceneDesc,
         target = int(np.clip(-(-T // 1024), 64, 128)) if T > 64 \
             else max(T, 1)
     from . import prep_cache
-    geo = prep_cache.build_geometry(p0, p1, p2, target, prep_times)
+    geo = prep_cache.load_or_build(p0, p1, p2, target, prep_times)
     window = int(geo["window"])
     order = np.asarray(geo["order"])
     psel = np.asarray(geo["psel"])
@@ -613,9 +614,21 @@ def compile_scene(desc: SceneDesc,
     se = np.asarray(shape_emitter, np.int32)
     sf = np.asarray(shape_face_n, bool)
 
-    tri_shade = _pack_tri_shade(tris, order, psel, valid_slot, indices,
-                                normals, uvs, vcolors, tri_shape,
-                                sb, se, sf, needs_bary)
+    def _build_tri_shade():
+        return _pack_tri_shade(tris, order, psel, valid_slot, indices,
+                               normals, uvs, vcolors, tri_shape,
+                               sb, se, sf, needs_bary)
+
+    _geo_key = prep_times.get("geom_key")
+    if _geo_key is not None:
+        _shade_key = prep_cache.hash_arrays(
+            indices, normals, uvs, vcolors if needs_bary else None,
+            tri_shape, sb, se, sf,
+            extra=f"{_geo_key}|bary={needs_bary}|shade-v1")
+        tri_shade = prep_cache.load_or_build_array(
+            _shade_key, _build_tri_shade, T, prep_times, tag="shade")
+    else:
+        tri_shade = _build_tri_shade()
     prep_times["shade"] = _time.time() - _t_shade0
     bvh_arrays = BVHArrays(
         child0_min=geo["tree_c0min"], child0_max=geo["tree_c0max"],
