@@ -13,6 +13,8 @@ integrators ignore subsurface).
 """
 from __future__ import annotations
 
+from ..utils import stats
+
 KNOWN = ("path", "direct", "ao", "bdpt", "field", "volpath",
          "volpath_simple", "pssmlt", "mlt", "erpt", "irrcache",
          "sppm", "ppm",
@@ -29,6 +31,12 @@ UNPORTED = {}
 
 
 def make_integrator(scene, settings):
+    """The tracer of settings.integrator for `scene`."""
+    with stats.span("make_integrator"):
+        return _make(scene, settings)
+
+
+def _make(scene, settings):
     t = settings.integrator
     if t in UNPORTED:
         raise NotImplementedError(

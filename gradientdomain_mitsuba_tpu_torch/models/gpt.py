@@ -43,6 +43,7 @@ from ..ops import common, emitter as em_ops
 from ..ops import film as film_ops
 from ..ops import sensor as sensor_ops
 from ..scene.materials import CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC
+from ..utils import stats
 from .path import MAX_BOUNCES_UNLIMITED, mis_weight, primary_footprint
 
 # film-space shifts: +x, -x, +y, -y
@@ -231,18 +232,21 @@ class GPTracer:
         px = (pixel_id % W).to(torch.float32)
         py = (pixel_id // W).to(torch.float32)
 
-        jitter = self._u2(seed, pixel_id, sample_idx, DA.PIXEL_JITTER)
-        pos_film = torch.stack([px, py], -1) + jitter
-        u_ap = self._u2(seed, pixel_id, sample_idx, DA.APERTURE)
+        with stats.span("camera"):
+            jitter = self._u2(seed, pixel_id, sample_idx, DA.PIXEL_JITTER)
+            pos_film = torch.stack([px, py], -1) + jitter
+            u_ap = self._u2(seed, pixel_id, sample_idx, DA.APERTURE)
 
-        # base + 4 offset camera rays (same jitter/aperture randoms)
-        o_m, d_m = sensor_ops.sample_ray(self.sensor, W, H, pos_film, u_ap)
-        offs = torch.tensor(OFFSETS, dtype=torch.float32, device=dev)
-        pos_off = pos_film[None] + offs[:, None, :]
-        o_o, d_o = sensor_ops.sample_ray(
-            self.sensor, W, H, pos_off.reshape(4 * N, 2), u_ap.repeat(4, 1))
-        o_o = o_o.reshape(4, N, 3)
-        d_o = d_o.reshape(4, N, 3)
+            # base + 4 offset camera rays (same jitter/aperture randoms)
+            o_m, d_m = sensor_ops.sample_ray(self.sensor, W, H, pos_film,
+                                             u_ap)
+            offs = torch.tensor(OFFSETS, dtype=torch.float32, device=dev)
+            pos_off = pos_film[None] + offs[:, None, :]
+            o_o, d_o = sensor_ops.sample_ray(
+                self.sensor, W, H, pos_off.reshape(4 * N, 2),
+                u_ap.repeat(4, 1))
+            o_o = o_o.reshape(4, N, 3)
+            d_o = d_o.reshape(4, N, 3)
         zeros4 = torch.zeros(4 * N, device=dev)
 
         def trace4(o, d, maxt):
@@ -300,22 +304,26 @@ class GPTracer:
             fp_o = primary_footprint(self, scene, d_o, its_o)
 
         if self.n_bounces > 0:
-            state = self._bounce(scene, state, 0, seed, sample_idx,
-                                 pixel_id, N, eps, occl4, trace4, True,
-                                 fp_main=fp_m, fp_off=fp_o)
+            with stats.span("bounce", b=0):
+                state = self._bounce(scene, state, 0, seed, sample_idx,
+                                     pixel_id, N, eps, occl4, trace4, True,
+                                     fp_main=fp_m, fp_off=fp_o)
         if self.any_specular:
             # an offset may stay NOT CONNECTED through any number of
             # half-vector copies: every bounce runs the full offsets
             for b in range(1, self.n_bounces):
-                state = self._bounce(scene, state, b, seed, sample_idx,
-                                     pixel_id, N, eps, occl4, trace4, True)
+                with stats.span("bounce", b=b):
+                    state = self._bounce(scene, state, b, seed, sample_idx,
+                                         pixel_id, N, eps, occl4, trace4,
+                                         True)
             return pos_film, state["primal"], very, state["grad"]
         # no specular vertex: after bounce 0 every live offset is CONNECTED
         # (reconnection either succeeded or the shift died), so bounce 1
         # runs without the not-connected machinery
         if self.n_bounces > 1:
-            state = self._bounce(scene, state, 1, seed, sample_idx,
-                                 pixel_id, N, eps, occl4, trace4, False)
+            with stats.span("bounce", b=1):
+                state = self._bounce(scene, state, 1, seed, sample_idx,
+                                     pixel_id, N, eps, occl4, trace4, False)
         if self.n_bounces > 2:
             # SUFFIX FACTORIZATION (reference gpt.py:330-373): every
             # offset is now CONN_DONE or dead, so the rest of the gradient
@@ -332,9 +340,10 @@ class GPTracer:
             rest = dict(state)
             rest["primal"] = torch.zeros_like(state["primal"])
             for b in range(2, self.n_bounces):
-                rest = self._bounce(scene, rest, b, seed, sample_idx,
-                                    pixel_id, N, eps, occl4, trace4,
-                                    False, with_offsets=False)
+                with stats.span("bounce", b=b):
+                    rest = self._bounce(scene, rest, b, seed, sample_idx,
+                                        pixel_id, N, eps, occl4, trace4,
+                                        False, with_offsets=False)
             state["primal"] = state["primal"] + rest["primal"]
             state["grad"] = state["grad"] + coeff * rest["primal"][None]
         return pos_film, state["primal"], very, state["grad"]
@@ -555,11 +564,12 @@ class GPTracer:
 
         # ----------------- offset shift handling --------------------------
         if with_offsets:
-            new = self._shift_offsets(
-                scene, N, eps, occl4, trace4, wi_m, par_m, c_main, bs,
-                wo_w, its_n, conv_m_seg, pb_m_sa, o_its, o_wi, wi_o_loc,
-                wi_o_main, par_o, ss_o, ts_o, c_off, o_tp, o_r, o_conn,
-                o_alive, main_cont, esc, allow_conn0)
+            with stats.span("shift"):
+                new = self._shift_offsets(
+                    scene, N, eps, occl4, trace4, wi_m, par_m, c_main, bs,
+                    wo_w, its_n, conv_m_seg, pb_m_sa, o_its, o_wi,
+                    wi_o_loc, wi_o_main, par_o, ss_o, ts_o, c_off, o_tp,
+                    o_r, o_conn, o_alive, main_cont, esc, allow_conn0)
             (o_its2, o_wi2, o_tp2, o_r2, o_conn2, o_alive2,
              off_emit, off_pb_u, off_pe_u) = new
 
@@ -889,32 +899,39 @@ class GPTracer:
                           if self.count_rays else None)
         try:
             for i in range(n_samples // spb):
-                sidx = (sample_start + i * spb + torch.arange(
-                    spb, dtype=torch.int64, device=dev).repeat_interleave(N))
-                pos, primal, very, grad = self.trace_pass(
-                    scene, seed, sidx, pixel_id=ids)
-                # grid-aligned: dense filtered adds, no scatter
-                jit = (pos % 1.0).reshape(spb, N, 2)
-                fb, wb = film_ops.splat_grid(bufs["primal"], bufs["wsum"],
-                                             jit, primal.reshape(spb, N, 3),
-                                             self.filter_kind)
-                vd, _ = film_ops.splat_grid(bufs["very_direct"],
-                                            torch.zeros_like(wb), jit,
-                                            very.reshape(spb, N, 3),
-                                            self.filter_kind)
-                # gradients: lattice adds at fixed integer offsets
-                g4 = grad.reshape(4, spb, N, 3)
-                dx = film_ops.add_grid_shifted(bufs["dx"], g4[0], 0, 0)
-                dx = film_ops.add_grid_shifted(dx, -g4[1], -1, 0)
-                dy = film_ops.add_grid_shifted(bufs["dy"], g4[2], 0, 0)
-                dy = film_ops.add_grid_shifted(dy, -g4[3], 0, -1)
-                bufs = dict(primal=fb, dx=dx, dy=dy, very_direct=vd,
-                            wsum=wb)
+                with stats.span("pass"):
+                    sidx = (sample_start + i * spb + torch.arange(
+                        spb, dtype=torch.int64,
+                        device=dev).repeat_interleave(N))
+                    pos, primal, very, grad = self.trace_pass(
+                        scene, seed, sidx, pixel_id=ids)
+                    with stats.span("film"):
+                        bufs = self._splat(bufs, spb, N, pos, primal, very,
+                                           grad)
             if self.ray_tally is not None:
                 bufs["rays"] = self.ray_tally
         finally:
             self.ray_tally = None
         return bufs
+
+    def _splat(self, bufs, spb, N, pos, primal, very, grad):
+        """A pass's samples added into the film buffers."""
+        # grid-aligned: dense filtered adds, no scatter
+        jit = (pos % 1.0).reshape(spb, N, 2)
+        fb, wb = film_ops.splat_grid(bufs["primal"], bufs["wsum"],
+                                     jit, primal.reshape(spb, N, 3),
+                                     self.filter_kind)
+        vd, _ = film_ops.splat_grid(bufs["very_direct"],
+                                    torch.zeros_like(wb), jit,
+                                    very.reshape(spb, N, 3),
+                                    self.filter_kind)
+        # gradients: lattice adds at fixed integer offsets
+        g4 = grad.reshape(4, spb, N, 3)
+        dx = film_ops.add_grid_shifted(bufs["dx"], g4[0], 0, 0)
+        dx = film_ops.add_grid_shifted(dx, -g4[1], -1, 0)
+        dy = film_ops.add_grid_shifted(bufs["dy"], g4[2], 0, 0)
+        dy = film_ops.add_grid_shifted(dy, -g4[3], 0, -1)
+        return dict(primal=fb, dx=dx, dy=dy, very_direct=vd, wsum=wb)
 
     def finalize(self, state, spp):
         """Sample-normalize accumulated buffers; with count_rays, read the
@@ -942,11 +959,12 @@ class GPTracer:
         tensors; with count_rays, last_ray_count holds the measured rays."""
         from ..parallel.checkpoint import render_accumulate
         spp = spp or self.settings.spp
-        state, spp = render_accumulate(
-            self, scene, seed, spp, chunk,
-            checkpoint_path=checkpoint_path, resume=resume,
-            progress=progress)
-        return self.finalize(state, spp)
+        with stats.span("render", device=True):
+            state, spp = render_accumulate(
+                self, scene, seed, spp, chunk,
+                checkpoint_path=checkpoint_path, resume=resume,
+                progress=progress)
+            return self.finalize(state, spp)
 
     def render_final(self, scene, seed, spp, alpha=0.2, mode="L1",
                      l2_iters=100, l1_outer=8, l1_inner=40):
@@ -955,15 +973,18 @@ class GPTracer:
         count_rays the buffers hold the measured ray count as "rays" (a
         0-d int64 tensor on the device)."""
         from . import poisson
-        state = self.render_chunk(scene, seed, 0, spp)
-        bufs = self._normalize(state, spp)
-        if "rays" in state:
-            bufs["rays"] = state["rays"]
-        if mode.upper() == "L2":
-            rec = poisson.solve_l2(bufs["primal"], bufs["dx"], bufs["dy"],
-                                   alpha=alpha, iters=l2_iters)
-        else:
-            rec = poisson.solve_l1(bufs["primal"], bufs["dx"], bufs["dy"],
-                                   alpha=alpha, outer_iters=l1_outer,
-                                   inner_iters=l1_inner)
-        return rec + bufs["very_direct"], bufs
+        with stats.span("render", device=True):
+            state = self.render_chunk(scene, seed, 0, spp)
+            bufs = self._normalize(state, spp)
+            if "rays" in state:
+                bufs["rays"] = state["rays"]
+            if mode.upper() == "L2":
+                rec = poisson.solve_l2(bufs["primal"], bufs["dx"],
+                                       bufs["dy"], alpha=alpha,
+                                       iters=l2_iters)
+            else:
+                rec = poisson.solve_l1(bufs["primal"], bufs["dx"],
+                                       bufs["dy"], alpha=alpha,
+                                       outer_iters=l1_outer,
+                                       inner_iters=l1_inner)
+            return rec + bufs["very_direct"], bufs

@@ -40,6 +40,7 @@ from ..ops import common, emitter as em_ops
 from ..ops import film as film_ops
 from ..ops import sensor as sensor_ops
 from ..ops import sss as sss_ops
+from ..utils import stats
 
 # bounce cap used for maxDepth = -1 (unlimited; Russian roulette ends
 # paths long before it)
@@ -122,10 +123,12 @@ class PathTracer:
         px = (pixel_id % W).to(torch.float32)
         py = (pixel_id // W).to(torch.float32)
 
-        jitter = self._u2(seed, pixel_id, sample_idx, DA.PIXEL_JITTER)
-        pos_film = torch.stack([px, py], -1) + jitter
-        u_ap = self._u2(seed, pixel_id, sample_idx, DA.APERTURE)
-        o, d = sensor_ops.sample_ray(self.sensor, W, H, pos_film, u_ap)
+        with stats.span("camera"):
+            jitter = self._u2(seed, pixel_id, sample_idx,
+                              DA.PIXEL_JITTER)
+            pos_film = torch.stack([px, py], -1) + jitter
+            u_ap = self._u2(seed, pixel_id, sample_idx, DA.APERTURE)
+            o, d = sensor_ops.sample_ray(self.sensor, W, H, pos_film, u_ap)
         L = self.trace_rays(scene, seed, sample_idx, pixel_id, o, d,
                             sss_cache=sss_cache)
         return pos_film, L
@@ -192,8 +195,9 @@ class PathTracer:
             fp = None
             if b == 0 and self.has_textures:
                 fp = primary_footprint(self, scene, d, its)
-            s = self._bounce(scene, s, b, seed, sample_idx, pixel_id, N,
-                             eps, fp, sss_cache)
+            with stats.span("bounce", b=b):
+                s = self._bounce(scene, s, b, seed, sample_idx, pixel_id,
+                                 N, eps, fp, sss_cache)
 
         # final emitter-hit pass for the vertex reached by the last bounce
         return s["L"] + self._emitted(scene, s["its"], s["o"], s["d"],
@@ -326,19 +330,24 @@ class PathTracer:
         ids = torch.arange(N, dtype=torch.int64, device=dev).repeat(spb)
         try:
             for i in range(n_samples // spb):
-                self.ray_tally = (torch.zeros((), dtype=torch.int64,
-                                              device=dev)
-                                  if self.count_rays else None)
-                sidx = (sample_start + i * spb + torch.arange(
-                    spb, dtype=torch.int64, device=dev).repeat_interleave(N))
-                pos, L = self.trace_pass(scene, seed, sidx, pixel_id=ids)
-                if self.ray_tally is not None:
-                    rays = rays + self.ray_tally
-                # samples are grid-aligned: dense filtered adds, no scatter
-                jit = (pos % 1.0).reshape(spb, N, 2)
-                fb, wb = film_ops.splat_grid(fb, wb, jit,
-                                             L.reshape(spb, N, 3),
-                                             self.filter_kind)
+                with stats.span("pass"):
+                    self.ray_tally = (torch.zeros((), dtype=torch.int64,
+                                                  device=dev)
+                                      if self.count_rays else None)
+                    sidx = (sample_start + i * spb + torch.arange(
+                        spb, dtype=torch.int64,
+                        device=dev).repeat_interleave(N))
+                    pos, L = self.trace_pass(scene, seed, sidx,
+                                             pixel_id=ids)
+                    if self.ray_tally is not None:
+                        rays = rays + self.ray_tally
+                    # samples are grid-aligned: dense filtered adds, no
+                    # scatter
+                    with stats.span("film"):
+                        jit = (pos % 1.0).reshape(spb, N, 2)
+                        fb, wb = film_ops.splat_grid(fb, wb, jit,
+                                                     L.reshape(spb, N, 3),
+                                                     self.filter_kind)
         finally:
             self.ray_tally = None
         return fb, wb, rays
@@ -355,13 +364,14 @@ class PathTracer:
         at the end)."""
         from ..parallel.checkpoint import render_accumulate
         spp = spp or self.settings.spp
-        state, spp = render_accumulate(
-            self, scene, seed, spp, chunk,
-            checkpoint_path=checkpoint_path, resume=resume,
-            progress=progress)
-        if self.count_rays and "2" in state:
-            self.last_ray_count = int(state["2"])
-        return self.finalize(state, spp)
+        with stats.span("render", device=True):
+            state, spp = render_accumulate(
+                self, scene, seed, spp, chunk,
+                checkpoint_path=checkpoint_path, resume=resume,
+                progress=progress)
+            if self.count_rays and "2" in state:
+                self.last_ray_count = int(state["2"])
+            return self.finalize(state, spp)
 
 
 def render(scene, settings, seed=0, spp=None):

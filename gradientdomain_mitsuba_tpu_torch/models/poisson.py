@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import stats
+
 
 def _dx(img):
     """Forward difference along x (last column -> 0)."""
@@ -47,10 +49,11 @@ def _mask_gradients(gx, gy):
     return gx, gy
 
 
-def _cg(A, b, x0, iters):
+def _cg(A, b, x0, iters, residuals=False):
     """Batched conjugate gradient over leading axes (channels).  Returns
-    (x, residual_norms [iters]).  Runs on the device without host syncs:
-    the step guards are torch.where, as in the reference."""
+    (x, residual_norms [iters]) with residuals, else (x, None).  Runs on
+    the device without host syncs: the step guards are torch.where, as in
+    the reference."""
     def dot(a, c):
         return torch.sum(a * c, dim=(-2, -1), keepdim=True)
 
@@ -58,7 +61,8 @@ def _cg(A, b, x0, iters):
     p = r
     rs = dot(r, r)
     x = x0
-    res = torch.zeros(iters, dtype=b.dtype, device=b.device)
+    res = (torch.zeros(iters, dtype=b.dtype, device=b.device)
+           if residuals else None)
     for i in range(iters):
         Ap = A(p)
         denom = dot(p, Ap)
@@ -69,7 +73,8 @@ def _cg(A, b, x0, iters):
         rs_new = dot(r, r)
         beta = torch.where(rs > 0, rs_new / torch.clamp_min(rs, 1e-30), 0.0)
         p = r + beta * p
-        res[i] = torch.sqrt(torch.sum(rs_new))
+        if residuals:
+            res[i] = torch.sqrt(torch.sum(rs_new))
         rs = rs_new
     return x, res
 
@@ -77,42 +82,47 @@ def _cg(A, b, x0, iters):
 def solve_l2(primal, gx, gy, alpha=0.2, iters=100, return_residuals=False):
     """L2 screened-Poisson solve.  All inputs [H, W, 3]; returns [H, W, 3]
     (plus the CG residual curve when return_residuals)."""
-    P = torch.movedim(primal, -1, 0)  # [3, H, W]
-    GX, GY = _mask_gradients(torch.movedim(gx, -1, 0),
-                             torch.movedim(gy, -1, 0))
-    a2 = alpha * alpha
+    with stats.span("solve", device=True):
+        P = torch.movedim(primal, -1, 0)  # [3, H, W]
+        GX, GY = _mask_gradients(torch.movedim(gx, -1, 0),
+                                 torch.movedim(gy, -1, 0))
+        a2 = alpha * alpha
 
-    def A(x):
-        return _dxT(_dx(x)) + _dyT(_dy(x)) + a2 * x
+        def A(x):
+            return _dxT(_dx(x)) + _dyT(_dy(x)) + a2 * x
 
-    b = _dxT(GX) + _dyT(GY) + a2 * P
-    x, res = _cg(A, b, P, iters)
-    out = torch.movedim(x, 0, -1)
+        b = _dxT(GX) + _dyT(GY) + a2 * P
+        x, res = _cg(A, b, P, iters, return_residuals)
+        out = torch.movedim(x, 0, -1)
     return (out, res) if return_residuals else out
 
 
 def solve_l1(primal, gx, gy, alpha=0.2, outer_iters=8, inner_iters=40,
              irls_eps=1e-4, return_residuals=False):
     """L1 reconstruction via IRLS: reweighted L2 solves (Solver.cpp L1 mode,
-    `reconstructL1=true` default in gpt.cpp)."""
-    P = torch.movedim(primal, -1, 0)
-    GX, GY = _mask_gradients(torch.movedim(gx, -1, 0),
-                             torch.movedim(gy, -1, 0))
-    a2 = alpha * alpha
-    x = P
-    res_all = []
-    for _ in range(outer_iters):
-        wx = 1.0 / torch.clamp_min(torch.abs(_dx(x) - GX), irls_eps)
-        wy = 1.0 / torch.clamp_min(torch.abs(_dy(x) - GY), irls_eps)
-        wp = 1.0 / torch.clamp_min(torch.abs(x - P), irls_eps)
+    `reconstructL1=true` default in gpt.cpp).  With return_residuals,
+    also the CG residual curve [outer_iters * inner_iters]."""
+    with stats.span("solve", device=True):
+        P = torch.movedim(primal, -1, 0)
+        GX, GY = _mask_gradients(torch.movedim(gx, -1, 0),
+                                 torch.movedim(gy, -1, 0))
+        a2 = alpha * alpha
+        x = P
+        res_all = []
+        for i in range(outer_iters):
+            with stats.span("irls", i=i):
+                wx = 1.0 / torch.clamp_min(torch.abs(_dx(x) - GX), irls_eps)
+                wy = 1.0 / torch.clamp_min(torch.abs(_dy(x) - GY), irls_eps)
+                wp = 1.0 / torch.clamp_min(torch.abs(x - P), irls_eps)
 
-        def A(v, wx=wx, wy=wy, wp=wp):
-            return _dxT(wx * _dx(v)) + _dyT(wy * _dy(v)) + a2 * wp * v
+                def A(v, wx=wx, wy=wy, wp=wp):
+                    return (_dxT(wx * _dx(v)) + _dyT(wy * _dy(v)) +
+                            a2 * wp * v)
 
-        b = _dxT(wx * GX) + _dyT(wy * GY) + a2 * wp * P
-        x, res = _cg(A, b, x, inner_iters)
-        res_all.append(res)
-    out = torch.movedim(x, 0, -1)
+                b = _dxT(wx * GX) + _dyT(wy * GY) + a2 * wp * P
+                x, res = _cg(A, b, x, inner_iters, return_residuals)
+                res_all.append(res)
+        out = torch.movedim(x, 0, -1)
     if return_residuals:
         return out, torch.cat(res_all)
     return out

@@ -29,6 +29,8 @@ import threading
 
 import torch
 
+from ..utils import stats
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 BVH_SOURCE = os.path.join(_PKG, "native", "bvh_builder.cpp")
@@ -39,9 +41,10 @@ _LIBS = {}
 
 def build_library(name: str, sources, command) -> str:
     """Compile `sources` with `command(sources, out_path)` (an argv list)
-    into BUILD_DIR unless an identical build is already there.  Returns
-    the library path; raises RuntimeError with the compiler's output if
-    the build fails."""
+    into BUILD_DIR unless an identical build is already there (a build
+    adds to the trace's kernel_builds counter).  Returns the library
+    path; raises RuntimeError with the compiler's output if the build
+    fails."""
     h = hashlib.sha1()
     for src in sources:
         with open(src, "rb") as f:
@@ -53,6 +56,7 @@ def build_library(name: str, sources, command) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
+    stats.count("kernel_builds")
     try:
         res = subprocess.run(command(sources, tmp), capture_output=True,
                              text=True)
@@ -94,15 +98,16 @@ def load_cuda(name: str, source: str, functions: dict):
     with _LOCK:
         if name in _LIBS:
             return _LIBS[name]
-    path = build_library(name, [source], nvcc_command)
-    with _LOCK:
-        if name not in _LIBS:
-            lib = ctypes.CDLL(path)
-            for fn, argtypes in functions.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _LIBS[name] = lib
-        return _LIBS[name]
+    with stats.span("kernel_load", lib=name):
+        path = build_library(name, [source], nvcc_command)
+        with _LOCK:
+            if name not in _LIBS:
+                lib = ctypes.CDLL(path)
+                for fn, argtypes in functions.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _LIBS[name] = lib
+            return _LIBS[name]
 
 
 def check_tensors(ref, specs: dict):
@@ -135,8 +140,9 @@ def get_lib(name: str):
     with _LOCK:
         if name not in _LIBS:
             try:
-                _LIBS[name] = ctypes.CDLL(
-                    build_library(name, [BVH_SOURCE], _gxx))
+                with stats.span("kernel_load", lib=name):
+                    _LIBS[name] = ctypes.CDLL(
+                        build_library(name, [BVH_SOURCE], _gxx))
             except (OSError, RuntimeError):
                 _LIBS[name] = None
         return _LIBS[name]

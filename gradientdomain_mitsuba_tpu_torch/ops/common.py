@@ -32,6 +32,7 @@ from ..core.spectrum import luminance
 from ..core.records import Intersection, tree_map
 from . import intersect as isec
 from . import sweep, trace
+from ..utils import stats
 
 BRUTE_FORCE_MAX_TRIS = 2048
 
@@ -141,17 +142,23 @@ def instrument_intersectors(tracer, closest, occluded):
     `tracer.ray_tally` is a tensor, every traversal call adds the number
     of lanes with positive extent (maxt > 0; dead wavefront lanes carry
     maxt = -1).  The count stays on the device until the caller reads
-    it once at the end."""
+    it once at the end.  Each call is also a `traverse` span of the
+    program's trace (utils/stats.py) that counts the lanes it was sent,
+    live or dead (a host integer)."""
 
     def closest_w(o, d, mint, maxt, geom):
-        if tracer.ray_tally is not None:
-            tracer.ray_tally += (maxt > 0).sum()
-        return closest(o, d, mint, maxt, geom)
+        with stats.span("traverse", kind="closest"):
+            stats.count("lanes", o.shape[0])
+            if tracer.ray_tally is not None:
+                tracer.ray_tally += (maxt > 0).sum()
+            return closest(o, d, mint, maxt, geom)
 
     def occluded_w(o, d, mint, maxt, geom):
-        if tracer.ray_tally is not None:
-            tracer.ray_tally += (maxt > 0).sum()
-        return occluded(o, d, mint, maxt, geom)
+        with stats.span("traverse", kind="occluded"):
+            stats.count("lanes", o.shape[0])
+            if tracer.ray_tally is not None:
+                tracer.ray_tally += (maxt > 0).sum()
+            return occluded(o, d, mint, maxt, geom)
 
     return closest_w, occluded_w
 

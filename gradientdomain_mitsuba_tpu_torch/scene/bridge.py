@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import stats
+
 
 def _leaf(x, device):
     if isinstance(x, (np.ndarray, np.generic)):
@@ -19,9 +21,13 @@ def _leaf(x, device):
     return x
 
 
+def _tree(tree, device):
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree(v, device) for v in tree))
+    return _leaf(tree, device)
+
+
 def to_torch(tree, device):
     """Recursively move a NamedTuple tree of numpy arrays to `device`."""
-    device = torch.device(device)
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(to_torch(v, device) for v in tree))
-    return _leaf(tree, device)
+    with stats.span("to_torch"):
+        return _tree(tree, torch.device(device))

@@ -37,6 +37,7 @@ import time
 
 import numpy as np
 
+from ..utils import stats
 from . import bvh as bvh_mod
 
 # Bump whenever the BVH builder, cluster extraction, padded layout, slab
@@ -200,7 +201,8 @@ def load_or_build_array(key: str, build_fn, n_items: int, times=None,
     path = os.path.join(cdir, f"{tag}-{key}.npy")
     if os.path.exists(path):
         try:
-            out = np.load(path, mmap_mode="r", allow_pickle=False)
+            with stats.span("cache_read"):
+                out = np.load(path, mmap_mode="r", allow_pickle=False)
             times[tag + "_cache"] = "hit"
             return out
         except (OSError, ValueError, EOFError):
@@ -208,16 +210,17 @@ def load_or_build_array(key: str, build_fn, n_items: int, times=None,
     times[tag + "_cache"] = "miss"
     arr = build_fn()
     try:
-        os.makedirs(cdir, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=cdir, suffix=".npy.tmp")
-        try:
-            with os.fdopen(fd, "wb") as f:
-                np.save(f, np.ascontiguousarray(arr))
-            os.replace(tmp, path)
-        except BaseException:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-            raise
+        with stats.span("cache_write"):
+            os.makedirs(cdir, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=cdir, suffix=".npy.tmp")
+            try:
+                with os.fdopen(fd, "wb") as f:
+                    np.save(f, np.ascontiguousarray(arr))
+                os.replace(tmp, path)
+            except BaseException:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+                raise
     except OSError:
         pass  # read-only fs / out of space: render proceeds uncached
     return arr
@@ -271,25 +274,30 @@ def load_or_build(p0, p1, p2, target: int, times=None) -> dict:
     cdir = _cache_dir()
     if cdir is None or T < CACHE_MIN_TRIS:
         times["cache"] = "off"
-        return build_geometry(p0, p1, p2, target, times)
+        with stats.span("bvh_build"):
+            return build_geometry(p0, p1, p2, target, times)
 
     t0 = time.time()
-    key = geometry_key(p0, p1, p2, target)
+    with stats.span("cache_key"):
+        key = geometry_key(p0, p1, p2, target)
     times["geom_key"] = key
     path = os.path.join(cdir, key)
     times["cache_key"] = time.time() - t0
     t0 = time.time()
-    out = _load_entry(path)
+    with stats.span("cache_read"):
+        out = _load_entry(path)
     if out is not None:
         times["cache"] = "hit"
         times["cache_io"] = time.time() - t0
         return out
 
     times["cache"] = "miss"
-    out = build_geometry(p0, p1, p2, target, times)
+    with stats.span("bvh_build"):
+        out = build_geometry(p0, p1, p2, target, times)
     t0 = time.time()
     try:
-        _write_entry(cdir, path, out)
+        with stats.span("cache_write"):
+            _write_entry(cdir, path, out)
     except OSError:
         pass  # read-only fs / out of space: render proceeds uncached
     times["cache_io"] = time.time() - t0

@@ -22,6 +22,7 @@ from . import meshes as mesh_mod
 from .ir import Plugin, SceneDesc, spectrum_value
 from .materials import MaterialBuilder, Materials
 from ..ops.texture import TextureTable, build_table
+from ..utils import stats
 
 
 class Geometry(NamedTuple):
@@ -462,7 +463,8 @@ def compile_scene(desc: SceneDesc,
         if mkey is not None and mkey in _mesh_memo:
             mesh = _mesh_memo[mkey]
         else:
-            mesh = _shape_mesh(shape, desc.base_dir)
+            with stats.span("tessellate"):
+                mesh = _shape_mesh(shape, desc.base_dir)
             if mkey is not None:
                 _mesh_memo[mkey] = mesh
         to_world = shape.get("toWorld", np.eye(4))
@@ -584,7 +586,8 @@ def compile_scene(desc: SceneDesc,
         target = int(np.clip(-(-T // 1024), 64, 128)) if T > 64 \
             else max(T, 1)
     from . import prep_cache
-    geo = prep_cache.load_or_build(p0, p1, p2, target, prep_times)
+    with stats.span("geometry"):
+        geo = prep_cache.load_or_build(p0, p1, p2, target, prep_times)
     window = int(geo["window"])
     order = np.asarray(geo["order"])
     psel = np.asarray(geo["psel"])
@@ -620,15 +623,16 @@ def compile_scene(desc: SceneDesc,
                                sb, se, sf, needs_bary)
 
     _geo_key = prep_times.get("geom_key")
-    if _geo_key is not None:
-        _shade_key = prep_cache.hash_arrays(
-            indices, normals, uvs, vcolors if needs_bary else None,
-            tri_shape, sb, se, sf,
-            extra=f"{_geo_key}|bary={needs_bary}|shade-v1")
-        tri_shade = prep_cache.load_or_build_array(
-            _shade_key, _build_tri_shade, T, prep_times, tag="shade")
-    else:
-        tri_shade = _build_tri_shade()
+    with stats.span("shade_table"):
+        if _geo_key is not None:
+            _shade_key = prep_cache.hash_arrays(
+                indices, normals, uvs, vcolors if needs_bary else None,
+                tri_shape, sb, se, sf,
+                extra=f"{_geo_key}|bary={needs_bary}|shade-v1")
+            tri_shade = prep_cache.load_or_build_array(
+                _shade_key, _build_tri_shade, T, prep_times, tag="shade")
+        else:
+            tri_shade = _build_tri_shade()
     prep_times["shade"] = _time.time() - _t_shade0
     bvh_arrays = BVHArrays(
         child0_min=geo["tree_c0min"], child0_max=geo["tree_c0max"],
@@ -1126,9 +1130,11 @@ def load_scene(path, variables=None, overrides=None):
     """Convenience: XML file -> (SceneData, RenderSettings)."""
     import time as _time
     from . import xml_loader
-    t0 = _time.time()
-    desc = xml_loader.load(path, variables)
-    parse_s = _time.time() - t0
-    scene, settings = compile_scene(desc, overrides)
+    with stats.span("load_scene"):
+        t0 = _time.time()
+        with stats.span("parse"):
+            desc = xml_loader.load(path, variables)
+        parse_s = _time.time() - t0
+        scene, settings = compile_scene(desc, overrides)
     settings.prep_times["parse"] = parse_s
     return scene, settings

@@ -31,6 +31,8 @@ import time
 
 import numpy as np
 
+from . import stats as trace
+
 
 def _np(x):
     """A tensor or array as a host numpy array."""
@@ -302,6 +304,20 @@ def _render_scene(args, scene_path, variables, log, device):
         log(rs.table())
         stats["rays"] = rays
         stats["rays_measured"] = measured is not None
+    if want_stats:
+        # the program's trace of this scene: load, render, reconstruction
+        got = trace.collect()
+        counters = {"kernel_builds": 0, "host_syncs": 0, **got["counters"]}
+        lanes = counters.get("lanes", 0)
+        rays = getattr(tracer, "last_ray_count", None)
+        stats["trace"] = dict(
+            spans=trace.summarize(got), counters=counters,
+            live_share=rays / lanes if rays is not None and lanes else None)
+        if args.verbose:
+            log(trace.table(dict(got, counters=counters)))
+            if stats["trace"]["live_share"] is not None:
+                log(f"    {'live share of traversal lanes':<52s} "
+                    f"{stats['trace']['live_share']:12.4f}")
     return stats
 
 
@@ -332,8 +348,17 @@ def main(argv=None):
 
     all_stats = []
     for scene_path in args.scenes:
-        all_stats.append(_render_scene(args, scene_path, variables, log,
-                                       device))
+        # -v, --stats-json and --profile trace the program (spans, host
+        # syncs, lanes); --profile also names its layers in the profile
+        trace.reset()
+        trace.tracing(bool(args.verbose or args.stats_json or args.profile),
+                      annotate=bool(args.profile))
+        try:
+            all_stats.append(_render_scene(args, scene_path, variables,
+                                           log, device))
+        finally:
+            trace.tracing(False)
+            trace.reset()
 
     if args.stats_json:
         with open(args.stats_json, "w") as f:

@@ -157,9 +157,11 @@ def _check_gd_outputs(r):
 
 def _log_lines(log):
     """The log without its timings: the [tpurender] lines up to their
-    first number of seconds, and the labels of the statistics table."""
+    first number of seconds, and the labels of the statistics table.
+    The port's trace table, which the reference does not print, ends
+    it."""
     out = []
-    for line in log.splitlines():
+    for line in log.split("\n  Trace")[0].splitlines():
         if line.startswith("[tpurender] render "):
             out.append("[tpurender] render")
         elif line.startswith("    "):
@@ -167,6 +169,11 @@ def _log_lines(log):
         else:
             out.append(line)
     return out
+
+
+def _ref_keys(stats):
+    """The stats-JSON keys but the port's own trace."""
+    return sorted(k for k in stats if k != "trace")
 
 
 def test_gpt_fused_route(route):
@@ -207,7 +214,7 @@ def test_gpt_chunked_route(route):
                                    _read(fused["port"], "-" + k),
                                    rtol=1e-5, err_msg=k)
     ps, rs = r["port"]["stats"], r["ref"]["stats"]
-    assert sorted(ps) == sorted(rs)
+    assert _ref_keys(ps) == sorted(rs)
     assert ps["rays_measured"] is rs["rays_measured"] is True
     assert ps["rays"] == rs["rays"] > 0
     assert len(ps["cg_residuals"]) == len(rs["cg_residuals"]) == 8 * 40
@@ -230,12 +237,40 @@ def test_verbose_table(route):
         r["port"]["stats"]["rays"]
 
 
+@pytest.mark.parametrize("name", ["chunked", "path"])
+def test_stats_json_trace(route, name):
+    """--stats-json carries the program's trace: its span rows (the
+    render, its passes, the reconstruction's solve), the counters and
+    the live share of the traversal lanes; -v prints them after the
+    reference's table."""
+    r = route(name)["port"]
+    tr = r["stats"]["trace"]
+    rows = {row["path"]: row for row in tr["spans"]}
+    assert rows["render"]["calls"] == 1
+    assert rows["render/pass"]["calls"] >= 1
+    assert {"load_scene", "load_scene/parse", "to_torch"} <= set(rows)
+    if name == "path":
+        assert rows["make_integrator"]["calls"] == 1
+    else:
+        assert rows["solve"]["calls"] == 1
+        assert rows["solve/irls:7"]["calls"] == 1
+    assert tr["counters"]["host_syncs"] == 0     # the CPU has no syncs
+    assert tr["counters"]["kernel_builds"] >= 0
+    lanes = tr["counters"]["lanes"]
+    assert lanes == sum(row["counts"].get("lanes", 0)
+                        for row in tr["spans"])
+    assert tr["live_share"] == r["stats"]["rays"] / lanes
+    assert 0 < tr["live_share"] <= 1
+    assert "\n  Trace (calls" in r["log"]
+    assert "live share of traversal lanes" in r["log"]
+
+
 def test_gbdpt_route(route):
     r = route("gbdpt")
     assert r["ref"]["rc"] == r["port"]["rc"] == 0
     _check_gd_outputs(r)
     assert r["port"]["stats"]["rays"] == r["ref"]["stats"]["rays"] > 0
-    assert sorted(r["port"]["stats"]) == sorted(r["ref"]["stats"])
+    assert _ref_keys(r["port"]["stats"]) == sorted(r["ref"]["stats"])
 
 
 def test_path_npy_route(route):
@@ -244,7 +279,7 @@ def test_path_npy_route(route):
     _assert_close(np.load(r["port"]["out"]), np.load(r["ref"]["out"]),
                   "path")
     assert r["port"]["stats"]["rays"] == r["ref"]["stats"]["rays"] > 0
-    assert sorted(r["port"]["stats"]) == sorted(r["ref"]["stats"])
+    assert _ref_keys(r["port"]["stats"]) == sorted(r["ref"]["stats"])
 
 
 def test_matlab_output(route):
