@@ -281,6 +281,17 @@ its time):
      render each: wall, rays, Mrays/s, launches; rays equal, pixels
      within phase 4's tolerance, finite, not black) and phase 7's 64x64,
      2 spp kernel render against the plain render.
+ 26. the shading kernel (csrc/shade.cu, run after phase 7 in the whole
+     run, alone with --only step-shade): ptxas's registers and spills;
+     forest.xml at the path cell's 2560x1440, 1 spp, maxDepth 5 through
+     the fused bounce, profiled: each launch's device time beside its
+     bytes bound (shade_bytes, counted from that frame's inputs: lane
+     arrays once, each distinct tri_shade sector once), launches a
+     render (one a bounce and one more); every launch of a frame of
+     3,686,400 lanes (each bounce and the last) against the plain
+     version, every field on every lane bit for bit (required), and the
+     plain version's time of one bounce.  Its record joins the kernels
+     line.
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -296,6 +307,7 @@ null.  Prints one JSON line describing the kernels, then as the last line
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import io
@@ -4316,6 +4328,212 @@ def phase_step_i(dev, recs, loads):
     return info
 
 
+# the tri_shade columns the shading kernel reads: on every lane the face
+# normal, the three vertex normals and the face-normal flag; on hit lanes
+# the BSDF and emitter ids (the emitter id alone on the last launch)
+SHADE_ROW_ALL = tuple(range(12)) + (21,)
+SHADE_ROW_HIT = (18, 19)
+
+
+def shade_bytes(scene, hit, rng, occl, final):
+    """Bytes one launch of the shading kernel must move, counted from its
+    inputs: each lane's u, v, prim and valid flag (13 B), t where it hit
+    (4 B), its ray (24 B) and, but on the last launch, each per-lane RNG
+    counter (8 B); after the first launch (occl given) its shadow answer
+    (1 B), its state (L, tp, last_pdf, alive, last_delta: 30 B; eta, 4 B,
+    but on the last launch) and the pending NEE where its shadow ray was
+    clear (12 B); the distinct 32-byte sectors of tri_shade that its
+    clamped prims read (rows shared by lanes are read once); and it
+    writes L (12 B) on the last launch, else the next and shadow rays
+    (56 B) and the state (46 B).  The small material and emitter tables
+    are left out."""
+    n = hit.prim.shape[0]
+    valid = hit.valid
+    nbytes = n * (13 + 24) + 4 * int(valid.sum())
+    if not final:
+        nbytes += 8 * n * sum(torch.is_tensor(c) and c.numel() > 1
+                              for c in rng)
+    if occl is not None:
+        nbytes += n * (31 + (0 if final else 4)) + 12 * int((~occl).sum())
+    nbytes += 12 * n if final else 102 * n
+    tri_shade = scene.geom.tri_shade
+    prim = hit.prim.long().clamp(0, tri_shade.shape[0] - 1)
+
+    def sectors(prims, cols):
+        cols = torch.tensor(cols, dtype=torch.int64, device=prims.device)
+        return ((prims[:, None] * tri_shade.shape[1] + cols) * 4 //
+                32).flatten()
+    sec = torch.cat([sectors(torch.unique(prim), SHADE_ROW_ALL),
+                     sectors(torch.unique(prim[valid]),
+                             SHADE_ROW_HIT[1:] if final else SHADE_ROW_HIT)])
+    return nbytes + 32 * torch.unique(sec).numel()
+
+
+def ptxas_lines(source, flags):
+    """nvcc -Xptxas=-v of a csrc/ source with its library's flags: the
+    register, stack and spill lines."""
+    import subprocess
+    import tempfile
+    from gradientdomain_mitsuba_tpu_torch import native
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = native.nvcc_command([source], os.path.join(tmp, "lib.so"),
+                                  flags)
+        cmd.insert(1, "-Xptxas=-v")
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    check(res.returncode == 0, f"nvcc -Xptxas=-v failed: {res.stderr}")
+    return [ln.strip() for ln in res.stderr.splitlines()
+            if "registers" in ln or "spill" in ln or "stack" in ln]
+
+
+class _ShadeTally:
+    """Stands in for a tracer's PathShade and counts each launch's bytes
+    bound (shade_bytes) before passing the call on."""
+
+    def __init__(self, inner):
+        self.inner, self.bytes = inner, []
+
+    def __call__(self, scene, hit, b, rng, st=None, occl=None, ray=None,
+                 direct=True, final=False):
+        self.bytes.append(shade_bytes(scene, hit, rng, occl, final))
+        return self.inner(scene, hit, b, rng, st=st, occl=occl, ray=ray,
+                          direct=direct, final=final)
+
+
+def shade_differs(got, ref):
+    """Per ShadeState field, the share of lanes whose value is not the
+    plain version's bit for bit (NaN matches NaN); and the largest
+    absolute difference over the float fields."""
+    share, err = {}, 0.0
+    for k in got._fields:
+        a, b = getattr(got, k), getattr(ref, k)
+        if a.is_floating_point():
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            err = max(err, float(torch.where(same, 0.0, (a - b).abs())
+                                 .nan_to_num(nan=float("inf")).max()))
+        else:
+            same = a == b
+        share[k] = float((~same.reshape(a.shape[0], -1).all(-1)).float()
+                         .mean())
+    return share, err
+
+
+def shade_vs_plain(tracer, scene, st, timer):
+    """Every launch of one fused frame (seed 7, sample 0) against the
+    plain version, the kernel's state carried from launch to launch:
+    {launch: shade_differs(...)}, and timer's time of the plain version
+    of bounce 1."""
+    from gradientdomain_mitsuba_tpu_torch.core.rng import DimAllocator as DA
+    from gradientdomain_mitsuba_tpu_torch.ops import sensor as sensor_ops
+    from gradientdomain_mitsuba_tpu_torch.ops import shade
+    fused, nb, dev = tracer.shade, tracer.n_bounces, tracer.device
+    N = st.width * st.height
+    pix = torch.arange(N, dtype=torch.int64, device=dev)
+    sidx = torch.zeros(N, dtype=torch.int64, device=dev)
+    rng = (7, pix, sidx)
+    pos = torch.stack([(pix % st.width).float(), (pix // st.width).float()],
+                      -1) + tracer._u2(7, pix, sidx, DA.PIXEL_JITTER)
+    o, d = sensor_ops.sample_ray(tracer.sensor, st.width, st.height, pos,
+                                 tracer._u2(7, pix, sidx, DA.APERTURE))
+    zeros = torch.zeros(N, device=dev)
+    hit = tracer.closest(o, d, zeros, torch.full((N,), 3e38, device=dev),
+                         scene.geom)
+
+    def clone(s):
+        return shade.ShadeState(*(x.clone() for x in s))
+    ref = fused.plain(scene, hit, 0, rng, ray=(o, d))
+    s = fused(scene, hit, 0, rng, ray=(o, d))
+    compared = {0: shade_differs(s, ref)}
+    plain_ms = None
+    for b in range(1, nb + 1):
+        occl = tracer.occluded(s.shadow_o, s.shadow_d, zeros, s.shadow_maxt,
+                               scene.geom)
+        hit = tracer.closest(s.o, s.d, zeros, s.maxt, scene.geom)
+        final = b == nb
+        s_in = clone(s)
+        if b == 1:
+            plain_ms = timer(lambda: fused.plain(scene, hit, 1, rng,
+                                                 st=s_in, occl=occl),
+                             iters=3, warmup=1)
+        ref = fused.plain(scene, hit, b, rng, st=s_in, occl=occl,
+                          final=final)
+        live = float(s.alive.float().mean())
+        s = fused(scene, hit, b, rng, st=s, occl=occl, final=final)
+        compared[b] = shade_differs(s, ref)
+        log(f"launch {b}{' (last)' if final else ''}: {live:.4f} of lanes "
+            f"alive in")
+    return compared, plain_ms
+
+
+def phase_shade(dev, kernels_rec, forest=None):
+    """Phase 26 (--only step-shade): the shading kernel (csrc/shade.cu)
+    on forest.xml at the path cell's size, 2560 x 1440 at 1 spp, maxDepth
+    5: ptxas's registers and spills; each launch's device time in a
+    profiled render beside its bytes bound, counted from that render's
+    inputs; launches a render; every launch of one frame (each bounce and
+    the last launch) against the plain version, every ShadeState field
+    bit for bit on every lane; the plain version's time of one bounce.
+    Appends the kernel's record to kernels_rec."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gradientdomain_mitsuba_tpu_torch.models.path import PathTracer
+    from gradientdomain_mitsuba_tpu_torch.ops import shade
+    ptx = ptxas_lines(shade._SRC, ("-fmad=false",))
+    for ln in ptx:
+        log(f"shade.cu ptxas: {ln}")
+    scene, st0, _ = forest if forest is not None else load_forest(dev)
+    st = copy.deepcopy(st0)
+    st.width, st.height, st.spp = 2560, 1440, 1
+    tracer = PathTracer(scene, st)
+    check(tracer.shade is not None, "the forest is not shaded fused")
+    N = st.width * st.height
+    nb = tracer.n_bounces
+    fused = tracer.shade
+    tracer.render(scene, seed=1, spp=1)
+    # the bytes bound of each launch of the seed-2 frame, from its inputs
+    tracer.shade = _ShadeTally(fused)
+    tracer.render(scene, seed=2, spp=1)
+    bound = [bound_ms(0, x)[0] for x in tracer.shade.bytes]
+    tracer.shade = fused
+    torch.cuda.synchronize()
+    fused.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tracer.render(scene, seed=2, spp=1)
+        torch.cuda.synchronize()
+    launches = fused.launches
+    ms = [e.duration_ns() / 1e6 for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA and
+          "path_bounce_kernel" in e.name()]
+    log(f"shade kernel at {N} lanes, launches a render {launches}; device "
+        f"ms a launch {[round(x, 4) for x in ms]}, bytes bound ms "
+        f"{[round(x, 4) for x in bound]}, kernel / bound "
+        f"{[round(a / b, 3) for a, b in zip(ms, bound)]}")
+    check(launches == nb + 1 and len(ms) == nb + 1 and len(bound) == nb + 1,
+          f"{launches} launches, {len(ms)} kernel events, {len(bound)} "
+          f"bounds for {nb} bounces")
+
+    compared, plain_ms = shade_vs_plain(tracer, scene, st, cuda_ms)
+    torch.cuda.synchronize()
+    not_same = {b: {k: v for k, v in share.items() if v}
+                for b, (share, _) in compared.items()}
+    max_err = max(err for _, err in compared.values())
+    log(f"shade kernel vs plain at {N} lanes, every launch: fields with "
+        f"lanes not bit-identical {not_same}, largest difference "
+        f"{max_err}; plain {plain_ms:.3f} ms a bounce")
+    check(not any(not_same.values()),
+          f"the kernel differs from plain: {not_same}")
+    steady = range(1, nb)   # the bounces after the first, before the last
+    rec = dict(name="path_bounce", route="cuda",
+               source="gradientdomain_mitsuba_tpu_torch/csrc/shade.cu",
+               replaces=None, launches=launches, max_abs_err=max_err,
+               ms=sum(ms[b] for b in steady) / len(steady),
+               plain_ms=plain_ms,
+               bound_ms=sum(bound[b] for b in steady) / len(steady),
+               bound_by="bytes", library_ms=None, ms_per_launch=ms,
+               bound_ms_per_launch=bound, ptxas=ptx)
+    kernels_rec.append(rec)
+    return rec
+
+
 def build_kernels():
     """Build the three kernel libraries, one nvcc each, all started
     together; prints how much the overlap saves against building them
@@ -4347,13 +4565,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("step-e", "step-f", "step-7a",
                                         "step-g1", "step-g2a", "step-g2b",
-                                        "step-g2c", "step-h", "step-i"),
+                                        "step-g2c", "step-h", "step-i",
+                                        "step-shade"),
                     help="build the kernels and run one phase that needs "
                          "no earlier one (step-e: phase 17, step-f: phase "
                          "18, step-7a: phase 19, step-g1: phase 20, "
                          "step-g2a: phase 21, step-g2b: phase 22, "
                          "step-g2c: phase 23, step-h: phase 24, step-i: "
-                         "phase 25), without the result line")
+                         "phase 25, step-shade: phase 26), without the "
+                         "result line")
     args = ap.parse_args()
     t_start = time.time()
     # no geometry disk cache but phase 25's own: forest.xml's entry would
@@ -4415,6 +4635,10 @@ def main():
         with Phase("step I: forest10m, the geometry disk cache"):
             log(json.dumps({"step_i": phase_step_i(
                 dev, recs, start_forest10m_loads())}))
+    if args.only == "step-shade":
+        with Phase("the shading kernel"):
+            log(json.dumps({"step_shade": phase_shade(dev, kernels_rec)}))
+        log(json.dumps({"kernels": kernels_rec[-1:]}))
     if args.only:
         log(f"total {time.time() - t_start:.3f} s")
         log(card_line())
@@ -4433,6 +4657,8 @@ def main():
         forest_summary, v7_img = phase_forest_slice(dev, kernels_rec, forest)
     with Phase("forest kernel render vs plain render, forest G-PT"):
         v7_gpt = phase_forest_vs_plain(dev, forest)
+    with Phase("the shading kernel"):
+        step_shade = phase_shade(dev, kernels_rec, forest)
     with Phase("v4 and v2 kernels vs plain"):
         tri9, v2_out = phase_block_kernels(dev, recs, forest, pair_out)
     with Phase("kernel times at 1M forest rays"):
@@ -4484,7 +4710,7 @@ def main():
                     "step_7a": step_7a, "step_g1": step_g1,
                     "step_g2a": step_g2a, "step_g2b": step_g2b,
                     "step_g2c": step_g2c, "step_h": step_h,
-                    "step_i": step_i}))
+                    "step_i": step_i, "step_shade": step_shade}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

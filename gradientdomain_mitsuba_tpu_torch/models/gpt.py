@@ -42,9 +42,10 @@ from ..ops import bsdf as bsdf_ops
 from ..ops import common, emitter as em_ops
 from ..ops import film as film_ops
 from ..ops import sensor as sensor_ops
+from ..ops.emitter import mis_weight
 from ..scene.materials import CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC
 from ..utils import stats
-from .path import MAX_BOUNCES_UNLIMITED, mis_weight, primary_footprint
+from .path import MAX_BOUNCES_UNLIMITED, primary_footprint
 
 # film-space shifts: +x, -x, +y, -y
 OFFSETS = ((1.0, 0.0), (-1.0, 0.0), (0.0, 1.0), (0.0, -1.0))

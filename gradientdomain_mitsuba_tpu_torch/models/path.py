@@ -22,6 +22,11 @@ bitmap asks for EWA).  At a delta vertex the NEE shadow ray is still
 traced, as in the reference; eval's delta mask makes its contribution
 0.  With an irradiance cache (sss_cache, models/sss.py) every surface
 vertex on a shape with a dipole attachment adds its exit radiance.
+
+The scenes ops/shade.py shades (diffuse rows, area lights, no textures,
+the independent sampler: _fused_scene) take its bounce, one CUDA launch
+a bounce on the card, bit for bit the eager bounce's arithmetic; every
+other scene takes the eager _bounce.
 """
 from __future__ import annotations
 
@@ -34,11 +39,12 @@ import torch
 from ..config import configure
 from ..core import math as m
 from ..core.rng import DimAllocator as DA
-from ..core.rng import make_sampler
+from ..core.rng import make_sampler, uniform_2d, uniform_float
 from ..ops import bsdf as bsdf_ops
 from ..ops import common, emitter as em_ops
 from ..ops import film as film_ops
 from ..ops import sensor as sensor_ops
+from ..ops import shade as shade_ops
 from ..ops import sss as sss_ops
 from ..utils import stats
 
@@ -51,13 +57,6 @@ MAX_BOUNCES_UNLIMITED = 40
 # Large scenes take 1M-lane passes: 256x256 at 16 spp is one pass.
 LANES_LARGE = 1 << 20
 LANES_SMALL = 1 << 16
-
-
-def mis_weight(pdf_a, pdf_b):
-    """Power heuristic, beta=2 (path.cpp miWeight)."""
-    a2 = pdf_a * pdf_a
-    return torch.where(pdf_a > 0,
-                       a2 / torch.clamp_min(a2 + pdf_b * pdf_b, 1e-30), 0.0)
 
 
 def _b3(x):
@@ -79,7 +78,9 @@ def primary_footprint(tracer, scene, d, its):
 class PathTracer:
     """Unidirectional path tracer (NEE + MIS) on the scene's device."""
 
-    def __init__(self, scene, settings):
+    def __init__(self, scene, settings, samplers=None):
+        """samplers: (u1, u2) draw functions in place of the settings'
+        sampler (pssmlt's primary-sample-space stream)."""
         configure()
         self.kinds = bsdf_ops.scene_kinds(scene)
         self.sensor = sensor_ops.describe(scene.camera)
@@ -107,8 +108,30 @@ class PathTracer:
         self.last_ray_count = None
         self.n_bounces = (settings.max_depth if settings.max_depth > 0
                           else MAX_BOUNCES_UNLIMITED)
-        self._u1, self._u2 = make_sampler(settings.sampler, settings.spp)
+        self._u1, self._u2 = samplers or make_sampler(settings.sampler,
+                                                      settings.spp)
         self.filter_kind = film_ops.FILTERS.get(settings.rfilter, 0)
+        # the fused shading wavefront (ops/shade.py) where the scene is
+        # one it shades, else None: the eager bounce
+        self.shade = (shade_ops.PathShade(self.n_area, settings)
+                      if self._fused_scene(scene) else None)
+
+    def _fused_scene(self, scene):
+        """Whether ops/shade.py's bounce shades this scene as _bounce
+        does: only diffuse rows (no mask or coating pseudo-kind), no
+        textures and no bump / normal map columns, the 29-column
+        tri_shade (no barycentric payload) and no analytic spheres, area
+        lights only (at least one, no delta light, no environment), and
+        the independent sampler's draws (uniform_float / uniform_2d), so
+        not draws passed in as `samplers` (pssmlt's)."""
+        g = scene.geom
+        return (self.kinds == {bsdf_ops.DIFFUSE} and not self.has_textures
+                and scene.materials.packed.shape[1] < 32
+                and g.tri_shade.shape[1] == shade_ops.SHADE_COLUMNS
+                and g.sph_center.shape[0] == 0
+                and self.n_area >= 1 and self.n_delta == 0
+                and not self.has_env
+                and (self._u1, self._u2) == (uniform_float, uniform_2d))
 
     # -- one sample per pixel for the whole frame ---------------------------
     def trace_pass(self, scene, seed, sample_idx, pixel_id=None,
@@ -127,7 +150,10 @@ class PathTracer:
             jitter = self._u2(seed, pixel_id, sample_idx,
                               DA.PIXEL_JITTER)
             pos_film = torch.stack([px, py], -1) + jitter
-            u_ap = self._u2(seed, pixel_id, sample_idx, DA.APERTURE)
+            # a pinhole reads no aperture sample: its draw is skipped
+            # (the counter RNG's other draws keep their bits)
+            u_ap = (self._u2(seed, pixel_id, sample_idx, DA.APERTURE)
+                    if sensor_ops.reads_aperture(self.sensor) else None)
             o, d = sensor_ops.sample_ray(self.sensor, W, H, pos_film, u_ap)
         L = self.trace_rays(scene, seed, sample_idx, pixel_id, o, d,
                             sss_cache=sss_cache)
@@ -137,16 +163,9 @@ class PathTracer:
                  last_delta):
         """MIS-weighted emission seen at `its` along d from o_prev: an
         area emitter hit, or the environment on an escaped ray."""
-        cos_front = m.dot(its.ns, -d)
-        is_emitter = its.valid & (its.emitter_id >= 0) & (cos_front > 0)
-        rad = scene.emitters.radiance[
-            torch.clamp_min(its.emitter_id, 0).long()]
-        lum_pdf = em_ops.pdf_area_direct(
-            scene, self.n_area, self.has_env, its.emitter_id, o_prev,
-            its.p, its.ng, n_delta=self.n_delta)
-        w_hit = torch.where(last_delta, 1.0, mis_weight(last_pdf, lum_pdf))
-        out = torch.where(_b3(alive & is_emitter), tp * rad * _b3(w_hit),
-                          0.0)
+        out = em_ops.area_emission(scene, self.n_area, self.has_env,
+                                   self.n_delta, its, o_prev, d, alive, tp,
+                                   last_pdf, last_delta)
         if self.has_env:
             # the two terms are exclusive per lane (hit or escaped), so
             # their sum adds as the reference's two adds do
@@ -155,7 +174,7 @@ class PathTracer:
                                             self.env_kind, d,
                                             n_delta=self.n_delta)
             w_env = torch.where(last_delta, 1.0,
-                                mis_weight(last_pdf, env_pdf))
+                                em_ops.mis_weight(last_pdf, env_pdf))
             out = out + torch.where(_b3(alive & ~its.valid),
                                     tp * env_l * _b3(w_env), 0.0)
         return out
@@ -167,8 +186,12 @@ class PathTracer:
         direct_at_first=False drops emitter radiance seen directly by the
         input rays (depth-1 hits) — final-gather semantics.  sss_cache:
         the dipole irradiance cache (models/sss.DipoleTracer), whose exit
-        radiance every bounce adds at subsurface vertices."""
-        st = self.settings
+        radiance every bounce adds at subsurface vertices.  Scenes that
+        ops/shade.py shades (self.shade) take its fused bounce, the rest
+        this eager one."""
+        if self.shade is not None and sss_cache is None:
+            return self._trace_fused(scene, seed, sample_idx, pixel_id, o,
+                                     d, direct_at_first)
         dev = self.device
         N = o.shape[0]
         eps = scene.ray_eps
@@ -204,6 +227,33 @@ class PathTracer:
                                       s["alive"], s["tp"], s["last_pdf"],
                                       s["last_delta"])
 
+    def _trace_fused(self, scene, seed, sample_idx, pixel_id, o, d,
+                     direct_at_first=True):
+        """trace_rays through ops/shade.py: one shading launch a bounce
+        (it adds the last bounce's NEE where its shadow ray was clear,
+        shades the hit and writes the shadow ray and the next ray), the
+        same traversal calls in the same order, then one launch for the
+        last NEE and the last vertex's emission."""
+        N = o.shape[0]
+        dev = self.device
+        geom = scene.geom
+        rng = (seed, pixel_id, sample_idx)
+        zeros = torch.zeros(N, device=dev)
+        hit = self.closest(o, d, zeros, torch.full((N,), 3e38, device=dev),
+                           geom)
+        st = occl = None
+        for b in range(self.n_bounces):
+            with stats.span("bounce", b=b):
+                stats.count("shade_lanes_fused", N)
+                st = self.shade(scene, hit, b, rng, st=st, occl=occl,
+                                ray=(o, d), direct=direct_at_first)
+                occl = self.occluded(st.shadow_o, st.shadow_d, zeros,
+                                     st.shadow_maxt, geom)
+                hit = self.closest(st.o, st.d, zeros, st.maxt, geom)
+        return self.shade(scene, hit, self.n_bounces, rng, st=st, occl=occl,
+                          ray=(o, d), direct=direct_at_first,
+                          final=True).L
+
     def _dipole(self, scene, its, wi_world, alive, tp, sss_cache):
         """The dipole term at live, valid, front-facing hits of a shape
         with a subsurface row (dipole.cpp's its.LoSub):
@@ -223,6 +273,7 @@ class PathTracer:
 
     def _bounce(self, scene, s, b, seed, sample_idx, pixel_id, N, eps,
                 fp=None, sss_cache=None):
+        stats.count("shade_lanes_eager", N)
         st = self.settings
         dev = self.device
         depth = b + 1  # Mitsuba depth of the CURRENT vertex
@@ -266,7 +317,8 @@ class PathTracer:
         wo_l = m.to_local(ds.d, ss, ts, its.ns)
         f_l = self._beval(params, wi, wo_l)
         pdf_b = self._bpdf(params, wi, wo_l)
-        w_nee = torch.where(ds.is_delta, 1.0, mis_weight(ds.pdf, pdf_b))
+        w_nee = torch.where(ds.is_delta, 1.0,
+                            em_ops.mis_weight(ds.pdf, pdf_b))
         contrib = (tp * f_l * ds.radiance *
                    _b3(w_nee / torch.clamp_min(ds.pdf, 1e-30)))
         L = L + torch.where(_b3(nee_possible & ~occl), contrib, 0.0)

@@ -120,9 +120,7 @@ class _PSSPathTracer(PathTracer):
     through the `seed` slot of trace_rays."""
 
     def __init__(self, scene, settings):
-        super().__init__(scene, settings)
-        self._u1 = _pss_u1
-        self._u2 = _pss_u2
+        super().__init__(scene, settings, samplers=(_pss_u1, _pss_u2))
 
 
 class ChainTracer:

@@ -35,8 +35,9 @@ from ..core.rng import DimAllocator as DA
 from ..core.rng import lane_uniform_2d
 from ..ops import common, emitter as em_ops
 from ..ops import medium as med_ops
+from ..ops.emitter import mis_weight
 from ..scene.materials import NULL_BSDF
-from .path import PathTracer, _b3, mis_weight
+from .path import PathTracer, _b3
 
 NULL_SLACK = 4          # extra loop iterations to absorb null crossings
 MEDIA_DIM_BASE = 8192   # rng dim offset for the media sample stream

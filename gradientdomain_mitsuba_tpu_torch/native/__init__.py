@@ -11,8 +11,8 @@ renames it into place, so concurrent processes never load a torn file.
                 test holds the two equal).  Both packages take the same
                 route (native when it builds, Python otherwise), so both
                 lay triangles out in the same order.
-  sweep, trace, trace_block — the CUDA kernels of csrc/ (ops/sweep.py,
-                ops/trace.py),
+  sweep, trace, trace_block, shade — the CUDA kernels of csrc/
+                (ops/sweep.py, ops/trace.py, ops/shade.py),
                 compiled by nvcc_command for sm_90a and loaded by
                 load_cuda; check_tensors validates what their wrappers
                 pass as pointers.
@@ -81,16 +81,17 @@ def _nvcc():
     return found
 
 
-def nvcc_command(sources, out):
-    """nvcc argv for a shared library with a plain C interface (sm_90a).
-    No --use_fast_math: the kernels' reciprocals must be IEEE."""
+def nvcc_command(sources, out, flags=()):
+    """nvcc argv for a shared library with a plain C interface (sm_90a),
+    with a library's own extra `flags`.  No --use_fast_math: the kernels'
+    reciprocals must be IEEE."""
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-std=c++17", "-O3", *flags, "-shared", "-Xcompiler", "-fPIC",
             *sources, "-o", out]
 
 
-def load_cuda(name: str, source: str, functions: dict):
-    """Build `source` with nvcc (first call only) and load it.
+def load_cuda(name: str, source: str, functions: dict, flags=()):
+    """Build `source` with nvcc and `flags` (first call only) and load it.
     `functions` maps each exported C function to its ctypes argtypes;
     every one returns an int (the CUDA error code).  The build runs
     outside the lock, so threads loading different libraries run their
@@ -99,7 +100,8 @@ def load_cuda(name: str, source: str, functions: dict):
         if name in _LIBS:
             return _LIBS[name]
     with stats.span("kernel_load", lib=name):
-        path = build_library(name, [source], nvcc_command)
+        path = build_library(
+            name, [source], lambda src, out: nvcc_command(src, out, flags))
         with _LOCK:
             if name not in _LIBS:
                 lib = ctypes.CDLL(path)

@@ -40,16 +40,21 @@ class DirectSample(NamedTuple):
     is_delta: torch.Tensor = None  # [N] bool — point/spot/directional
 
 
+def search_iters(n):
+    """Steps of _searchsorted_segment's search over a flat CDF of n
+    entries: ceil(log2(n)) + 1 (the CDF length is fixed at scene
+    build)."""
+    return max(1, int(math.ceil(math.log2(max(int(n), 2)))) + 1)
+
+
 def _searchsorted_segment(cdf, lo, hi, u, iters=None):
     """Vectorized lower-bound binary search of u in cdf[lo:hi] (flat CDF
     with per-emitter segments).  Returns the index into the flat array.
-    `iters` defaults to ceil(log2(len(cdf)))+1 (the CDF length is fixed
-    at scene build)."""
+    `iters` defaults to search_iters(len(cdf))."""
     lo = lo.to(torch.int64)
     hi = hi.to(torch.int64)
     if iters is None:
-        iters = max(1, int(math.ceil(math.log2(max(int(cdf.shape[0]), 2))))
-                    + 1)
+        iters = search_iters(cdf.shape[0])
     for _ in range(iters):
         mid = (lo + hi) // 2
         go_right = cdf[mid] < u
@@ -249,6 +254,30 @@ def pdf_env_direct(scene, n_area: int, env_kind: int, d, n_delta: int = 0):
     row = torch.clamp((theta / math.pi * He).to(torch.int32), 0, He - 1)
     col = torch.clamp((phi / (2 * math.pi) * We).to(torch.int32), 0, We - 1)
     return pdf[row.long(), col.long()] / (n_area + n_delta + 1)
+
+
+def mis_weight(pdf_a, pdf_b):
+    """Power heuristic, beta=2 (path.cpp miWeight)."""
+    a2 = pdf_a * pdf_a
+    return torch.where(pdf_a > 0,
+                       a2 / torch.clamp_min(a2 + pdf_b * pdf_b, 1e-30), 0.0)
+
+
+def area_emission(scene, n_area: int, has_env: bool, n_delta: int, its,
+                  o_prev, d, alive, tp, last_pdf, last_delta):
+    """MIS-weighted radiance of the area emitters hit at `its` along d
+    from o_prev, on live lanes (the path tracers' emitter hit): the hit's
+    radiance times throughput tp, weighted against NEE's pdf of the same
+    point unless the last vertex was a delta one (last_delta)."""
+    cos_front = m.dot(its.ns, -d)
+    is_emitter = its.valid & (its.emitter_id >= 0) & (cos_front > 0)
+    rad = scene.emitters.radiance[
+        torch.clamp_min(its.emitter_id, 0).long()]
+    lum_pdf = pdf_area_direct(scene, n_area, has_env, its.emitter_id,
+                              o_prev, its.p, its.ng, n_delta=n_delta)
+    w_hit = torch.where(last_delta, 1.0, mis_weight(last_pdf, lum_pdf))
+    return torch.where((alive & is_emitter)[..., None],
+                       tp * rad * w_hit[..., None], 0.0)
 
 
 def pdf_area_direct(scene, n_area: int, has_env: bool, emitter_id, p_ref,

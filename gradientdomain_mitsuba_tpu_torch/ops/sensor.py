@@ -107,12 +107,19 @@ def _plus_z(like):
     return z
 
 
+def reads_aperture(desc):
+    """Whether sample_ray reads its aperture sample: a lens (thin lens,
+    telecentric) or the fluencemeter's sphere direction."""
+    return desc.lens or desc.kind == FLUENCEMETER
+
+
 def sample_ray(desc, width, height, pos_film, u_aperture):
     """Camera rays of the described sensor.
 
     pos_film: [N, 2] continuous film position in pixels.
     u_aperture: [N, 2] lens samples (the thin lens and telecentric
-    origins on the aperture disk; the fluencemeter's sphere direction).
+    origins on the aperture disk; the fluencemeter's sphere direction),
+    None where reads_aperture(desc) is False.
     Returns (o_world [N,3], d_world [N,3])."""
     cam = desc.camera
     kind = desc.kind
