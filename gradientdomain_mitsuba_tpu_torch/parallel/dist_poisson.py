@@ -13,10 +13,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..models.poisson import _dx, _dxT
-from .tiles import _gather_host, _pass_along, padded_rows
+from .tiles import _all_reduce_sum, _gather_host, _pass_along, padded_rows
 
 
 def _send_up(x, mesh):
@@ -87,10 +86,8 @@ def solve_l2_sharded(mesh, primal, gx, gy, alpha=0.2, iters=100):
         return out * Ml
 
     def dot(u, v):
-        s = torch.sum(u * v, dim=(-2, -1), keepdim=True)
-        if mesh.size > 1:
-            dist.all_reduce(s, op=dist.ReduceOp.SUM)
-        return s
+        return _all_reduce_sum(torch.sum(u * v, dim=(-2, -1), keepdim=True),
+                               mesh)
 
     GYm = GYl * dy_mask
     b = (_dxT(GXl) + _dyT_halo(GYm, _send_down(GYm, mesh)) + a2 * Pl) * Ml

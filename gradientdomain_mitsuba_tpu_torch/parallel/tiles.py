@@ -11,8 +11,16 @@ straddle the row split, and wide reconstruction filters splat across it)
 is handled by adding each halo into the neighbouring rank's rows
 (_halo_exchange_add: point-to-point sends, no wraparound).  G-BDPT's
 light image lands at arbitrary pixels, so every rank keeps full-film
-light buffers, merged with one all_reduce.  Every rank gathers the film
-(_gather_host) and returns the same numpy buffers.
+light buffers, merged with one all_reduce.  The tile renderers gather
+the film on every rank (_gather_host) and return the same numpy
+buffers; render_final_sharded, a G-PT frame with its reconstruction,
+keeps every buffer on the devices and gathers the blocks on rank 0's
+device alone, which solves the whole frame, as Mitsuba's master
+receives every block and runs the reconstruction.
+
+Every collective call runs inside a `collective` span (device events)
+of the program's trace and adds to its counters `collectives` and
+`collective_bytes` (the bytes of this rank's input).
 
 NCCL carries the collectives between CUDA devices and gloo between CPU
 processes (parallel/multihost.init picks the backend).  Without an
@@ -21,6 +29,7 @@ caller's device, and no collective is issued.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -29,6 +38,10 @@ import torch
 import torch.distributed as dist
 
 from ..ops import film as film_ops
+from ..utils import stats
+
+# the normalized G-PT buffers a frame returns beside its final image
+BUFFERS = ("primal", "very_direct", "dx", "dy")
 
 
 class Mesh(NamedTuple):
@@ -77,18 +90,31 @@ def halo_rows(filter_kind):
     return max(int(math.ceil(2 * film_ops.RADII[filter_kind])), 1)
 
 
+@contextlib.contextmanager
+def collective(*tensors):
+    """The trace of one collective call: a `collective` span with device
+    events, one `collectives` count and `collective_bytes` of the
+    tensors this rank puts in."""
+    with stats.span("collective", device=True):
+        stats.count("collectives")
+        stats.count("collective_bytes",
+                    sum(t.numel() * t.element_size() for t in tensors))
+        yield
+
+
 def _pass_along(mesh, x, to):
     """Send x to rank + to (to = -1: up, +1: down) and return what
     rank - to sent the same way, zeros where that rank does not exist."""
-    got = torch.zeros_like(x)
+    got = torch.zeros_like(x, memory_format=torch.contiguous_format)
     ops = []
     if 0 <= mesh.rank + to < mesh.size:
         ops.append(dist.P2POp(dist.isend, x.contiguous(), mesh.rank + to))
     if 0 <= mesh.rank - to < mesh.size:
         ops.append(dist.P2POp(dist.irecv, got, mesh.rank - to))
     if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        with collective(x):
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
     return got
 
 
@@ -113,14 +139,39 @@ def _gather_host(v, H, mesh):
     rows, as a host numpy array."""
     if mesh.size > 1:
         parts = [torch.empty_like(v) for _ in range(mesh.size)]
-        dist.all_gather(parts, v.contiguous())
+        with collective(v):
+            dist.all_gather(parts, v.contiguous())
         v = torch.cat(parts)
     return v[:H].cpu().numpy()
 
 
+def _gather_root(v, H, mesh):
+    """Every rank's [k, rows, ...] block of row-sharded buffers, gathered
+    on rank 0's device (one gather) and cropped to the film's H rows;
+    None on the other ranks."""
+    if mesh.size > 1:
+        parts = ([torch.empty_like(v) for _ in range(mesh.size)]
+                 if mesh.rank == 0 else None)
+        with collective(v):
+            dist.gather(v.contiguous(), parts, dst=0)
+        if parts is None:
+            return None
+        v = torch.cat(parts, 1)
+    return v[:, :H]
+
+
 def _all_reduce_sum(v, mesh):
     if mesh.size > 1:
-        dist.all_reduce(v, op=dist.ReduceOp.SUM)
+        with collective(v):
+            dist.all_reduce(v, op=dist.ReduceOp.SUM)
+    return v
+
+
+def _reduce_root(v, mesh):
+    """The sum of v over the ranks on rank 0 (integer counts: exact)."""
+    if mesh.size > 1:
+        with collective(v):
+            dist.reduce(v, dst=0, op=dist.ReduceOp.SUM)
     return v
 
 
@@ -184,25 +235,78 @@ def render_rows_gpt(tracer, scene, seed, ids, rows, B, n_samples):
     return bufs
 
 
+def _render_shard_gpt(tracer, scene, mesh, seed, n_samples):
+    """This rank's rows of a G-PT film on its device: rendered
+    (render_rows_gpt, inside a `shard_render` span), the neighbours'
+    halos added (one exchange each way for all five buffers: the adds are
+    elementwise) and sample-normalized as GPTracer._normalize does.
+    Returns primal, very_direct, dx, dy as [rows, W, 3]."""
+    from ..models.gpt import GPTracer
+    H, rows, B, row0 = _shard(tracer, mesh)
+    with stats.span("shard_render", device=True, rank=mesh.rank):
+        bufs = render_rows_gpt(tracer, scene, seed,
+                               row_ids(tracer, row0, rows), rows, B,
+                               n_samples)
+    packed = torch.cat([bufs[k] for k in BUFFERS] +
+                       [bufs["wsum"][..., None]], -1)
+    inner = _halo_exchange_add(packed, B, mesh)
+    out = dict(zip(BUFFERS + ("wsum",), inner.split(3, -1)))
+    out["wsum"] = out["wsum"][..., 0]
+    return GPTracer._normalize(out, n_samples)
+
+
 def render_tiles_gpt(tracer, scene, mesh, seed, n_samples: int):
     """Row-sharded G-PT render over the mesh.
 
     Returns the global (gathered) buffers dict as numpy arrays on every
     rank, sample-normalized like GPTracer.render.  The per-shard work is
-    the single-device pass on the shard's pixel ids (render_rows_gpt)."""
-    H, rows, B, row0 = _shard(tracer, mesh)
-    bufs = render_rows_gpt(tracer, scene, seed, row_ids(tracer, row0, rows),
-                           rows, B, n_samples)
-    # border splats belong to the neighbouring ranks
-    out = {k: _gather_host(_halo_exchange_add(v, B, mesh), H, mesh)
-           for k, v in bufs.items()}
-    w = np.maximum(out.pop("wsum"), 1e-12)[..., None]
-    return {
-        "primal": out["primal"] / w,
-        "very_direct": out["very_direct"] / w,
-        "dx": out["dx"] / n_samples,
-        "dy": out["dy"] / n_samples,
-    }
+    render_final_sharded's (_render_shard_gpt)."""
+    bufs = _render_shard_gpt(tracer, scene, mesh, seed, n_samples)
+    H = tracer.settings.height
+    return {k: _gather_host(v.contiguous(), H, mesh)
+            for k, v in bufs.items()}
+
+
+def render_final_sharded(tracer, scene, mesh, seed, spp, alpha=0.2,
+                         mode="L1", l1_outer=8, l1_inner=40, l2_iters=100):
+    """One final G-PT frame over the mesh, GPTracer.render_final's
+    counterpart: each rank renders its rows (_render_shard_gpt), one
+    gather brings every rank's buffers to rank 0's device, and rank 0
+    solves the whole frame with models/poisson.reconstruct, bit for bit
+    the single-device solve of those buffers.  Nothing goes through the
+    host.
+
+    A solve sharded over the rows would pace every CG step by the
+    slowest rank's host (two row exchanges and two global sums a step,
+    ~1,300 collectives a frame): on four H100s it took 66-148 ms an IRLS
+    iteration for 2,073,600 pixels a card, where rank 0 alone takes
+    ~110 ms for the whole 3840 x 2160 frame.
+
+    Returns (final image [H, W, 3], buffers dict) on rank 0, full-frame
+    tensors on its device, with count_rays the summed ray count as
+    "rays" (a 0-d int64 tensor); None on the other ranks."""
+    from ..models import poisson
+    H = tracer.settings.height
+    with stats.span("render", device=True):
+        tracer.ray_tally = (torch.zeros((), dtype=torch.int64,
+                                        device=tracer.device)
+                            if tracer.count_rays else None)
+        try:
+            b = _render_shard_gpt(tracer, scene, mesh, seed, spp)
+            rays = tracer.ray_tally
+        finally:
+            tracer.ray_tally = None
+        full = _gather_root(torch.stack([b[k] for k in BUFFERS]), H, mesh)
+        if rays is not None:
+            rays = _reduce_root(rays, mesh)
+        if full is None:
+            return None
+        out = dict(zip(BUFFERS, full.unbind(0)))
+        final = poisson.reconstruct(out, alpha, mode, l2_iters, l1_outer,
+                                    l1_inner)
+    if rays is not None:
+        out["rays"] = rays
+    return final, out
 
 
 def render_tiles_gbdpt(tracer, scene, mesh, seed, n_samples: int):

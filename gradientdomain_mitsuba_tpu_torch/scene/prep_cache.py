@@ -19,7 +19,10 @@ An entry that fails to load (no ``.complete``, a truncated file) is
 rebuilt and replaced.  A failed write (read-only file system, full
 disk) leaves the render uncached.  Only scenes of at least
 CACHE_MIN_TRIS triangles are cached: test scenes prep in milliseconds
-and would only churn the directory.
+and would only churn the directory.  Under a process group of two or
+more ranks (parallel/multihost) rank 0 looks an entry up first and
+builds it on a miss; the other ranks wait at a barrier and then read
+it, so a cold entry is built once, not once a rank.
 
 The version tag is the port's own (GEOM_CACHE_VERSION), so the two
 packages never read each other's entries.  Hence the port has no
@@ -56,6 +59,23 @@ def _cache_dir():
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     return os.path.join(root, ".gdmt_cache", "geom")
+
+
+def _rank0_first(lookup):
+    """lookup() (a cache read that builds and writes the entry on a miss)
+    on rank 0 first, then, after a barrier, on the other ranks of the
+    process group, which find the entry rank 0 wrote.  Without a group
+    of two or more ranks, lookup()."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return lookup()
+    if dist.get_rank() == 0:
+        out = lookup()
+        dist.barrier()
+        return out
+    dist.barrier()
+    return lookup()
 
 
 def geometry_key(p0, p1, p2, target: int) -> str:
@@ -199,6 +219,11 @@ def load_or_build_array(key: str, build_fn, n_items: int, times=None,
     if cdir is None or n_items < CACHE_MIN_TRIS:
         return build_fn()
     path = os.path.join(cdir, f"{tag}-{key}.npy")
+    return _rank0_first(lambda: _lookup_array(cdir, path, build_fn, times,
+                                              tag))
+
+
+def _lookup_array(cdir, path, build_fn, times, tag):
     if os.path.exists(path):
         try:
             with stats.span("cache_read"):
@@ -283,6 +308,11 @@ def load_or_build(p0, p1, p2, target: int, times=None) -> dict:
     times["geom_key"] = key
     path = os.path.join(cdir, key)
     times["cache_key"] = time.time() - t0
+    return _rank0_first(lambda: _lookup(cdir, path, p0, p1, p2, target,
+                                        times))
+
+
+def _lookup(cdir, path, p0, p1, p2, target, times):
     t0 = time.time()
     with stats.span("cache_read"):
         out = _load_entry(path)

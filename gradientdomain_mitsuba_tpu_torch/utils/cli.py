@@ -19,6 +19,13 @@ plus --device (default cuda; "cpu" renders on the host).  Accepted for
 command-line compatibility but inert (the device owns its parallelism;
 there is no thread pool or block scheduler):
   -p <threads>, -b <blockSize>, -j <scenes>, -c/-S <nodes>.
+
+Mitsuba's `-c` cluster rendering is a torch.distributed launch instead:
+started with WORLD_SIZE > 1 (e.g. `torchrun --nproc-per-node 4
+tpurender-torch scene.xml -D integrator=gpt`), every rank loads the scene
+on its device (NCCL; gloo with --device cpu), rank 0 leads one final
+G-PT frame over row blocks of the film (parallel/multihost.FrameLoop,
+parallel/tiles.render_final_sharded) and writes the outputs.
 """
 from __future__ import annotations
 
@@ -140,6 +147,74 @@ def _profile(directory, device):
     prof.export_chrome_trace(os.path.join(directory, "trace.json"))
 
 
+def _reconstruction(st):
+    """(mode, alpha) of the scene's gradient-domain integrator."""
+    p = st.integrator_props
+    mode = "L2" if bool(p.get("reconstructL2", False)) and not bool(
+        p.get("reconstructL1", True)) else "L1"
+    return mode, float(p.get("reconstructAlpha", 0.2))
+
+
+def _write_gd(out, bufs, final):
+    """The outputs of gpt / gbdpt: <out>-primal/-dx/-dy/-direct/-final
+    and <out> (numpy buffers and final image)."""
+    from . import exr
+    base, ext = os.path.splitext(out)
+    aux_ext = ext if ext.lower() == ".exr" else ".exr"
+    exr.write(base + "-primal" + aux_ext,
+              bufs["primal"] + bufs["very_direct"])
+    exr.write(base + "-dx" + aux_ext, bufs["dx"])
+    exr.write(base + "-dy" + aux_ext, bufs["dy"])
+    exr.write(base + "-direct" + aux_ext, bufs["very_direct"])
+    write_image(exr, base + "-final" + ext, final)
+    write_image(exr, out, final)
+
+
+def _render_distributed(args, variables, log):
+    """The distributed route, the port's `mitsuba -c`: every rank of the
+    launch loads the scene on its device and makes the G-PT tracer; rank
+    0 leads the frame loop through one final frame and writes the
+    outputs.  Returns the exit code."""
+    import torch.distributed as dist
+
+    from ..models.gpt import GPTracer
+    from ..parallel import multihost
+    from ..scene import bridge
+    from ..scene import scene as sc
+    device = multihost.init_from_env(args.device)
+    try:
+        scene_path = args.scenes[0]
+        t0 = time.time()
+        scene_np, st = sc.load_scene(scene_path, variables)
+        scene = bridge.to_torch(scene_np, device)
+        st.integrator = args.integrator or st.integrator
+        st.spp = args.spp or st.spp
+        if st.integrator != "gpt":
+            print(f"error: a distributed launch renders integrator=gpt, "
+                  f"not {st.integrator}", file=sys.stderr)
+            return 1
+        loop = multihost.FrameLoop(GPTracer(scene, st), scene)
+        if not loop.leader:
+            loop.follow()
+            return 0
+        mode, alpha = _reconstruction(st)
+        log(f"[tpurender] {scene_path}: {st.width}x{st.height} @ {st.spp} "
+            f"spp, integrator=gpt over {loop.mesh.size} ranks")
+        t1 = time.time()
+        try:
+            final, bufs = loop.render_final(args.seed, st.spp, alpha=alpha,
+                                            mode=mode)
+        finally:
+            loop.stop()
+        out = args.output or os.path.splitext(scene_path)[0] + ".exr"
+        _write_gd(out, {k: _np(v) for k, v in bufs.items()}, _np(final))
+        log(f"[tpurender] load {t1 - t0:.2f}s, render + reconstruct"
+            f"({mode}) {time.time() - t1:.2f}s -> {out}")
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
 def _render_scene(args, scene_path, variables, log, device):
     """Render one scene file on `device`; returns its stats dict."""
     t_start = time.time()
@@ -194,10 +269,7 @@ def _render_scene(args, scene_path, variables, log, device):
             tracer = GBDPTracer(scene, st)
         # measured device-side ray counter (set before the render)
         tracer.count_rays = want_stats
-        p = st.integrator_props
-        mode = "L2" if bool(p.get("reconstructL2", False)) and not bool(
-            p.get("reconstructL1", True)) else "L1"
-        alpha = float(p.get("reconstructAlpha", 0.2))
+        mode, alpha = _reconstruction(st)
         if (st.integrator == "gpt" and not args.checkpoint
                 and not args.refresh and not want_stats):
             # fused render + reconstruction with no host round trip in
@@ -230,14 +302,7 @@ def _render_scene(args, scene_path, variables, log, device):
                 else:
                     final = _np(rec)
             t_rec = time.time()
-        aux_ext = ext if ext.lower() == ".exr" else ".exr"
-        exr.write(base + "-primal" + aux_ext,
-                  bufs["primal"] + bufs["very_direct"])
-        exr.write(base + "-dx" + aux_ext, bufs["dx"])
-        exr.write(base + "-dy" + aux_ext, bufs["dy"])
-        exr.write(base + "-direct" + aux_ext, bufs["very_direct"])
-        write_image(exr, base + "-final" + ext, final)
-        write_image(exr, out, final)
+        _write_gd(out, bufs, final)
         log(f"[tpurender] render {t_render - t_load:.2f}s, "
             f"reconstruct({mode}) {t_rec - t_render:.2f}s -> {out}")
         stats.update(render_s=t_render - t_load,
@@ -342,6 +407,20 @@ def main(argv=None):
         print("error: --checkpoint is only valid with a single scene",
               file=sys.stderr)
         return 1
+
+    from ..parallel import multihost
+    if multihost.launched():
+        unsupported = [f for f, on in (
+            ("several scenes", len(args.scenes) > 1),
+            ("--checkpoint", args.checkpoint), ("-r", args.refresh),
+            ("--profile", args.profile), ("-v", args.verbose),
+            ("--stats-json", args.stats_json), ("--relmse", args.relmse))
+            if on]
+        if unsupported:
+            print(f"error: a distributed launch takes none of: "
+                  f"{', '.join(unsupported)}", file=sys.stderr)
+            return 1
+        return _render_distributed(args, variables, log)
 
     from ..config import get_device
     device = get_device(args.device)

@@ -9,7 +9,8 @@ The measured counts come from the tracers' int64 ray tallies
 (ops/common.instrument_intersectors).
 
 Beside them, the program's trace: spans at its layer boundaries and
-host counters (span, count, tracing, collect, reset, table).
+host counters (span, count, tracing, collect, reset, table), with the
+spans of the other ranks of a frame loop (remote_spans).
 """
 from __future__ import annotations
 
@@ -208,6 +209,7 @@ class Trace:
         self.on = False
         self.annotate = False
         self.next_id = 0
+        self.remote = None
         self.reset()
 
     def reset(self):
@@ -252,12 +254,34 @@ def tracing(on=True, annotate=False):
 def collect():
     """{"spans": [record, ...], "counters": {...}} recorded since the last
     collect() or reset(), which are then cleared (open spans stay open).
-    Call after synchronizing: device times are read here."""
+    Call after synchronizing: device times are read here.  Where a frame
+    loop leads other ranks (remote_spans), their span records follow this
+    process's, each on the frame of this process's that it belongs to
+    (the i-th frame of a rank's records is the i-th frame here); they
+    carry their rank in `attrs`, no parent and no counts."""
     t = _TRACE
     out = dict(spans=[s.record() for s in t.spans],
                counters=dict(t.counters))
     t.spans, t.counters = [], {}
+    if t.remote is not None:
+        frames = list(dict.fromkeys(s["frame"] for s in out["spans"]
+                                    if s["frame"] is not None))
+        for rank, recs in enumerate(t.remote(), 1):
+            theirs = list(dict.fromkeys(r["frame"] for r in recs
+                                        if r["frame"] is not None))
+            to = dict(zip(theirs, frames))
+            for r in recs:
+                t.next_id += 1
+                out["spans"].append(dict(
+                    r, id=t.next_id, parent=None, frame=to.get(r["frame"]),
+                    attrs=dict(r["attrs"], rank=rank), counts={}))
     return out
+
+
+def remote_spans(fetch):
+    """Register fetch() -> [[span record, ...] of rank 1, of rank 2, ...],
+    which collect() calls (None: no other ranks)."""
+    _TRACE.remote = fetch
 
 
 def reset():
