@@ -292,6 +292,17 @@ its time):
      version, every field on every lane bit for bit (required), and the
      plain version's time of one bounce.  Its record joins the kernels
      line.
+ 27. the G-PT shading kernels (csrc/gpt_shade.cu, after phase 26 in the
+     whole run, alone with --only step-gpt-shade): ptxas's registers and
+     spills; forest.xml at the G-PT cell's 1920x1080, one pass of
+     2,073,600 lanes x 5 paths, maxDepth 5, through the fused route,
+     profiled: each stage's device time beside its bytes bound
+     (gpt_shade_bytes, counted from that pass's inputs: lane arrays once,
+     each distinct tri_shade sector once), launches a pass (the bounces
+     + 2); the pass's primal, very_direct and gradients against the eager
+     route's, bit for bit (required), with equal ray counts; the plain
+     version's time of the shift stage.  Its record joins the kernels
+     line.
 Every kernel's bound is the larger of its operations over the H100 SXM's
 67 TFLOP/s (f32) and its bytes over 3.35 TB/s, counted from this run's
 inputs: a sweep tests every (live ray, packed record) pair and reads each
@@ -4534,6 +4545,190 @@ def phase_shade(dev, kernels_rec, forest=None):
     return rec
 
 
+def gpt_shade_bytes(scene, stage, b, n_bounces, rng, hits, n):
+    """Bytes one launch of the G-PT shading kernels must move, counted
+    from its inputs: each hit record it reads (u, v, prim and the valid
+    flag, 13 B a lane; t where it hit, 4 B), each per-lane RNG counter
+    (8 B), the stage's other lane arrays read and written once (ops/
+    gpt_shade.GPTState: the rays 24 B, the shadow answers 1 B, the state,
+    the rays it writes 28 B each), and the distinct 32-byte sectors of
+    tri_shade its hits' clamped prims read (columns 0-11 and 21 of every
+    row, 18-20 of a hit's).  The small material and emitter tables are
+    left out.  hits: the Hit records the stage reads, n: its lanes."""
+    from gradientdomain_mitsuba_tpu_torch.ops import gpt_shade as gs
+    last = b + 1 >= n_bounces
+    per_lane = {
+        gs.START: 120 + 12 + 5 * 28 + 28,
+        gs.CONNECT: 120 + 5 + 12 + 48 + 4 * 28,
+        gs.SHIFT: 120 + 4 + 48 + 193 + (0 if n_bounces <= 1 else 56),
+    }.get(stage)
+    if stage == gs.BOUNCE:
+        # the vertex's rays and the shadow answers, the next rays unless
+        # last; tp and alive read and written
+        per_lane = 24 + 1 + (0 if last else 56) + 2 * 13
+        if b == 1:
+            # primal and the offsets' state read and written; coeff and
+            # rest written where a suffix follows
+            per_lane += 2 * 192 + (60 if n_bounces > 2 else 0)
+        else:
+            # rest read and written; the last adds the suffix to primal
+            # and grad (read with coeff, written)
+            per_lane += 2 * 12 + (108 + 60 if last else 0)
+    nbytes = per_lane * n + 8 * n * sum(
+        torch.is_tensor(c) and c.numel() > 1 for c in rng)
+    tri_shade = scene.geom.tri_shade
+    sec = []
+    for hit in hits:
+        nbytes += 13 * hit.prim.shape[0] + 4 * int(hit.valid.sum())
+        prim = hit.prim.long().clamp(0, tri_shade.shape[0] - 1)
+        for prims, cols in ((prim, SHADE_ROW_ALL),
+                            (prim[hit.valid], (18, 19, 20))):
+            cols = torch.tensor(cols, dtype=torch.int64, device=prim.device)
+            sec.append(((torch.unique(prims)[:, None] * tri_shade.shape[1]
+                         + cols) * 4 // 32).flatten())
+    return nbytes + 32 * torch.unique(torch.cat(sec)).numel()
+
+
+class _GptShadeTally:
+    """Stands in for a tracer's GPTShade: counts each launch's bytes bound
+    (gpt_shade_bytes) before passing the call on."""
+
+    def __init__(self, inner):
+        self.inner, self.bytes = inner, []
+        self.n_bounces = inner.n_bounces
+
+    def _tally(self, scene, stage, b, rng, hits, n):
+        self.bytes.append(gpt_shade_bytes(scene, stage, b, self.n_bounces,
+                                          rng, hits, n))
+
+    def start(self, scene, cam, rng):
+        from gradientdomain_mitsuba_tpu_torch.ops import gpt_shade as gs
+        self._tally(scene, gs.START, 0, rng, (cam.hit, cam.hit_off),
+                    cam.o.shape[0])
+        return self.inner.start(scene, cam, rng)
+
+    def connect(self, scene, cam, rng, st, occl, hit):
+        from gradientdomain_mitsuba_tpu_torch.ops import gpt_shade as gs
+        self._tally(scene, gs.CONNECT, 0, rng, (cam.hit, cam.hit_off, hit),
+                    cam.o.shape[0])
+        return self.inner.connect(scene, cam, rng, st, occl, hit)
+
+    def shift(self, scene, cam, rng, st, hit, occl):
+        from gradientdomain_mitsuba_tpu_torch.ops import gpt_shade as gs
+        self._tally(scene, gs.SHIFT, 0, rng, (cam.hit, cam.hit_off, hit),
+                    cam.o.shape[0])
+        return self.inner.shift(scene, cam, rng, st, hit, occl)
+
+    def bounce(self, scene, b, rng, st, hit_v, occl, hit):
+        from gradientdomain_mitsuba_tpu_torch.ops import gpt_shade as gs
+        self._tally(scene, gs.BOUNCE, b, rng, (hit_v, hit), st.tp.shape[0])
+        return self.inner.bounce(scene, b, rng, st, hit_v, occl, hit)
+
+
+def phase_gpt_shade(dev, kernels_rec, forest=None):
+    """Phase 27 (--only step-gpt-shade): the G-PT shading kernels
+    (csrc/gpt_shade.cu) on forest.xml at the G-PT cell's size, one pass
+    of 1920 x 1080 lanes, maxDepth 5: ptxas's registers and spills; each
+    stage's device time in a profiled pass beside its bytes bound,
+    counted from that pass's inputs; launches a pass; the pass's buffers
+    against the eager route's, bit for bit, with equal ray counts; the
+    plain version's time of the shift stage.  Appends the kernels'
+    record to kernels_rec."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gradientdomain_mitsuba_tpu_torch.models.gpt import GPTracer
+    from gradientdomain_mitsuba_tpu_torch.ops import gpt_shade as gs
+    ptx = ptxas_lines(gs._SRC, ("-fmad=false",))
+    for ln in ptx:
+        log(f"gpt_shade.cu ptxas: {ln}")
+    scene, st0, _ = forest if forest is not None else load_forest(dev)
+    st = copy.deepcopy(st0)
+    st.width, st.height, st.spp = 1920, 1080, 1
+    tracer = GPTracer(scene, st)
+    check(tracer.shade is not None, "the forest is not shaded fused")
+    N = st.width * st.height
+    nb = tracer.n_bounces
+    fused = tracer.shade
+    pix = torch.arange(N, dtype=torch.int64, device=dev)
+
+    def one_pass(seed):
+        return tracer.trace_pass(scene, seed, 0, pixel_id=pix)
+    one_pass(1)
+    # the bytes bound of each launch of the seed-2 pass, from its inputs
+    tracer.shade = _GptShadeTally(fused)
+    one_pass(2)
+    bound = [bound_ms(0, x)[0] for x in tracer.shade.bytes]
+    tracer.shade = fused
+    torch.cuda.synchronize()
+    fused.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tracer.count_rays = True
+        tracer.ray_tally = torch.zeros((), dtype=torch.int64, device=dev)
+        got = one_pass(2)
+        rays_fused = int(tracer.ray_tally)
+        torch.cuda.synchronize()
+    launches = fused.launches
+    names = ("gpt_start_kernel", "gpt_connect_kernel", "gpt_shift_kernel",
+             "gpt_bounce_kernel")
+    ms = [e.duration_ns() / 1e6 for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA and
+          any(n in e.name() for n in names)]
+    log(f"G-PT shading kernels at {N} lanes x 5 paths, launches a pass "
+        f"{launches}; device ms a launch {[round(x, 4) for x in ms]} "
+        f"(start, connect, shift, bounces 1-{nb - 1}), bytes bound ms "
+        f"{[round(x, 4) for x in bound]}, kernel / bound "
+        f"{[round(a / b, 3) for a, b in zip(ms, bound)]}; the pass's "
+        f"shading {sum(ms):.3f} ms")
+    check(launches == nb + 2 and len(ms) == nb + 2 and len(bound) == nb + 2,
+          f"{launches} launches, {len(ms)} kernel events, {len(bound)} "
+          f"bounds for {nb} bounces")
+    # the eager route on the same pass
+    tracer.shade = None
+    tracer.ray_tally = torch.zeros((), dtype=torch.int64, device=dev)
+    want = one_pass(2)
+    rays_eager = int(tracer.ray_tally)
+    tracer.ray_tally, tracer.count_rays = None, False
+    tracer.shade = fused
+    torch.cuda.synchronize()
+    not_same = {k: float((got[i] != want[i]).reshape(-1).float().mean())
+                for i, k in ((1, "primal"), (2, "very_direct"),
+                             (3, "grad"))}
+    log(f"fused vs eager pass: share of values not bit-identical "
+        f"{not_same}; rays {rays_fused} against {rays_eager}")
+    check(not any(not_same.values()) and rays_fused == rays_eager,
+          f"the fused pass differs from the eager one: {not_same}, rays "
+          f"{rays_fused} / {rays_eager}")
+    # the plain version's time of the shift stage, on the kernel's inputs
+    rng = (2, pix, 0)
+    eager_parts = {}
+
+    def capture(name):
+        f = getattr(fused, name)
+
+        def g(*a, **k):
+            eager_parts[name] = (a, k)
+            return f(*a, **k)
+        return g
+    fused.connect = capture("connect")
+    fused.shift = capture("shift")
+    one_pass(2)
+    del fused.connect, fused.shift
+    a, _ = eager_parts["shift"]
+    scene_, cam, rng, s, hit, occl = a
+    s = s._replace(grad=s.grad.clone())
+    plain_ms = cuda_ms(lambda: fused.plain_shift(scene, cam, rng, s, hit,
+                                                 occl), iters=3, warmup=1)
+    log(f"plain shift stage {plain_ms:.3f} ms (kernel {ms[2]:.4f} ms)")
+    rec = dict(name="gpt_shade", route="cuda",
+               source="gradientdomain_mitsuba_tpu_torch/csrc/gpt_shade.cu",
+               replaces=None, launches=launches, max_abs_err=0.0,
+               ms=sum(ms), plain_ms=plain_ms, bound_ms=sum(bound),
+               bound_by="bytes", library_ms=None, ms_per_launch=ms,
+               bound_ms_per_launch=bound, ptxas=ptx)
+    kernels_rec.append(rec)
+    return rec
+
+
 def build_kernels():
     """Build the three kernel libraries, one nvcc each, all started
     together; prints how much the overlap saves against building them
@@ -4566,14 +4761,15 @@ def main():
     ap.add_argument("--only", choices=("step-e", "step-f", "step-7a",
                                         "step-g1", "step-g2a", "step-g2b",
                                         "step-g2c", "step-h", "step-i",
-                                        "step-shade"),
+                                        "step-shade", "step-gpt-shade"),
                     help="build the kernels and run one phase that needs "
                          "no earlier one (step-e: phase 17, step-f: phase "
                          "18, step-7a: phase 19, step-g1: phase 20, "
                          "step-g2a: phase 21, step-g2b: phase 22, "
                          "step-g2c: phase 23, step-h: phase 24, step-i: "
-                         "phase 25, step-shade: phase 26), without the "
-                         "result line")
+                         "phase 25, step-shade: phase 26, "
+                         "step-gpt-shade: phase 27), without the result "
+                         "line")
     args = ap.parse_args()
     t_start = time.time()
     # no geometry disk cache but phase 25's own: forest.xml's entry would
@@ -4639,6 +4835,11 @@ def main():
         with Phase("the shading kernel"):
             log(json.dumps({"step_shade": phase_shade(dev, kernels_rec)}))
         log(json.dumps({"kernels": kernels_rec[-1:]}))
+    if args.only == "step-gpt-shade":
+        with Phase("the G-PT shading kernels"):
+            log(json.dumps({"step_gpt_shade": phase_gpt_shade(
+                dev, kernels_rec)}))
+        log(json.dumps({"kernels": kernels_rec[-1:]}))
     if args.only:
         log(f"total {time.time() - t_start:.3f} s")
         log(card_line())
@@ -4659,6 +4860,8 @@ def main():
         v7_gpt = phase_forest_vs_plain(dev, forest)
     with Phase("the shading kernel"):
         step_shade = phase_shade(dev, kernels_rec, forest)
+    with Phase("the G-PT shading kernels"):
+        step_gpt_shade = phase_gpt_shade(dev, kernels_rec, forest)
     with Phase("v4 and v2 kernels vs plain"):
         tri9, v2_out = phase_block_kernels(dev, recs, forest, pair_out)
     with Phase("kernel times at 1M forest rays"):
@@ -4710,7 +4913,8 @@ def main():
                     "step_7a": step_7a, "step_g1": step_g1,
                     "step_g2a": step_g2a, "step_g2b": step_g2b,
                     "step_g2c": step_g2c, "step_h": step_h,
-                    "step_i": step_i, "step_shade": step_shade}))
+                    "step_i": step_i, "step_shade": step_shade,
+                    "step_gpt_shade": step_gpt_shade}))
     log(f"total {time.time() - t_start:.3f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels_rec}))

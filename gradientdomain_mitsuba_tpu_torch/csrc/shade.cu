@@ -45,6 +45,10 @@
 //    reciprocal (inv_n_total);
 //  - clamp and amax propagate NaN; sign(NaN) is 0; int casts truncate;
 //  - IEEE division and sqrtf, the device's sinf / cosf (no fast math).
+//
+// csrc/gpt_shade.cu includes this file with GDMT_SHADE_HELPERS_ONLY defined
+// for the helpers above the kernel (the vector ops, the rounding-order sums,
+// the counter RNG), without the kernel and its exported functions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -240,6 +244,7 @@ __device__ __forceinline__ int wrap(int k, int len) {
   return k < 0 ? 0 : (k >= len ? len - 1 : k);
 }
 
+#ifndef GDMT_SHADE_HELPERS_ONLY
 __global__ void __launch_bounds__(kBlock) path_bounce_kernel(ShadeArgs a) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= a.n) return;
@@ -436,8 +441,11 @@ __global__ void __launch_bounds__(kBlock) path_bounce_kernel(ShadeArgs a) {
   a.alive[i] = alive;
   a.last_delta[i] = 0;
 }
+#endif  // GDMT_SHADE_HELPERS_ONLY
 
 }  // namespace
+
+#ifndef GDMT_SHADE_HELPERS_ONLY
 
 // Plain C interface (bound with ctypes).  Launches one bounce on `stream`,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
@@ -453,3 +461,4 @@ extern "C" int path_bounce(const ShadeArgs* args, void* stream) {
 extern "C" int path_bounce_args_size() {
   return static_cast<int>(sizeof(ShadeArgs));
 }
+#endif  // GDMT_SHADE_HELPERS_ONLY

@@ -25,6 +25,12 @@ offset as a solid one: it refracts about the normal with the offset's
 eta where thindielectric.cpp passes straight through (ROADMAP Queue 3).
 aux_only=True is the reference's restricted tracer that G-BDPT embeds
 for the environment / delta-light family.
+
+The passes ops/gpt_shade.py shades (a scene ops/shade.fused_scene admits:
+diffuse rows, area lights, no textures, the independent sampler; no
+specular vertex; not aux_only) take its fused bounces, a few CUDA
+launches a pass on the card, bit for bit the eager bounces' arithmetic
+on the same traversal calls; every other pass takes the eager _bounce.
 """
 from __future__ import annotations
 
@@ -41,7 +47,9 @@ from ..core.rng import make_sampler
 from ..ops import bsdf as bsdf_ops
 from ..ops import common, emitter as em_ops
 from ..ops import film as film_ops
+from ..ops import gpt_shade
 from ..ops import sensor as sensor_ops
+from ..ops import shade as shade_ops
 from ..ops.emitter import mis_weight
 from ..scene.materials import CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC
 from ..utils import stats
@@ -210,6 +218,19 @@ class GPTracer:
         self.n_bounces = (md - 1 if md > 0 else MAX_BOUNCES_UNLIMITED)
         self.filter_kind = film_ops.FILTERS.get(settings.rfilter, 0)
         self._u1, self._u2 = make_sampler(settings.sampler, settings.spp)
+        # the fused shading wavefront (ops/gpt_shade.py) where the scene
+        # is one it shades, else None: the eager bounce
+        self.shade = (gpt_shade.GPTShade(self, scene)
+                      if self._fused_scene(scene) else None)
+
+    def _fused_scene(self, scene):
+        """Whether ops/gpt_shade.py shades this pass as _bounce and
+        _shift_offsets do: a scene ops/shade.fused_scene admits (diffuse
+        rows, no textures, area lights only, the independent sampler),
+        no specular vertex (every offset reconnects or dies at bounce 0)
+        and not the aux_only tracer, with at least one bounce."""
+        return (shade_ops.fused_scene(self, scene) and not self.aux_only
+                and not self.any_specular and self.n_bounces >= 1)
 
     # ------------------------------------------------------------------
     def _classify_diffuse(self, scene, bsdf_id, valid):
@@ -248,6 +269,12 @@ class GPTracer:
                 u_ap.repeat(4, 1))
             o_o = o_o.reshape(4, N, 3)
             d_o = d_o.reshape(4, N, 3)
+        # (a tracer whose any_specular is set after it was built takes
+        # the general branch, as the eager bounce reads it per pass)
+        if self.shade is not None and not self.any_specular:
+            primal, very, grad = self._trace_fused(
+                scene, (seed, pixel_id, sample_idx), o_m, d_m, o_o, d_o)
+            return pos_film, primal, very, grad
         zeros4 = torch.zeros(4 * N, device=dev)
 
         def trace4(o, d, maxt):
@@ -349,6 +376,46 @@ class GPTracer:
             state["grad"] = state["grad"] + coeff * rest["primal"][None]
         return pos_film, state["primal"], very, state["grad"]
 
+    def _trace_fused(self, scene, rng, o_m, d_m, o_o, d_o):
+        """The bounces of trace_pass through ops/gpt_shade.py: the same
+        traversal calls on the same rays, in the same order, with one
+        shading launch between each pair of them.  Returns (primal,
+        very_direct, gradients)."""
+        N = o_m.shape[0]
+        dev = self.device
+        geom = scene.geom
+        shade = self.shade
+        zeros = torch.zeros(N, device=dev)
+        zeros4 = torch.zeros(4 * N, device=dev)
+        hit_m = self.closest(o_m, d_m, zeros,
+                             torch.full((N,), 3e38, device=dev), geom)
+        o4, d4 = o_o.reshape(4 * N, 3), d_o.reshape(4 * N, 3)
+        hit_o = self.closest(o4, d4, zeros4,
+                             torch.full((4 * N,), 3e38, device=dev), geom)
+        cam = gpt_shade.Camera(o_m, d_m, hit_m, o4, d4, hit_o)
+        with stats.span("bounce", b=0):
+            stats.count("gpt_lanes_fused", N)
+            st = shade.start(scene, cam, rng)
+            occ = self.occluded(st.shadow_o, st.shadow_d,
+                                torch.zeros(5 * N, device=dev),
+                                st.shadow_maxt, geom)
+            hit = self.closest(st.ray_o, st.ray_d, zeros, st.ray_maxt, geom)
+            with stats.span("shift"):
+                st = shade.connect(scene, cam, rng, st, occ, hit)
+                occ = self.occluded(st.recon_o, st.recon_d, zeros4,
+                                    st.recon_maxt, geom)
+                st = shade.shift(scene, cam, rng, st, hit, occ)
+        for b in range(1, self.n_bounces):
+            with stats.span("bounce", b=b):
+                stats.count("gpt_lanes_fused", N)
+                sh_o, sh_d, sh_maxt = st.shadow(N)
+                occ = self.occluded(sh_o, sh_d, zeros, sh_maxt, geom)
+                hit_v = hit
+                hit = self.closest(st.ray_o, st.ray_d, zeros, st.ray_maxt,
+                                   geom)
+                st = shade.bounce(scene, b, rng, st, hit_v, occ, hit)
+        return st.primal, st.very, st.grad
+
     # ------------------------------------------------------------------
     def _bounce(self, scene, s, b, seed, sample_idx, pixel_id, N, eps,
                 occl4, trace4, allow_conn0=True, with_offsets=True,
@@ -356,6 +423,7 @@ class GPTracer:
         """One lockstep bounce.  with_offsets=False runs the plain-PT
         subset only (main NEE + main BSDF segment, offset state passed
         through untouched)."""
+        stats.count("gpt_lanes_eager", N)
         st = self.settings
         dev = self.device
         depth = b + 1

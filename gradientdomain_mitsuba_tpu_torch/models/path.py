@@ -39,7 +39,7 @@ import torch
 from ..config import configure
 from ..core import math as m
 from ..core.rng import DimAllocator as DA
-from ..core.rng import make_sampler, uniform_2d, uniform_float
+from ..core.rng import make_sampler
 from ..ops import bsdf as bsdf_ops
 from ..ops import common, emitter as em_ops
 from ..ops import film as film_ops
@@ -118,20 +118,9 @@ class PathTracer:
 
     def _fused_scene(self, scene):
         """Whether ops/shade.py's bounce shades this scene as _bounce
-        does: only diffuse rows (no mask or coating pseudo-kind), no
-        textures and no bump / normal map columns, the 29-column
-        tri_shade (no barycentric payload) and no analytic spheres, area
-        lights only (at least one, no delta light, no environment), and
-        the independent sampler's draws (uniform_float / uniform_2d), so
-        not draws passed in as `samplers` (pssmlt's)."""
-        g = scene.geom
-        return (self.kinds == {bsdf_ops.DIFFUSE} and not self.has_textures
-                and scene.materials.packed.shape[1] < 32
-                and g.tri_shade.shape[1] == shade_ops.SHADE_COLUMNS
-                and g.sph_center.shape[0] == 0
-                and self.n_area >= 1 and self.n_delta == 0
-                and not self.has_env
-                and (self._u1, self._u2) == (uniform_float, uniform_2d))
+        does (ops/shade.fused_scene: diffuse rows, no textures, area
+        lights only, the independent sampler)."""
+        return shade_ops.fused_scene(self, scene)
 
     # -- one sample per pixel for the whole frame ---------------------------
     def trace_pass(self, scene, seed, sample_idx, pixel_id=None,

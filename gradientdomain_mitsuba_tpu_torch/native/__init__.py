@@ -11,8 +11,9 @@ renames it into place, so concurrent processes never load a torn file.
                 test holds the two equal).  Both packages take the same
                 route (native when it builds, Python otherwise), so both
                 lay triangles out in the same order.
-  sweep, trace, trace_block, shade — the CUDA kernels of csrc/
-                (ops/sweep.py, ops/trace.py, ops/shade.py),
+  sweep, trace, trace_block, shade, gpt_shade — the CUDA kernels of
+                csrc/ (ops/sweep.py, ops/trace.py, ops/shade.py,
+                ops/gpt_shade.py),
                 compiled by nvcc_command for sm_90a and loaded by
                 load_cuda; check_tensors validates what their wrappers
                 pass as pointers.
@@ -39,14 +40,14 @@ _LOCK = threading.Lock()
 _LIBS = {}
 
 
-def build_library(name: str, sources, command) -> str:
+def build_library(name: str, sources, command, deps=()) -> str:
     """Compile `sources` with `command(sources, out_path)` (an argv list)
     into BUILD_DIR unless an identical build is already there (a build
-    adds to the trace's kernel_builds counter).  Returns the library
-    path; raises RuntimeError with the compiler's output if the build
-    fails."""
+    adds to the trace's kernel_builds counter).  `deps`: files the
+    sources include, hashed with them.  Returns the library path; raises
+    RuntimeError with the compiler's output if the build fails."""
     h = hashlib.sha1()
-    for src in sources:
+    for src in (*sources, *deps):
         with open(src, "rb") as f:
             h.update(f.read())
     h.update(" ".join(command(sources, "OUT")).encode())
@@ -90,18 +91,20 @@ def nvcc_command(sources, out, flags=()):
             *sources, "-o", out]
 
 
-def load_cuda(name: str, source: str, functions: dict, flags=()):
-    """Build `source` with nvcc and `flags` (first call only) and load it.
-    `functions` maps each exported C function to its ctypes argtypes;
-    every one returns an int (the CUDA error code).  The build runs
-    outside the lock, so threads loading different libraries run their
-    nvcc at the same time (build_library's rename keeps a build atomic)."""
+def load_cuda(name: str, source: str, functions: dict, flags=(), deps=()):
+    """Build `source` with nvcc and `flags` (first call only) and load it;
+    `deps` are the files it includes.  `functions` maps each exported C
+    function to its ctypes argtypes; every one returns an int (the CUDA
+    error code).  The build runs outside the lock, so threads loading
+    different libraries run their nvcc at the same time (build_library's
+    rename keeps a build atomic)."""
     with _LOCK:
         if name in _LIBS:
             return _LIBS[name]
     with stats.span("kernel_load", lib=name):
         path = build_library(
-            name, [source], lambda src, out: nvcc_command(src, out, flags))
+            name, [source], lambda src, out: nvcc_command(src, out, flags),
+            deps=deps)
         with _LOCK:
             if name not in _LIBS:
                 lib = ctypes.CDLL(path)

@@ -4,8 +4,8 @@ No counterpart in the reference: its bounce (models/path.py _bounce) is
 jnp code that XLA fuses, with no Pallas kernel behind it.  The port's
 eager bounce runs about a thousand launches, each over whole lane
 arrays; csrc/shade.cu does the bounce of the scenes this module admits
-(models/path.py PathTracer._fused_scene: diffuse rows, no textures, the
-29-column tri_shade, no spheres, area lights only, the independent
+(fused_scene, which ops/gpt_shade.py shares: diffuse rows, no textures,
+the 29-column tri_shade, no spheres, area lights only, the independent
 sampler) in one pass over the lanes (see the note there for the design).
 
 A launch b takes the closest hits of bounce b's rays and the answers of
@@ -103,6 +103,25 @@ def load_library():
         raise RuntimeError(f"csrc/shade.cu ShadeArgs is {size} bytes, "
                            f"ops/shade.py _Args {ctypes.sizeof(_Args)}")
     return lib
+
+
+def fused_scene(tracer, scene):
+    """Whether the fused shading kernels shade this scene as the eager
+    bounces do: only diffuse rows (no mask or coating pseudo-kind), no
+    textures and no bump / normal map columns, the 29-column tri_shade
+    (no barycentric payload) and no analytic spheres, area lights only
+    (at least one, no delta light, no environment), and the independent
+    sampler's draws (uniform_float / uniform_2d), so not draws passed in
+    as samplers (pssmlt's).  `tracer` is a PathTracer or a GPTracer: its
+    kinds, has_textures, n_area, n_delta, has_env, _u1 and _u2."""
+    g = scene.geom
+    return (tracer.kinds == {bsdf_ops.DIFFUSE} and not tracer.has_textures
+            and scene.materials.packed.shape[1] < 32
+            and g.tri_shade.shape[1] == SHADE_COLUMNS
+            and g.sph_center.shape[0] == 0
+            and tracer.n_area >= 1 and tracer.n_delta == 0
+            and not tracer.has_env
+            and (tracer._u1, tracer._u2) == (uniform_float, uniform_2d))
 
 
 def _counter(x, n, dev):
